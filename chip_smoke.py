@@ -8,22 +8,39 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 It imports nothing of JAX or of the JAX package.  Phases, each printing one
 JSON line; any failed check exits non-zero:
 
-1. build      compile `vln_imagine_tpu_torch/csrc/attention_fwd.cu` with nvcc
-              for sm_90a into `build/kernels/` and load it.
-2. main_path  HAMT-Imagine greedy eval (`HamtTrainer.make_eval_step`) at the
-              released R2R config, full width, bf16, on the synthetic world of
-              bench.py (2 scans x 96 nodes x 36 views x 768 features), batch 64
-              and 8, seeded random weights: valid walks, the attention launch
-              count (9 + 18 per step), episodes/s, SR/SPL/nDTW, peak memory.
-3. parity     the same weights in f32 at batch 4: the port on the card (kernel)
-              against the port on the CPU (plain version): identical paths,
-              step-0 logits within LOGIT_TOL.
-4. kernels    the attention kernel against its plain PyTorch version on the
-              card, at every (Lq, Lk) of the HAMT eval path, B 8 and 64, bf16
-              and f32, [B,1,1,Lk] mask and per-head bias, q/k/v as views of a
-              packed projection; kernel, plain and library times (CUDA-graph
-              replays between CUDA events) beside the least time the card
-              could take.
+1. build        compile every kernel source (`vln_imagine_tpu_torch/csrc/
+                attention_fwd.cu`: K1, K2; `attention_bwd.cu`: K3, K4) with
+                nvcc for sm_90a into `build/kernels/`, one nvcc per source,
+                all started together, and load them.
+2. main_path    HAMT-Imagine greedy eval (`HamtTrainer.make_eval_step`) at the
+                released R2R config, full width, bf16, on the synthetic world
+                of bench.py (2 scans x 96 nodes x 36 views x 768 features),
+                batch 64 and 8, seeded random weights: valid walks, K1's
+                launch count (9 + 18 per step, K2-K4 none), episodes/s,
+                SR/SPL/nDTW, peak memory.
+3. parity       the same weights in f32 at batch 4: the port on the card
+                (kernel) against the port on the CPU (plain version):
+                identical paths, step-0 logits within LOGIT_TOL.
+4. train        the IL + RL train step (`HamtTrainer.make_train_step
+                ("sample")`) at the released config, full width, bf16, batch
+                8, attention dropout 0.1 on: one warm-up step and three timed
+                ones.  Finite losses, grad_norm finite and > 0, stage-1
+                semantics (only the aux groups and the critic move, every
+                other parameter bitwise unchanged), K2/K3 launches per step
+                (`train_launches_per_step`: 448 / 368, K1 and K4 none), ms
+                per step, peak memory.
+5. train_parity one teacher step in f32 with every dropout off at batch 2,
+                full width: the card (K1 forward, K4 backward) against the
+                CPU (plain versions): loss and grad_norm within 1e-4
+                relative, updated parameters within UPDATE_TOL.
+6. kernels      every kernel against its plain PyTorch version on the card:
+                K1 at every (Lq, Lk) of the eval path, B 8 and 64, and of
+                the teacher step, B 8; K2 (both bit sources), K3 (both) and
+                K4 at every training shape, B 8;
+                bf16 and f32, [B,1,1,Lk] mask and per-head bias (dBias
+                checked there), q/k/v as views of a packed projection.
+                Kernel, plain and library times (CUDA-graph replays between
+                CUDA events) beside the least time the card could take.
 
 Then the kernel summary line `{"kernels": [...]}`, the card's name and power
 limit, and last the result line.  Without a CUDA device, or outside a
@@ -33,6 +50,7 @@ checkout of the repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -40,33 +58,63 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCE = "vln_imagine_tpu_torch/csrc/attention_fwd.cu"
-REPLACES = "vln_imagine_tpu/ops/attention.py:57"  # _fwd_kernel
+CSRC = "vln_imagine_tpu_torch/csrc"
+KERNEL_SOURCES = (f"{CSRC}/attention_fwd.cu", f"{CSRC}/attention_bwd.cu")
+TPU = "vln_imagine_tpu/ops/attention.py"
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "attention_fwd": (KERNEL_SOURCES[0], f"{TPU}:57"),          # _fwd_kernel
+    "attention_dropout_fwd": (KERNEL_SOURCES[0], f"{TPU}:119"),  # _fwd_dropout_kernel
+    "attention_dropout_bwd": (KERNEL_SOURCES[1], f"{TPU}:133"),  # _bwd_dropout_kernel
+    "attention_bwd": (KERNEL_SOURCES[1], f"{TPU}:67"),           # _bwd_kernel
+}
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
-# rate of the kernel's arithmetic for its input type (bf16 on tensor cores,
-# f32 outside them: TF32 stays off)
+# rate of the kernels' arithmetic for their input type (bf16 on tensor
+# cores, f32 outside them: TF32 stays off)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # kernel vs plain, both on the card.  f32: the same products summed in
-# another order (64-term dot products, <= 80-term PV sums) differ by ~1e-6;
-# 1e-4 leaves room.  bf16: P and O are rounded to bf16 on both sides, so a
-# score one f32 ulp apart can flip P by one bf16 ulp and O by one (2^-7 at
-# |O| ~ 1); atol and rtol 1e-2 cover about two ulps.
+# another order (64-term dot products, <= 80-term sums over keys or query
+# rows) differ by ~1e-6; 1e-4 leaves room.  bf16: P and O are rounded to
+# bf16 on both sides, so a score one f32 ulp apart can flip P by one bf16
+# ulp and O by one (2^-7 at |O| ~ 1); atol and rtol 1e-2 cover about two
+# ulps.  The backward's outputs are rounded once, from f32 sums, so the
+# same bound holds for them.
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # step-0 action logits, f32, card vs CPU: 13 transformer layers of width 768
 # on two math libraries (cuBLAS vs the CPU's BLAS)
 LOGIT_TOL = 1e-3
+# train_parity: loss and grad_norm, f32, card vs CPU, relative
+TRAIN_TOL = 1e-4
+# train_parity, updated parameters.  In stage 1 Adam's first step moves an
+# element by lr*10 * g / (|g| + 1e-8): about 1e-4 in magnitude whatever |g|
+# is.  Where |g| is at the level of the card-vs-CPU rounding of the
+# gradient, the two may move it differently, up to 2e-4 apart.  So: every
+# element within 2 * 1e-4 (plus f32 rounding of the parameter), and all but
+# UPDATE_FRACTION of them within 1e-6.
+UPDATE_TOL = 1e-6
+UPDATE_FRACTION = 1e-3
 
 # (Lq, Lk) of every attention call of HAMT greedy eval at the released
 # config: language self 60/60; x-layer cross 80/67 and 67/80, self 80/80
-# and 67/67 (80 = 60 text + 20 imagination, 67 = 16 history + 51 obs);
-# history pano encoder 36/36
+# and 67/67 (80 = 60 text + 20 imagination, 67 = 16 history slots + 51 obs);
+# history pano encoder 36/36.  A train step adds the IL rollout's x-layer
+# shapes: its 8 steps keep 9 history slots, so 60 visual tokens (80/60,
+# 60/80, 60/60)
 SHAPES = [(60, 60), (80, 80), (80, 67), (67, 80), (67, 67), (36, 36)]
+TRAIN_SHAPES = SHAPES + [(80, 60), (60, 80)]
 HEADS, HEAD_DIM = 12, 64
 BATCHES = (64, 8)
-REPRESENTATIVE = (64, 67, 67, "bfloat16", "mask")  # the summary line's case
+TRAIN_BATCH = 8
+REPRESENTATIVE = {  # the summary line's case per kernel
+    "attention_fwd": (64, 67, 67, "bfloat16", "mask"),
+    "attention_dropout_fwd": (8, 67, 67, "bfloat16", "mask"),
+    "attention_dropout_bwd": (8, 67, 67, "bfloat16", "mask"),
+    "attention_bwd": (8, 67, 67, "bfloat16", "mask"),
+}
+DROPOUT = 0.1  # attention_probs_dropout_prob of the released config
 
 
 def emit(obj) -> None:
@@ -86,20 +134,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
+def time_ms(torch, fn, iters: int = 20, repeats: int = 5,
+            stream=None) -> float:
     """Device time of one call: `iters` calls captured in a CUDA graph,
     replayed `repeats` times between CUDA events, median over the replays
     divided by `iters`.  The graph keeps the host's launch rate out of the
     number (at B 8 a call takes the device less time than Python takes to
     launch it).  Inputs stay warm in L2, as on the main path, where the
-    projection that produced q/k/v ran just before."""
-    side = torch.cuda.Stream()
+    projection that produced q/k/v ran just before.  `stream`: the capture
+    stream, for a backward whose forward ran there (autograd runs each
+    backward op on its forward's stream)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capture
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -113,6 +164,7 @@ def time_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    del graph
     return statistics.median(times)
 
 
@@ -142,7 +194,7 @@ def main_path_phase(torch, cfg, world):
         trajectories_from_rollout,
     )
     from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops.attention import fused_attention
+    from vln_imagine_tpu_torch.ops import attention
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
 
     T = cfg.env.max_action_len
@@ -162,14 +214,16 @@ def main_path_phase(torch, cfg, world):
     setup_s = time.perf_counter() - t0
 
     # the counted run: every count set to 0 just before, read just after
-    fused_attention.launches = 0
+    attention.reset_launch_counts()
     runs = {}
     for B in BATCHES:
-        before = fused_attention.launches
+        before = attention.attention_fwd.launches
         nodes, lens = eval_step(eps[B])
         nodes, lens = nodes.cpu().numpy(), lens.cpu().numpy()
-        runs[B] = (nodes, lens, fused_attention.launches - before)
-    launches = fused_attention.launches
+        runs[B] = (nodes, lens, attention.attention_fwd.launches - before)
+    launches = attention.launch_counts()
+    check(launches["attention_fwd"] > 0 and sum(launches.values())
+          == launches["attention_fwd"], f"eval launches {launches}")
 
     results = []
     for B in BATCHES:
@@ -207,7 +261,7 @@ def main_path_phase(torch, cfg, world):
     emit({"phase": "main_path", "config": "hamt_r2r_config",
           "compute_dtype": cfg.model.compute_dtype,
           "params": sum(p.numel() for p in trainer.model.parameters()),
-          "setup_s": setup_s, "runs": results})
+          "setup_s": setup_s, "launches": launches, "runs": results})
     del trainer
     torch.cuda.empty_cache()
     return launches
@@ -219,7 +273,7 @@ def parity_phase(torch, cfg, world):
 
     from vln_imagine_tpu_torch.config import _replace
     from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops.attention import fused_attention
+    from vln_imagine_tpu_torch.ops import attention
     from vln_imagine_tpu_torch.train.rollout_hamt import rollout_hamt
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
 
@@ -228,11 +282,11 @@ def parity_phase(torch, cfg, world):
     out = {}
     for dev in ("cuda", "cpu"):
         trainer = HamtTrainer(cfg32, world, device=dev)
-        before = fused_attention.launches
+        before = attention.attention_fwd.launches
         nodes, lens = trainer.make_eval_step()(ep)
         step0 = rollout_hamt(trainer.model, trainer.tables, ep.to(dev), cfg32,
                              max_steps=1, early_exit=False).logits[0]
-        launched = fused_attention.launches - before
+        launched = attention.attention_fwd.launches - before
         check(launched > 0 if dev == "cuda" else launched == 0,
               f"{dev}: {launched} kernel launches")
         out[dev] = (nodes.cpu().numpy(), lens.cpu().numpy(),
@@ -253,85 +307,332 @@ def parity_phase(torch, cfg, world):
 
 
 # --------------------------------------------------------------- phase 4
-def kernel_case(torch, B, lq, lk, dtype_name, bias_kind, gen):
-    import torch.nn.functional as F
+def train_launches_per_step(cfg) -> tuple[int, int]:
+    """K2 and K3 launches of one 'sample' step: every attention call has
+    dropout on (K2).  IL rollout: the language stack once, then per step 4
+    per cross-modal layer and 1 per pano layer; the RL rollout the same over
+    max_action_len steps plus the final-state visual call (4 per x-layer).
+    Backward (K3): only the x-layer calls, since fix_lang_embedding and
+    fix_hist_embedding keep the language stack and the pano encoder out of
+    autograd and the final-state value is under stop-gradient."""
+    m, e = cfg.model, cfg.env
+    t_il, t_rl = min(e.max_gt_path_len, e.max_action_len), e.max_action_len
+    per_step = 4 * m.num_x_layers + m.num_pano_layers
+    k2 = (m.num_l_layers + t_il * per_step) + (m.num_l_layers + t_rl * per_step
+                                               + 4 * m.num_x_layers)
+    k3 = 4 * m.num_x_layers * (t_il + t_rl)
+    return k2, k3
 
-    from vln_imagine_tpu_torch.ops.attention import (
-        attention_reference,
-        fused_attention,
-    )
+
+def train_phase(torch, cfg, world):
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.train.optim import label_hamt_param
+    from vln_imagine_tpu_torch.train.trainer import HamtTrainer
+
+    check(cfg.model.fix_lang_embedding and cfg.model.fix_hist_embedding
+          and cfg.model.attention_probs_dropout_prob > 0,
+          "the released config fixes the language and history embeddings "
+          "and trains with attention dropout")
+    k2_want, k3_want = train_launches_per_step(cfg)
+    t0 = time.perf_counter()
+    trainer = HamtTrainer(cfg, world, device="cuda")
+    ep = bench_episodes(world, cfg, TRAIN_BATCH).to("cuda")
+    model0 = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    critic0 = {k: v.clone() for k, v in trainer.critic.state_dict().items()}
+    step = trainer.make_train_step("sample")
+    step(ep, ep)  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    times, metrics, counts = [], [], []
+    for _ in range(3):
+        before = attention.launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        m = step(ep, ep)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+        after = attention.launch_counts()
+        counts.append({k: after[k] - before[k] for k in after})
+    launches = attention.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    for m in metrics:
+        check(all(math.isfinite(v) for v in m.values()), f"train metrics {m}")
+        check(m["grad_norm"] > 0, f"grad_norm {m['grad_norm']}")
+    for c in counts:
+        check(c == {"attention_fwd": 0, "attention_dropout_fwd": k2_want,
+                    "attention_dropout_bwd": k3_want, "attention_bwd": 0},
+              f"launches per train step {c}, expected K2 {k2_want} and K3 "
+              f"{k3_want} only")
+    moved, still = [], []
+    for name, v in trainer.model.state_dict().items():
+        (still if torch.equal(v, model0[name]) else moved).append(name)
+    check(all(label_hamt_param(n) == "rest" for n in still)
+          and all(label_hamt_param(n) != "rest" for n in moved),
+          f"stage 1: moved {[n for n in moved if label_hamt_param(n) == 'rest'][:5]}, "
+          f"still {[n for n in still if label_hamt_param(n) != 'rest'][:5]}")
+    check(all(not torch.equal(v, critic0[k])
+              for k, v in trainer.critic.state_dict().items()),
+          "the critic did not move")
+    emit({"phase": "train", "config": "hamt_r2r_config", "feedback": "sample",
+          "compute_dtype": cfg.model.compute_dtype, "batch": TRAIN_BATCH,
+          "params": sum(p.numel() for p in trainer.model.parameters()),
+          "critic_params": sum(p.numel() for p in trainer.critic.parameters()),
+          "setup_s": setup_s, "step_ms": statistics.median(times),
+          "step_ms_all": times, "peak_mem_bytes": peak, "metrics": metrics,
+          "launches_per_step": counts[0], "launches": launches,
+          "expected_per_step": {"attention_dropout_fwd": k2_want,
+                                "attention_dropout_bwd": k3_want},
+          "params_moved": len(moved), "params_unchanged": len(still)})
+    del trainer, model0, critic0
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------- phase 5
+def train_parity_phase(torch, cfg, world):
+    from vln_imagine_tpu_torch.config import _replace
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.train.trainer import HamtTrainer
+
+    cfg32 = _replace(cfg, "model", compute_dtype="float32",
+                     hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                     pred_head_dropout_prob=0.0)
+    cfg32 = _replace(cfg32, "train", feat_dropout=0.0)
+    ep = bench_episodes(world, cfg32, 2)
+    out, launches = {}, None
+    for dev in ("cuda", "cpu"):
+        trainer = HamtTrainer(cfg32, world, device=dev)
+        # the alignment head's fixed 0.15 dropout, off on both sides
+        trainer.model.contrastive_alignment_model.image_proj.rate = 0.0
+        before = {k: v.detach().cpu().clone()
+                  for k, v in trainer.model.named_parameters()}
+        if dev == "cuda":
+            attention.reset_launch_counts()
+        m = trainer.make_train_step("teacher")(ep, ep)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = attention.launch_counts()
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() - before[k]
+                     for k, v in trainer.model.named_parameters()})
+        del trainer
+    torch.cuda.empty_cache()
+    (gm, gu), (cm, cu) = out["cuda"], out["cpu"]
+    rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-30)
+           for k in ("loss", "grad_norm", "ml_loss", "aux_loss")}
+    worst, n_off, n_all = 0.0, 0, 0
+    for name in cu:
+        d = (gu[name] - cu[name]).abs()
+        worst = max(worst, float(d.max()))
+        n_off += int((d > UPDATE_TOL).sum())
+        n_all += d.numel()
+    moved = sum(int((u != 0).sum()) for u in cu.values())
+    emit({"phase": "train_parity", "compute_dtype": "float32", "batch": 2,
+          "feedback": "teacher", "card": gm, "cpu": cm, "rel_err": rel,
+          "tol": TRAIN_TOL, "launches": launches,
+          "update_max_abs_err": worst, "update_elements_off": n_off,
+          "update_elements": n_all, "elements_moved": moved,
+          "update_tol": UPDATE_TOL, "update_fraction": UPDATE_FRACTION})
+    check(launches["attention_fwd"] > 0 and launches["attention_bwd"] > 0
+          and launches["attention_dropout_fwd"] == 0
+          and launches["attention_dropout_bwd"] == 0,
+          f"train_parity launches {launches}")
+    check(all(r <= TRAIN_TOL for r in rel.values()), f"card vs CPU {rel}")
+    check(moved > 0, "no parameter moved")
+    check(worst <= 2.0 * cfg.train.lr * 10.0 + 1e-6
+          and n_off <= UPDATE_FRACTION * moved,
+          f"updates differ: max {worst}, {n_off} of {moved} moved elements "
+          f"beyond {UPDATE_TOL}")
+    return launches
+
+
+# --------------------------------------------------------------- phase 6
+def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen):
     from vln_imagine_tpu_torch.ops.masks import extend_neg_mask
 
-    dev, dtype = "cuda", getattr(torch, dtype_name)
-    H, D = HEADS, HEAD_DIM
+    dev, H, D = "cuda", HEADS, HEAD_DIM
     # q from one packed [B, Lq, 3*H*D] product, k/v from another: strided
-    # views with row stride 2304, as MHAttention hands them to the kernel
+    # views with row stride 2304, as MHAttention hands them to the kernels
     qx = torch.randn(B, lq, 3 * H * D, device=dev, generator=gen).to(dtype)
     kvx = torch.randn(B, lk, 3 * H * D, device=dev, generator=gen).to(dtype)
     q = qx[..., :H * D].unflatten(-1, (H, D))
     k, v = (x.unflatten(-1, (H, D)) for x in kvx[..., H * D:].split(H * D, -1))
+    do = torch.randn(B, lq, H, D, device=dev, generator=gen).to(dtype)
     if bias_kind == "per_head":
         bias = torch.randn(B, H, lq, lk, device=dev, generator=gen)
     else:
         keep = torch.rand(B, lk, device=dev, generator=gen) < 0.8
         keep[:, 0] = True
         bias = extend_neg_mask(keep)  # [B, 1, 1, Lk]
-    scale = D ** -0.5
+    return q, k, v, do, bias
 
-    before = fused_attention.launches
-    got = fused_attention(q, k, v, bias, scale)
-    want = attention_reference(q, k, v, bias, scale)
-    torch.cuda.synchronize()
-    check(fused_attention.launches == before + 1, "the kernel was not launched")
-    err = (got.float() - want.float()).abs().max().item()
-    tol = KERNEL_TOL[dtype_name]
-    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-          f"kernel vs plain B{B} {lq}x{lk} {dtype_name} {bias_kind}: "
-          f"max abs err {err}")
 
-    # the yardstick: one PyTorch call computing the same function
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    mask = bias.to(dtype)
-
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                              scale=scale)
-
-    lib_err = (library().transpose(1, 2).float() - want.float()).abs().max().item()
-
-    # least time: each input read once, the output written once; the two
-    # products' operations at the input type's peak
-    elt = q.element_size()
-    nbytes = (2 * B * lq + 2 * B * lk) * H * D * elt + bias.numel() * 4
-    flops = 4 * B * H * lq * lk * D
+def _bound(nbytes: int, flops: int, dtype_name: str) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
-    return {
-        "B": B, "Lq": lq, "Lk": lk, "dtype": dtype_name, "bias": bias_kind,
-        "max_abs_err": err, "tol": tol,
-        "ms": time_ms(torch, lambda: fused_attention(q, k, v, bias, scale)),
-        "plain_ms": time_ms(torch, lambda: attention_reference(q, k, v, bias,
-                                                               scale)),
-        "library_ms": time_ms(torch, library),
-        "library_max_abs_err": lib_err,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes, "flops": flops,
-    }
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _max_err(got, want) -> float:
+    return max((g.float() - w.float()).abs().max().item()
+               for g, w in zip(got, want) if g is not None)
+
+
+def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
+                bits=None, timed=False):
+    """One kernel against its plain version (and, timed, against the
+    library call) at one shape."""
+    import torch.nn.functional as F
+
+    from vln_imagine_tpu_torch.ops import attention as A
+
+    dtype = getattr(torch, dtype_name)
+    q, k, v, do, bias = _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen)
+    scale, seed = HEAD_DIM ** -0.5, 0x5EED_1234_ABCD
+    wrapper = A.KERNELS[kernel]
+    need_db = bias_kind == "per_head"
+    if kernel == "attention_fwd":
+        def run():
+            return (A.attention_fwd(q, k, v, bias, scale),)
+
+        def plain():
+            return (A.attention_reference(q, k, v, bias, scale),)
+    elif kernel == "attention_dropout_fwd":
+        def run():
+            return (A.attention_dropout_fwd(q, k, v, bias, scale, DROPOUT,
+                                            seed, bits),)
+
+        def plain():
+            return (A.attention_dropout_reference(q, k, v, bias, scale,
+                                                  DROPOUT, seed, bits),)
+    elif kernel == "attention_dropout_bwd":
+        def run():
+            return A.attention_dropout_bwd(q, k, v, bias, do, scale, DROPOUT,
+                                           seed, bits, need_dbias=need_db)
+
+        def plain():
+            return A.attention_bwd_reference(q, k, v, bias, do, scale,
+                                             DROPOUT, seed, bits)
+    else:
+        def run():
+            return A.attention_bwd(q, k, v, bias, do, scale,
+                                   need_dbias=need_db)
+
+        def plain():
+            return A.attention_bwd_reference(q, k, v, bias, do, scale)
+
+    before = wrapper.launches
+    got = run()
+    want = plain()
+    torch.cuda.synchronize()
+    check(wrapper.launches == before + 1, f"{kernel} was not launched")
+    if not need_db and len(want) == 4:
+        want = want[:3]
+    check(len(got) == len(want) or (len(got) == 4 and got[3] is None),
+          f"{kernel} outputs")
+    err = _max_err(got, want)
+    tol = KERNEL_TOL[dtype_name]
+    for g, w in zip(got, want):
+        if g is not None:
+            check(torch.allclose(g.float(), w.float(), rtol=tol, atol=tol),
+                  f"{kernel} vs plain B{B} {lq}x{lk} {dtype_name} "
+                  f"{bias_kind} {bits}: max abs err {err}")
+    case = {"kernel": kernel, "B": B, "Lq": lq, "Lk": lk, "dtype": dtype_name,
+            "bias": bias_kind, "bits": bits, "max_abs_err": err, "tol": tol}
+    if not timed:
+        return case
+
+    # least time: each input read once, each output written once; the
+    # products' operations at the input type's peak (the dropout bits'
+    # integer work is not counted)
+    elt = q.element_size()
+    qkv_bytes = (B * lq + 2 * B * lk) * HEADS * HEAD_DIM * elt
+    o_bytes = B * lq * HEADS * HEAD_DIM * elt
+    bias_bytes = bias.numel() * 4
+    mn = B * HEADS * lq * lk * HEAD_DIM
+    mask = bias.to(dtype)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if kernel in ("attention_fwd", "attention_dropout_fwd"):
+        bound = _bound(qkv_bytes + o_bytes + bias_bytes, 4 * mn, dtype_name)
+        p = DROPOUT if kernel == "attention_dropout_fwd" else 0.0
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  dropout_p=p, scale=scale)
+    else:
+        # reads q, k, v, dO (and the bias), writes dQ, dK, dV (and dBias)
+        nbytes = (qkv_bytes + o_bytes + qkv_bytes + bias_bytes
+                  + (bias_bytes if need_db else 0))
+        bound = _bound(nbytes, 10 * mn, dtype_name)
+        p = DROPOUT if kernel == "attention_dropout_bwd" else 0.0
+        lib_stream = torch.cuda.Stream()
+        lib_stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(lib_stream):
+            lq_, lk_, lv_ = (x.detach().transpose(1, 2).contiguous()
+                             .requires_grad_() for x in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(
+                lq_, lk_, lv_, attn_mask=mask, dropout_p=p, scale=scale)
+            lib_do = do.transpose(1, 2).contiguous()
+
+        def library():  # SDPA's backward alone
+            return torch.autograd.grad(lib_out, (lq_, lk_, lv_), lib_do,
+                                       retain_graph=True)
+    case.update(ms=time_ms(torch, run), plain_ms=time_ms(torch, plain))
+    if kernel in ("attention_fwd", "attention_dropout_fwd"):
+        case["library_ms"] = time_ms(torch, library)
+    else:
+        case["library_ms"] = time_ms(torch, library, stream=lib_stream)
+    case.update(bound)
+    return case
 
 
 def kernels_phase(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [kernel_case(torch, B, lq, lk, dt, bk, gen)
-             for B in BATCHES for (lq, lk) in SHAPES
-             for dt in ("bfloat16", "float32") for bk in ("mask", "per_head")]
+    cases = []
+    for B in BATCHES:  # K1: the eval path's batches
+        for lq, lk in SHAPES:
+            for dt in ("bfloat16", "float32"):
+                for bk in ("mask", "per_head"):
+                    cases.append(kernel_case(torch, "attention_fwd", B, lq, lk,
+                                             dt, bk, gen, timed=True))
+    for lq, lk in TRAIN_SHAPES[len(SHAPES):]:  # K1 in a teacher step
+        for dt in ("bfloat16", "float32"):
+            for bk in ("mask", "per_head"):
+                cases.append(kernel_case(torch, "attention_fwd", TRAIN_BATCH,
+                                         lq, lk, dt, bk, gen))
+    for lq, lk in TRAIN_SHAPES:  # K2-K4: the training batch
+        for dt in ("bfloat16", "float32"):
+            for bk in ("mask", "per_head"):
+                # timed at the train step's case: bf16, mask, Philox bits
+                timed = dt == "bfloat16" and bk == "mask"
+                for kernel, bits in (("attention_dropout_fwd", "philox"),
+                                     ("attention_dropout_fwd", "hash"),
+                                     ("attention_dropout_bwd", "philox"),
+                                     ("attention_dropout_bwd", "hash"),
+                                     ("attention_bwd", None)):
+                    cases.append(kernel_case(
+                        torch, kernel, TRAIN_BATCH, lq, lk, dt, bk, gen,
+                        bits=bits, timed=timed and bits != "hash"))
     emit({"phase": "kernels", "cases": cases})
     return cases
 
 
 def main() -> None:
-    if not (ROOT / KERNEL_SOURCE).is_file():
+    missing = [s for s in KERNEL_SOURCES if not (ROOT / s).is_file()]
+    if missing:
         print("chip_smoke: run it from a checkout of the repository "
-              f"({KERNEL_SOURCE} is missing)", file=sys.stderr)
+              f"({missing} missing)", file=sys.stderr)
         raise SystemExit(2)
     import torch
 
@@ -346,30 +647,41 @@ def main() -> None:
     from vln_imagine_tpu_torch.ops import attention
 
     t = time.perf_counter()
-    lib = attention.load_kernel()
+    libs = attention.load_kernels()
     emit({"phase": "build", "seconds": time.perf_counter() - t,
-          "library": Path(lib._name).name, "nvcc_flags": attention.NVCC_FLAGS})
+          "libraries": [Path(lib._name).name for lib in libs.values()],
+          "nvcc_flags": attention.NVCC_FLAGS})
 
     cfg = hamt_r2r_config()
     world = bench_world(cfg)
-    launches = main_path_phase(torch, cfg, world)
-    check(launches > 0, "the main path launched no attention kernel")
+    path_launches = {"eval": main_path_phase(torch, cfg, world)}
     parity_phase(torch, cfg, world)
-    # after the main path, so that its peak memory is its own
+    path_launches["train"] = train_phase(torch, cfg, world)
+    path_launches["train_parity"] = train_parity_phase(torch, cfg, world)
+    # after the paths, so that their peak memory is their own
     cases = kernels_phase(torch)
 
-    rep = next(c for c in cases
-               if (c["B"], c["Lq"], c["Lk"], c["dtype"], c["bias"])
-               == REPRESENTATIVE)
-    emit({"kernels": [{
-        "name": "attention_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-        "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-        "library_ms": rep["library_ms"],
-        "at": "B64 Lq67 Lk67 H12 D64 bf16, [B,1,1,Lk] mask, packed q/k/v",
-    }]})
+    summary = []
+    for name, (source, replaces) in KERNELS.items():
+        mine = [c for c in cases if c["kernel"] == name]
+        rep = next(c for c in mine if "ms" in c and (
+            c["B"], c["Lq"], c["Lk"], c["dtype"], c["bias"])
+            == REPRESENTATIVE[name])
+        by_path = {p: n[name] for p, n in path_launches.items()}
+        check(max(by_path.values()) > 0, f"{name} launched on no path")
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": max(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": rep["library_ms"],
+            "at": (f"B{rep['B']} Lq{rep['Lq']} Lk{rep['Lk']} H12 D64 bf16, "
+                   f"[B,1,1,Lk] mask, packed q/k/v"
+                   + (f", {rep['bits']} bits" if rep["bits"] else "")),
+        })
+    emit({"kernels": summary})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""The port's attention against the JAX package's: the plain PyTorch version
-against `reference_attention` and the Pallas `_fwd_kernel` run in interpret
-mode, on the CPU; the CUDA kernel against the plain version on the card.
+"""The port's attention against the JAX package's: the plain PyTorch versions
+of K1-K4 against `reference_attention`, its autodiff, and the Pallas kernels
+run in interpret mode, on the CPU; the CUDA kernels against the plain
+versions on the card.
 
 JAX is imported inside the CPU tests only, so that the card's tests run
 where JAX is not installed:
@@ -15,8 +16,18 @@ import pytest
 import torch
 
 from vln_imagine_tpu_torch.ops.attention import (
+    FusedAttention,
+    attention_bwd,
+    attention_bwd_reference,
+    attention_dropout_bwd,
+    attention_dropout_fwd,
+    attention_dropout_reference,
+    attention_fwd,
     attention_reference,
+    dropout_mask,
     fused_attention,
+    launch_counts,
+    philox4x32,
 )
 
 torch.set_num_threads(2)
@@ -145,13 +156,210 @@ def test_plain_bf16_matches_jax_bf16(case):
 def test_fused_attention_takes_plain_version_only_on_cpu():
     q, k, v, bias, dims = _inputs("broadcast", seed=2)
     tq, tk, tv = _torch_qkv("broadcast", q, k, v, dims, torch.float32)
-    before = fused_attention.launches
+    before = launch_counts()
     out = fused_attention(tq, tk, tv, torch.from_numpy(bias), 0.125)
     want = attention_reference(tq, tk, tv, torch.from_numpy(bias), 0.125)
     assert torch.equal(out, want)
-    assert fused_attention.launches == before  # the CPU path launches nothing
+    assert launch_counts() == before  # the CPU path launches nothing
     with pytest.raises(ValueError):
         fused_attention(tq.to("meta"), tk.to("meta"), tv.to("meta"), None, 0.125)
+
+
+# ------------------------------------------------ K2-K4 on the CPU
+# K2 and K3 with the "hash" bits are held bit for bit against the JAX
+# package's interpret-mode dropout kernels, which draw the same bits
+# (`_hash_mask_bits`); K4 against the interpret-mode `_bwd_kernel` as
+# tests/test_attention.py runs it.  f32 throughout: the same products summed
+# in another order differ by ~1e-7, so 1e-5 leaves room.
+
+RATE = 0.25
+GRAD_CASES = ["broadcast", "per_head", "lq_ne_lk"]
+
+
+def _grad_inputs(case, seed=7):
+    q, k, v, bias, dims = _inputs(case, seed=seed)
+    B, H, Lq, Lk, D = dims
+    rng = np.random.default_rng(seed + 100)
+    do = rng.standard_normal((B, Lq, H, D)).astype(np.float32)
+    t = [torch.from_numpy(x) for x in (q, k, v, bias, do)]
+    return t, dims
+
+
+def _jax_kernel_inputs(t, dims):
+    import jax.numpy as jnp
+
+    B, H, Lq, Lk, D = dims
+    tq, tk, tv, tbias, tdo = t
+    jbias = jnp.broadcast_to(jnp.asarray(tbias.numpy()),
+                             (B, tbias.shape[1], Lq, Lk))
+    return _bhld(tq), _bhld(tk), _bhld(tv), jbias, _bhld(tdo)
+
+
+def _interp_bwd(q, k, v, bias, g, scale):
+    """Pallas K4 in interpret mode (tests/test_attention.py:60-89)."""
+    import jax
+    from jax.experimental import pallas as pl
+
+    from vln_imagine_tpu.ops import attention as A
+
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    in_specs = A._specs(H, Lq, Lk, D, bias.shape[1])
+    in_specs.append(pl.BlockSpec((1, H, Lq, D), lambda i: (i, 0, 0, 0)))
+    return pl.pallas_call(
+        functools.partial(A._bwd_kernel, scale=scale),
+        out_shape=(jax.ShapeDtypeStruct((B, H, Lq, D), q.dtype),
+                   jax.ShapeDtypeStruct((B, H, Lk, D), k.dtype),
+                   jax.ShapeDtypeStruct((B, H, Lk, D), v.dtype)),
+        grid=(B,),
+        in_specs=in_specs,
+        out_specs=(pl.BlockSpec((1, H, Lq, D), lambda i: (i, 0, 0, 0)),
+                   pl.BlockSpec((1, H, Lk, D), lambda i: (i, 0, 0, 0)),
+                   pl.BlockSpec((1, H, Lk, D), lambda i: (i, 0, 0, 0))),
+        interpret=True,
+    )(q, k, v, bias, g)
+
+
+def _close(got, want_bhld, what):
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want_bhld).transpose(0, 2, 1, 3),
+                               rtol=F32_TOL, atol=F32_TOL, err_msg=what)
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_hash_dropout_fwd_matches_interpret_kernel(case):
+    import jax.numpy as jnp
+
+    from vln_imagine_tpu.ops import attention as A
+
+    t, dims = _grad_inputs(case)
+    scale = 1.0 / np.sqrt(dims[-1])
+    got = attention_dropout_fwd(*t[:4], scale, RATE, seed=0, bits="hash")
+    jq, jk, jv, jbias, _ = _jax_kernel_inputs(t, dims)
+    want, _ = A._pallas_attention_dropout_fwd(
+        jq, jk, jv, jbias, jnp.asarray([7], jnp.int32), scale, RATE,
+        bits_fn=A._hash_mask_bits, interpret=True)
+    _close(got, want, f"K2 {case}")
+    # the mask is applied: rate 0 would give K1's output
+    assert not torch.allclose(got, attention_reference(*t[:4], scale))
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_hash_dropout_bwd_matches_interpret_kernel(case):
+    import jax.numpy as jnp
+
+    from vln_imagine_tpu.ops import attention as A
+
+    t, dims = _grad_inputs(case)
+    scale = 1.0 / np.sqrt(dims[-1])
+    dq, dk, dv, _ = attention_dropout_bwd(*t[:4], t[4], scale, RATE, seed=0,
+                                          bits="hash")
+    jq, jk, jv, jbias, jdo = _jax_kernel_inputs(t, dims)
+    res = (jq, jk, jv, jbias, jnp.asarray([7], jnp.int32))
+    want = A._pallas_attention_dropout_bwd(
+        scale, RATE, res, jdo, bits_fn=A._hash_mask_bits, interpret=True)
+    for g, w, n in zip((dq, dk, dv), want[:3], "qkv"):
+        _close(g, w, f"K3 {case} d{n}")
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_bwd_matches_interpret_kernel(case):
+    t, dims = _grad_inputs(case)
+    scale = 1.0 / np.sqrt(dims[-1])
+    dq, dk, dv, _ = attention_bwd(*t[:4], t[4], scale)
+    want = _interp_bwd(*_jax_kernel_inputs(t, dims), scale)
+    for g, w, n in zip((dq, dk, dv), want, "qkv"):
+        _close(g, w, f"K4 {case} d{n}")
+
+
+@pytest.mark.parametrize("case", ["broadcast", "per_head"])
+def test_dbias_matches_jax_vjp(case):
+    """dBias, which the TPU kernels drop, against the JAX package's own
+    autodiff of `reference_attention` with respect to the bias."""
+    import jax
+    import jax.numpy as jnp
+
+    from vln_imagine_tpu.ops import attention as A
+
+    t, dims = _grad_inputs(case)
+    scale = 1.0 / np.sqrt(dims[-1])
+    tq, tk, tv, tbias, tdo = t
+    *_, dbias = attention_bwd(tq, tk, tv, tbias, tdo, scale, need_dbias=True)
+    assert dbias.shape == tbias.shape
+    jbias = jnp.asarray(tbias.numpy())
+    _, vjp = jax.vjp(lambda b: A.reference_attention(
+        _bhld(tq), _bhld(tk), _bhld(tv), b, scale), jbias)
+    (want,) = vjp(_bhld(tdo))
+    np.testing.assert_allclose(dbias.numpy(), np.asarray(want),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("bits", [None, "hash", "philox"])
+@pytest.mark.parametrize("case", GRAD_CASES + ["packed"])
+def test_fused_attention_backward_matches_autograd(case, bits):
+    """FusedAttention's explicit backward (K4, or K3 with the mask
+    regenerated from the seed) against autograd through the plain forward
+    with the same mask, dBias included.  Agreement also shows that the
+    backward uses the forward's mask."""
+    q, k, v, bias, dims = _inputs(case, seed=3)
+    B, H, Lq, Lk, D = dims
+    tq, tk, tv = _torch_qkv(case, q, k, v, dims, torch.float32)
+    rate, seed = (0.0, 0) if bits is None else (RATE, 1234567891011)
+    scale = 1.0 / np.sqrt(D)
+    do = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (B, Lq, H, D)).astype(np.float32))
+
+    def grads(fn):
+        leaves = [x.detach().clone().requires_grad_() for x in
+                  (tq, tk, tv, torch.from_numpy(bias))]
+        fn(*leaves).backward(do)
+        return [x.grad for x in leaves]
+
+    got = grads(lambda q_, k_, v_, b_: FusedAttention.apply(
+        q_, k_, v_, b_, scale, rate, seed, bits or "philox"))
+    want = grads(lambda q_, k_, v_, b_: attention_dropout_reference(
+        q_, k_, v_, b_, scale, rate, seed, bits) if bits else
+        attention_reference(q_, k_, v_, b_, scale))
+    for g, w, n in zip(got, want, ("q", "k", "v", "bias")):
+        torch.testing.assert_close(g, w, rtol=F32_TOL, atol=F32_TOL,
+                                   msg=f"d{n}")
+
+
+# ------------------------------------------------------- philox bits
+def test_philox_known_answers():
+    """Philox-4x32-10 against the known-answer vectors of Random123
+    (Salmon et al., SC'11)."""
+    vectors = [
+        ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+        ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+         (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+        ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+         (0xA4093822, 0x299F31D0),
+         (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+    ]
+    for ctr, key, want in vectors:
+        got = philox4x32(*(torch.tensor([c], dtype=torch.int64) for c in ctr),
+                         *key)
+        assert tuple(int(w) for w in got) == want
+
+
+def test_philox_mask_properties():
+    shape = (4, 12, 160, 160)  # 1.2M draws
+    rate = 0.1
+    m = dropout_mask(shape, rate, seed=99, bits="philox")
+    keep = (m > 0).double().mean().item()
+    assert abs(keep - (1 - rate)) < 0.01
+    torch.testing.assert_close(m[m > 0], torch.full_like(m[m > 0], 1 / 0.9))
+    # masks differ across seeds and across batch items ...
+    m2 = dropout_mask(shape, rate, seed=100, bits="philox")
+    assert (m != m2).float().mean() > 0.1
+    assert (m[0] != m[1]).float().mean() > 0.1
+    # ... and repeat for one seed
+    assert torch.equal(m, dropout_mask(shape, rate, seed=99, bits="philox"))
+    # the hash source depends on the position within a batch item only
+    h = dropout_mask(shape, rate, seed=1, bits="hash")
+    assert torch.equal(h[0], h[1])
+    assert torch.equal(h, dropout_mask(shape, rate, seed=2, bits="hash"))
 
 
 # ------------------------------------------------------------ on the card
@@ -187,10 +395,69 @@ def test_kernel_matches_plain_on_card(cuda, lq, lk, per_head, dtype):
     else:
         keep = torch.rand(B, lk, device=cuda, generator=g) < 0.8
         bias = (1.0 - keep.float())[:, None, None, :] * -10000.0
-    before = fused_attention.launches
+    before = attention_fwd.launches
     got = fused_attention(q, k, v, bias, 0.125)
     torch.cuda.synchronize()
-    assert fused_attention.launches == before + 1
+    assert attention_fwd.launches == before + 1
     want = attention_reference(q, k, v, bias, 0.125)
     tol = CARD_F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# training shapes: the eval path's, and the IL rollout's x-layer shapes
+# (8 steps keep 9 history slots: 60 visual tokens), at the training batch
+TRAIN_SHAPES = MAIN_PATH_SHAPES + [(80, 60), (60, 80)]
+
+
+def _card_case(cuda, lq, lk, per_head, dtype, seed):
+    B, H, D = 8, 12, 64
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qx = torch.randn(B, lq, 3 * H * D, device=cuda, generator=g).to(dtype)
+    kv = torch.randn(B, lk, 3 * H * D, device=cuda, generator=g).to(dtype)
+    q = qx[..., :H * D].unflatten(-1, (H, D))
+    k, v = (x.unflatten(-1, (H, D)) for x in kv[..., H * D:].split(H * D, -1))
+    do = torch.randn(B, lq, H, D, device=cuda, generator=g).to(dtype)
+    if per_head:
+        bias = torch.randn(B, H, lq, lk, device=cuda, generator=g)
+    else:
+        keep = torch.rand(B, lk, device=cuda, generator=g) < 0.8
+        bias = (1.0 - keep.float())[:, None, None, :] * -10000.0
+    return q, k, v, bias, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", ["hash", "philox"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk", TRAIN_SHAPES)
+def test_dropout_kernels_match_plain_on_card(cuda, lq, lk, dtype, bits):
+    q, k, v, bias, do = _card_case(cuda, lq, lk, True, dtype, lq * 7 + lk)
+    seed, tol = 2 ** 40 + 17, (CARD_F32_TOL if dtype == torch.float32
+                               else BF16_TOL)
+    before = (attention_dropout_fwd.launches, attention_dropout_bwd.launches)
+    out = attention_dropout_fwd(q, k, v, bias, 0.125, 0.1, seed, bits)
+    grads = attention_dropout_bwd(q, k, v, bias, do, 0.125, 0.1, seed, bits,
+                                  need_dbias=True)
+    torch.cuda.synchronize()
+    assert (attention_dropout_fwd.launches,
+            attention_dropout_bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(
+        out.float(), attention_dropout_reference(
+            q, k, v, bias, 0.125, 0.1, seed, bits).float(), rtol=tol, atol=tol)
+    want = attention_bwd_reference(q, k, v, bias, do, 0.125, 0.1, seed, bits)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_head", [False, True])
+@pytest.mark.parametrize("lq,lk", TRAIN_SHAPES)
+def test_bwd_kernel_matches_plain_on_card(cuda, lq, lk, per_head):
+    q, k, v, bias, do = _card_case(cuda, lq, lk, per_head, torch.float32,
+                                   lq * 11 + lk)
+    before = attention_bwd.launches
+    grads = attention_bwd(q, k, v, bias, do, 0.125, need_dbias=per_head)
+    torch.cuda.synchronize()
+    assert attention_bwd.launches == before + 1
+    want = attention_bwd_reference(q, k, v, bias, do, 0.125)
+    for g, w in zip(grads, want if per_head else want[:3]):
+        torch.testing.assert_close(g, w, rtol=CARD_F32_TOL, atol=CARD_F32_TOL)

@@ -5,6 +5,7 @@ config, and an exact flax -> port -> flax round trip."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from vln_imagine_tpu.config import hamt_r2r_config as j_hamt_r2r_config
@@ -97,3 +98,40 @@ def test_reference_prefixes_strip_to_port_keys():
         "embeddings.word_embeddings.weight": 1,
         "encoder.layer.0.output.dense.bias": 2,
         "next_action.net.4.weight": 3}
+
+
+@pytest.mark.parametrize("which", ["tiny", "released"])
+def test_critic_key_map_both_ways(which):
+    """The critic's state2value.{0,3} <-> fc0 / fc1 map: the JAX critic's
+    init loads strict into the port's Critic and round-trips exactly; at the
+    tiny config (f32) both compute the same values."""
+    from vln_imagine_tpu.models.bert import Critic as JCritic
+    from vln_imagine_tpu_torch.ckpt.convert import (
+        critic_flax_from_state_dict,
+        critic_state_dict_from_flax,
+    )
+    from vln_imagine_tpu_torch.models.bert import Critic
+
+    jcfg = j_tiny_test_config("hamt") if which == "tiny" else j_hamt_r2r_config()
+    pcfg = tiny_test_config("hamt") if which == "tiny" else hamt_r2r_config()
+    H = jcfg.model.hidden_size
+    jcritic = JCritic(jcfg.model)
+    params = jax.tree.map(np.asarray, jcritic.init(jax.random.PRNGKey(3),
+                                                   jnp.zeros((1, H))))
+    port = Critic(pcfg.model)
+    sd = critic_state_dict_from_flax(params)
+    assert set(sd) == {"state2value.0.weight", "state2value.0.bias",
+                       "state2value.3.weight", "state2value.3.bias"}
+    result = port.load_state_dict(sd, strict=True)
+    assert not result.missing_keys and not result.unexpected_keys
+    back = dict(_leaves(critic_flax_from_state_dict(port.state_dict())["params"]))
+    want = dict(_leaves(params["params"]))
+    assert set(back) == set(want)
+    for path in want:
+        np.testing.assert_array_equal(back[path], want[path], err_msg=path)
+    if which == "tiny":
+        x = np.random.default_rng(0).standard_normal((4, H)).astype(np.float32)
+        with torch.no_grad():
+            got = port(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, np.asarray(jcritic.apply(params, x)),
+                                   rtol=1e-5, atol=1e-5)

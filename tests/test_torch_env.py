@@ -135,3 +135,52 @@ def test_env_steps_match_jax():
         _cmp(penv.distance_to_goal(pw, pep, pst.node),
              jenv.distance_to_goal(jw, jep, jst.node), f"t{t} distance")
     assert pst.ended.any() and (pst.path_len > 1).any()
+
+
+def test_teacher_and_dtw_match_jax():
+    """teacher_hamt and the incremental DTW row (dtw_init / dtw_push /
+    dtw_ndtw) against the JAX package's, step by step along one action
+    sequence that follows the teacher for some items and strays for others."""
+    cfg = tiny_test_config("hamt")
+    world, _ = synthetic_world(num_scans=2, num_nodes=20,
+                               max_candidates=cfg.env.max_candidates,
+                               views=cfg.env.views,
+                               feat_dim=cfg.model.image_feat_size, seed=5)
+    ep = synthetic_episodes(world, batch=6, max_gt_path_len=cfg.env.max_gt_path_len,
+                            max_instr_len=cfg.env.max_instr_len,
+                            max_imaginations=cfg.model.max_imagination_len,
+                            vocab_size=cfg.model.vocab_size,
+                            feat_dim=cfg.model.hidden_size, seed=6)
+    jw_np = j_world(num_scans=2, num_nodes=20,
+                    max_candidates=cfg.env.max_candidates, views=cfg.env.views,
+                    feat_dim=cfg.model.image_feat_size, seed=5)[0]
+    jw = jax.tree.map(jnp.asarray, jw_np)
+    jep = jax.tree.map(jnp.asarray, j_episodes(
+        jw_np, batch=6, max_gt_path_len=cfg.env.max_gt_path_len,
+        max_instr_len=cfg.env.max_instr_len,
+        max_imaginations=cfg.model.max_imagination_len,
+        vocab_size=cfg.model.vocab_size, feat_dim=cfg.model.hidden_size, seed=6))
+    pw, pep = world.to("cpu"), ep.to("cpu")
+    K, T = cfg.env.max_candidates, cfg.env.max_action_len
+    ignore = cfg.train.ignoreid
+    rng = np.random.default_rng(4)
+    stray = rng.integers(0, K + 1, size=(T, ep.batch)).astype(np.int32)
+
+    jst, pst = jenv.reset(jw, jep, T), penv.reset(pw, pep, T)
+    jrow, prow = jenv.dtw_init(jw, jep), penv.dtw_init(pw, pep)
+    _cmp(prow, jrow, "dtw_init")
+    for t in range(T):
+        jt = jenv.teacher_hamt(jw, jep, jst, t, ignore)
+        pt = penv.teacher_hamt(pw, pep, pst, t, ignore)
+        _cmp(pt, jt, f"t{t} teacher")
+        # items 0-2 follow the teacher, the rest stray
+        a = np.where(np.arange(ep.batch) < 3, pt.numpy(), stray[t])
+        a = np.where(a == ignore, K, a).astype(np.int32)
+        jst = jenv.step_hamt(jw, jep, jst, jnp.asarray(a))
+        pst = penv.step_hamt(pw, pep, pst, torch.from_numpy(a))
+        jrow = jenv.dtw_push(jw, jep, jrow, jst.node)
+        prow = penv.dtw_push(pw, pep, prow, pst.node)
+        _cmp(prow, jrow, f"t{t} dtw row")
+        _cmp(penv.dtw_ndtw(prow, pep, cfg.env.error_margin),
+             jenv.dtw_ndtw(jrow, jep, cfg.env.error_margin), f"t{t} ndtw")
+    assert pst.ended.all() and (pst.path_len > 1).any()

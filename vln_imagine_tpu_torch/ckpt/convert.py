@@ -12,7 +12,9 @@ Conversion rules:
 - torch nn.Linear weight [out, in]  <-> flax Dense kernel [in, out]
 - torch nn.Embedding weight         <-> flax Embed embedding
 - torch LayerNorm weight/bias       <-> flax LayerNorm ln/scale, ln/bias
-- nn.Sequential heads map by index (NextActionPrediction net.{0,2,4})
+- nn.Sequential heads map by index (NextActionPrediction net.{0,2,4}, the
+  critic's state2value.{0,3} <-> fc0 / fc1: `critic_state_dict_from_flax`,
+  `critic_flax_from_state_dict`)
 """
 
 from __future__ import annotations
@@ -289,4 +291,49 @@ def flax_from_state_dict(state_dict: dict) -> dict:
         for part in base.split("/"):
             node = node.setdefault(part, {})
         node[leaf] = v
+    return {"params": params}
+
+
+_CRITIC_KEYS = {"state2value.0": "fc0", "state2value.3": "fc1"}
+
+
+def critic_torch_to_flax_path(key: str) -> str | None:
+    """Critic torch key (`state2value.{0,3}.{weight,bias}`, model_HAMT.py)
+    -> flax param path of the JAX package's `Critic`, or None."""
+    m = re.match(r"^(state2value\.[03])\.(weight|bias)$",
+                 re.sub(r"^module\.", "", key))
+    return f"{_CRITIC_KEYS[m.group(1)]}/{m.group(2)}" if m else None
+
+
+def critic_state_dict_from_flax(params: dict) -> dict[str, Any]:
+    """JAX package critic params (`{"params": {fc0, fc1}}` or the tree) ->
+    the port's `Critic` state_dict."""
+    tree = params.get("params", params)
+    inverse = {v: k for k, v in _CRITIC_KEYS.items()}
+    sd = {}
+    for path, value in _flax_leaves(tree):
+        mod, leaf = path.split("/")
+        v = np.asarray(value, np.float32)
+        if leaf == "kernel":
+            v, leaf = v.T, "weight"
+        key = f"{inverse[mod]}.{leaf}"
+        if critic_torch_to_flax_path(key) != f"{mod}/{leaf}":
+            raise KeyError(f"no critic key maps to flax path {path!r}")
+        sd[key] = torch.tensor(v)
+    return sd
+
+
+def critic_flax_from_state_dict(state_dict: dict) -> dict:
+    """The port's (or a released, prefix-stripped) critic state_dict -> JAX
+    package critic params `{"params": {fc0, fc1}}` of numpy arrays."""
+    params: dict = {}
+    for key, value in state_dict.items():
+        path = critic_torch_to_flax_path(key)
+        if path is None:
+            continue
+        mod, leaf = path.split("/")
+        v = value.detach().cpu().numpy() if hasattr(value, "detach") else np.asarray(value)
+        if leaf == "weight":
+            leaf, v = "kernel", v.T
+        params.setdefault(mod, {})[leaf] = v
     return {"params": params}

@@ -1,12 +1,18 @@
-// Fused multi-head attention forward for Hopper (sm_90a).
+// Fused multi-head attention forward for Hopper (sm_90a), with and without
+// attention-probs dropout.
 //
-// Replaces vln_imagine_tpu/ops/attention.py:_fwd_kernel (the Pallas TPU
-// kernel reached through _pallas_attention_fwd).  For every (batch, head):
+// Replaces vln_imagine_tpu/ops/attention.py:_fwd_kernel (K1, the Pallas TPU
+// kernel reached through _pallas_attention_fwd) and _fwd_dropout_kernel (K2,
+// through _pallas_attention_dropout_fwd).  For every (batch, head):
 //
-//     O = softmax(Q K^T * scale + bias) V
+//     O = (softmax(Q K^T * scale + bias) * M) V
 //
-// in the same order as the TPU kernel: f32 scores, + bias, row max, exp,
-// normalise, P rounded to V's dtype, P V accumulated in f32, O in Q's dtype.
+// in the same order as the TPU kernels: f32 scores, + bias, row max, exp,
+// normalise, P times the dropout mask M (K2 only; dropout_bits.cuh), P
+// rounded to V's dtype, P V accumulated in f32, O in Q's dtype.  K2 draws
+// its mask from a counter-based generator in place of the TPU's per-core
+// PRNG, so the backward kernel (attention_bwd.cu) regenerates it from the
+// seed and no [Lq, Lk] mask ever reaches device memory.
 //
 // Layout.  Q, K, V and O are [B, L, H, D] (the projection layout of the
 // model's packed QKV product), so no head transposes surround the kernel.
@@ -39,6 +45,8 @@
 
 #include <math.h>
 
+#include "dropout_bits.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -60,6 +68,7 @@ struct Params {
   long long svb, svl, svh;
   long long sbb, sbh, sbq, sbk;
   float scale;
+  vln::DropoutParams drop;  // drop.bits == kBitsNone: K1
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -160,9 +169,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncwarp();
 
-  // ---- softmax over each full row, P rounded to V's dtype -----------------
+  // ---- softmax over each full row, dropout, P rounded to V's dtype --------
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int i = row0 + wrow + r;
     float* srow = ss + (wrow + r) * Lk;
     float m = -INFINITY;
     for (int j = lane; j < Lk; j += 32) m = fmaxf(m, srow[j]);
@@ -174,8 +184,11 @@ __global__ void __launch_bounds__(kThreads)
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < Lk; j += 32)
-      srow[j] = to_f32(from_f32<T>(srow[j] / sum));
+    for (int j = lane; j < Lk; j += 32) {
+      float pv = srow[j] / sum;
+      if (p.drop.bits != vln::kBitsNone) pv *= vln::dropout_mask(p.drop, b, h, i, j);
+      srow[j] = to_f32(from_f32<T>(pv));
+    }
   }
   __syncwarp();
 
@@ -250,7 +263,9 @@ cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  Strides are in
-// elements.  bias may be null.  Returns the cudaError_t of the launch.
+// elements.  bias may be null.  bits: 0 = no dropout (K1), 1 = hash,
+// 2 = Philox (K2), with the keep threshold, the kept value and the seed.
+// Returns the cudaError_t of the launch.
 extern "C" int vln_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     int dtype, int B, int H, int Lq, int Lk, int D,
@@ -258,7 +273,8 @@ extern "C" int vln_attention_fwd(
     long long skb, long long skl, long long skh,
     long long svb, long long svl, long long svh,
     long long sbb, long long sbh, long long sbq, long long sbk,
-    float scale, void* stream) {
+    float scale, int bits, unsigned int threshold, float keep_scale,
+    unsigned long long seed, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.bias = static_cast<const float*>(bias);
@@ -268,6 +284,11 @@ extern "C" int vln_attention_fwd(
   p.svb = svb; p.svl = svl; p.svh = svh;
   p.sbb = sbb; p.sbh = sbh; p.sbq = sbq; p.sbk = sbk;
   p.scale = scale;
+  p.drop.bits = bits;
+  p.drop.threshold = threshold;
+  p.drop.keep_scale = keep_scale;
+  p.drop.seed = seed;
+  if (bits < vln::kBitsNone || bits > vln::kBitsPhilox) return cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;

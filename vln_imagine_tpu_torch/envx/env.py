@@ -1,4 +1,4 @@
-"""Batched environment, HAMT eval half: (tables, state) -> tensors transforms.
+"""Batched HAMT environment: (tables, state) -> tensors transforms.
 
 Everything here is shape-static tensor code on the tables' device.  These
 functions replace the per-step host work of the reference:
@@ -9,6 +9,9 @@ functions replace the per-step host work of the reference:
 - simulator stepping `make_equiv_action` (agent_cmt.py:336-369): the
   micro-turns collapse into one table lookup, since only the terminal
   discretized pose matters
+- the gt-path teacher `_teacher_action` (env.py:293-307) and the nDTW of
+  the reward shaping (eval_utils.py:74-94), the latter as an incremental
+  DTW row
 
 Observation token layout: slots [0..K-1] candidates, slot K = STOP, slots
 [K+1..K+V] the panorama views (views already claimed by a candidate are
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from vln_imagine_tpu_torch.envx.tables import (
+    INF,
     EnvState,
     EpisodeBatch,
     WorldTables,
@@ -189,3 +193,54 @@ def step_hamt(tables: WorldTables, ep: EpisodeBatch, state: EnvState,
 def distance_to_goal(tables: WorldTables, ep: EpisodeBatch,
                      node: torch.Tensor) -> torch.Tensor:
     return tables.dist[ep.scan.long(), node.long(), ep.goal.long()]
+
+
+def teacher_hamt(tables: WorldTables, ep: EpisodeBatch, state: EnvState,
+                 t: int, ignore_id: int) -> torch.Tensor:
+    """Teacher action slot, the time-indexed gt-path teacher (env.py:293-307):
+    target = gt_path[t+1], stop once t reaches the end of the path.  Returns
+    K (the stop slot) to stop or when no candidate leads to the target, and
+    ignore_id for ended items.  (CVDN's shortest-path teacher is not ported
+    yet.)"""
+    adj, adj_valid, _, _, _ = candidate_info(tables, ep, state)
+    K = adj.shape[1]
+    P = ep.gt_path.shape[1]
+    is_stop = t >= ep.gt_len - 1
+    target = ep.gt_path[:, min(max(t + 1, 0), P - 1)]
+    match = adj_valid & (adj == target[:, None])
+    slot = torch.argmax(match.to(torch.int32), dim=1)  # first match
+    a = torch.where(is_stop | ~match.any(dim=1), K, slot)
+    return torch.where(state.ended, ignore_id, a).to(torch.int32)
+
+
+# Incremental DTW for per-step nDTW reward shaping (eval_utils.py:74-94).
+# The DTW table over (prediction x reference) grows one row per action, so
+# the rollout carries only the last row [B, P+1].
+
+def dtw_init(tables: WorldTables, ep: EpisodeBatch) -> torch.Tensor:
+    """Row for the length-1 prediction [start]."""
+    B, P = ep.gt_path.shape
+    row0 = torch.full((B, P + 1), INF, device=ep.gt_path.device)
+    row0[:, 0] = 0.0
+    return dtw_push(tables, ep, row0, ep.start_node)
+
+
+def dtw_push(tables: WorldTables, ep: EpisodeBatch, row: torch.Tensor,
+             new_node: torch.Tensor) -> torch.Tensor:
+    """Append one prediction node: row_i -> row_{i+1}."""
+    P = ep.gt_path.shape[1]
+    cost = tables.dist[ep.scan.long()[:, None], new_node.long()[:, None],
+                       ep.gt_path.long()]                              # [B, P]
+    cols = [torch.full_like(row[:, 0], INF)]
+    for j in range(1, P + 1):
+        best_prev = torch.minimum(torch.minimum(row[:, j], row[:, j - 1]),
+                                  cols[j - 1])
+        cols.append(cost[:, j - 1] + best_prev)
+    return torch.stack(cols, dim=1)
+
+
+def dtw_ndtw(row: torch.Tensor, ep: EpisodeBatch,
+             threshold: float = 3.0) -> torch.Tensor:
+    """nDTW of the current prediction against the (masked) reference."""
+    dtw = row.gather(1, ep.gt_len.long()[:, None])[:, 0]
+    return torch.exp(-dtw / (threshold * ep.gt_len.float()))

@@ -1,16 +1,23 @@
-"""Where the device time of greedy HAMT eval goes, on the card.
+"""Where the device time of greedy HAMT eval and of the HAMT train step
+goes, on the card.
 
     python -m vln_imagine_tpu_torch.eval.trace [--batch 64 8]
+    python -m vln_imagine_tpu_torch.eval.trace --train [--batch 8]
 
-For each batch size: one `HamtTrainer.make_eval_step()` call at the released
-R2R config (full width, bf16, seeded random weights) on bench.py's synthetic
-world, traced with `torch.profiler` after a warm-up call.  Prints one JSON
-line per batch: the host wall time of the traced call and of the same call
+Eval: for each batch size, one `HamtTrainer.make_eval_step()` call at the
+released R2R config (full width, bf16, seeded random weights) on bench.py's
+synthetic world.  Train (`--train`): one `make_train_step("sample")` step
+(IL + RL, attention dropout on) on the same world and episodes.  Each call
+is traced with `torch.profiler` after warm-up calls.  Prints one JSON line
+per batch: the host wall time of the traced call and of the same call
 untraced (the faster of two, after a warm-up), the device busy time (the
 union of the traced kernels' and copies' intervals), the idle share (busy
 time against the untraced wall time: the profiler slows the host, not the
-device), the attention kernel's share of device time, device
-operations per step, and the kernels that take the most device time.
+device), the attention kernels' shares of device time, device operations
+(per step for eval), and the kernels that take the most device time.  The
+forward kernel of `csrc/attention_fwd.cu` runs as K1 in eval and as K2 in
+training (one CUDA function, dropout chosen at run time); that of
+`csrc/attention_bwd.cu` as K3 in training.
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ import torch
 from vln_imagine_tpu_torch.config import hamt_r2r_config
 from vln_imagine_tpu_torch.envx import synthetic_episodes, synthetic_world
 
-ATTENTION_KERNEL = "attention_fwd_kernel"
+# CUDA function name -> the kernels it runs as
+ATTENTION_KERNELS = {"attention_fwd_kernel": "K1 / K2",
+                     "attention_bwd_kernel": "K3 / K4"}
 
 
 def bench_world(cfg):
@@ -59,21 +68,20 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def trace_eval(trainer, ep, top: int = 8) -> dict:
-    """Profile one eval call on the card; `ep` already lies there."""
+def _trace_call(fn, top: int = 8) -> dict:
+    """Profile one call of `fn` on the card after warm-up calls."""
     from torch.profiler import ProfilerActivity, profile
 
-    eval_step = trainer.make_eval_step()
     untraced_us = []
     for _ in range(3):  # the first call warms up
         t0 = time.perf_counter()
-        eval_step(ep)
+        fn()
         torch.cuda.synchronize()
         untraced_us.append((time.perf_counter() - t0) * 1e6)
     untraced = min(untraced_us[1:])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, path_len = eval_step(ep)
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     device = [e for e in prof.events()
@@ -85,25 +93,46 @@ def trace_eval(trainer, ep, top: int = 8) -> dict:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in device)
-    steps = min(int(path_len.max()), trainer.cfg.env.max_action_len)
-    attn_us = sum(t for n, (_, t) in by_name.items() if ATTENTION_KERNEL in n)
     kernel_sum = sum(t for _, t in by_name.values())
+    attention = {}
+    for fn_name, runs_as in ATTENTION_KERNELS.items():
+        count = sum(c for n, (c, _) in by_name.items() if fn_name in n)
+        us = sum(t for n, (_, t) in by_name.items() if fn_name in n)
+        attention[fn_name] = {"runs_as": runs_as, "launches": count,
+                              "ms": us / 1e3, "share_of_device": us / kernel_sum}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    return {
-        "batch": ep.batch, "steps": steps, "wall_ms": wall_us / 1e3,
-        "untraced_wall_ms": untraced / 1e3, "device_busy_ms": busy / 1e3,
-        "idle_share": 1.0 - busy / untraced,
-        "attention_ms": attn_us / 1e3,
-        "attention_share_of_device": attn_us / kernel_sum,
-        "device_ops": len(device), "device_ops_per_step": len(device) / steps,
+    return out, {
+        "wall_ms": wall_us / 1e3, "untraced_wall_ms": untraced / 1e3,
+        "device_busy_ms": busy / 1e3, "idle_share": 1.0 - busy / untraced,
+        "attention": attention, "device_ops": len(device),
         "top": [{"name": n[:90], "count": c, "ms": t / 1e3}
                 for n, (c, t) in ranked],
     }
 
 
+def trace_eval(trainer, ep, top: int = 8) -> dict:
+    """Profile one eval call on the card; `ep` already lies there."""
+    eval_step = trainer.make_eval_step()
+    (_, path_len), out = _trace_call(lambda: eval_step(ep), top)
+    steps = min(int(path_len.max()), trainer.cfg.env.max_action_len)
+    return {"batch": ep.batch, "steps": steps, **out,
+            "device_ops_per_step": out["device_ops"] / steps}
+
+
+def trace_train(trainer, ep, top: int = 8) -> dict:
+    """Profile one 'sample' train step on the card (IL rollout on `ep`, RL
+    rollout on `ep`); `ep` already lies there."""
+    train_step = trainer.make_train_step("sample")
+    metrics, out = _trace_call(lambda: train_step(ep, ep), top)
+    return {"batch": ep.batch, "loss": float(metrics["loss"]), **out}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, nargs="+", default=[64, 8])
+    ap.add_argument("--batch", type=int, nargs="+", default=None,
+                    help="batch sizes (eval: 64 8; train: 8)")
+    ap.add_argument("--train", action="store_true",
+                    help="trace the IL + RL train step instead of eval")
     args = ap.parse_args()
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
 
@@ -112,10 +141,13 @@ def main() -> None:
     cfg = hamt_r2r_config()
     world = bench_world(cfg)
     trainer = HamtTrainer(cfg, world, device="cuda")
-    for batch in args.batch:
+    batches = args.batch or ([cfg.train.batch_size] if args.train else [64, 8])
+    for batch in batches:
         ep = bench_episodes(world, cfg, batch).to(trainer.device)
-        print(json.dumps({"phase": "trace", "card": torch.cuda.get_device_name(0),
-                          **trace_eval(trainer, ep)}), flush=True)
+        out = trace_train(trainer, ep) if args.train else trace_eval(trainer, ep)
+        print(json.dumps({"phase": "trace_train" if args.train else "trace",
+                          "card": torch.cuda.get_device_name(0), **out}),
+              flush=True)
 
 
 if __name__ == "__main__":

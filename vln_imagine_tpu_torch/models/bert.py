@@ -6,6 +6,8 @@ JAX package's flax blocks and the reference's torch blocks
 - LayerNorm eps 1e-12, post-LN residual blocks, computed in f32
 - additive attention masks, 0 for valid / -10000 for padding
 - parameters in f32; matmuls and attention in `ModelConfig.compute_dtype`
+- dropout at the flax blocks' sites, drawn from an explicit `Rng`
+  (ops/dropout.py); `rng=None` is flax's `deterministic=True`
 
 Module and parameter names are the reference's torch key names, so a
 released state_dict loads with `load_state_dict` (see ckpt/convert.py).
@@ -19,6 +21,7 @@ from torch import nn
 
 from vln_imagine_tpu_torch.config import ModelConfig
 from vln_imagine_tpu_torch.ops.attention import fused_attention
+from vln_imagine_tpu_torch.ops.dropout import Rng, dropout
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -110,12 +113,14 @@ class MHAttention(nn.Module):
         H, dt = cfg.hidden_size, compute_dtype(cfg)
         self.num_heads, self.head_dim = cfg.num_attention_heads, cfg.head_dim
         self.compute_dtype = dt
+        self.probs_dropout = cfg.attention_probs_dropout_prob
         self.query = Dense(H, H, dt)
         self.key = Dense(H, H, dt)
         self.value = Dense(H, H, dt)
 
     def forward(self, hidden: torch.Tensor, context: torch.Tensor,
-                bias: torch.Tensor | None = None) -> torch.Tensor:
+                bias: torch.Tensor | None = None,
+                rng: Rng | None = None) -> torch.Tensor:
         dt = self.compute_dtype
         q_, k_, v_ = self.query, self.key, self.value
         if hidden is context:
@@ -134,8 +139,10 @@ class MHAttention(nn.Module):
         def heads(x):
             return x.unflatten(-1, (self.num_heads, self.head_dim))
 
+        rate = self.probs_dropout if rng is not None else 0.0
         ctx = fused_attention(heads(q), heads(k), heads(v), bias,
-                              1.0 / self.head_dim ** 0.5)
+                              1.0 / self.head_dim ** 0.5, dropout_rate=rate,
+                              seed=rng.seed() if rate > 0.0 else None)
         return ctx.flatten(2)
 
 
@@ -146,9 +153,11 @@ class SelfOutput(nn.Module):
         super().__init__()
         self.dense = Dense(cfg.hidden_size, cfg.hidden_size, compute_dtype(cfg))
         self.LayerNorm = LayerNorm12(cfg.hidden_size)
+        self.rate = cfg.hidden_dropout_prob
 
-    def forward(self, hidden, residual):
-        return self.LayerNorm(self.dense(hidden) + residual)
+    def forward(self, hidden, residual, rng=None):
+        return self.LayerNorm(dropout(self.dense(hidden), self.rate, rng)
+                              + residual)
 
 
 class BertAttention(nn.Module):
@@ -159,8 +168,8 @@ class BertAttention(nn.Module):
         self.self = MHAttention(cfg)
         self.output = SelfOutput(cfg)
 
-    def forward(self, x, mask):
-        return self.output(self.self(x, x, mask), x)
+    def forward(self, x, mask, rng=None):
+        return self.output(self.self(x, x, mask, rng), x, rng)
 
 
 class BertXAttention(nn.Module):
@@ -171,8 +180,8 @@ class BertXAttention(nn.Module):
         self.att = MHAttention(cfg)
         self.output = SelfOutput(cfg)
 
-    def forward(self, x, ctx, ctx_mask=None):
-        return self.output(self.att(x, ctx, ctx_mask), x)
+    def forward(self, x, ctx, ctx_mask=None, rng=None):
+        return self.output(self.att(x, ctx, ctx_mask, rng), x, rng)
 
 
 class BertIntermediate(nn.Module):
@@ -192,9 +201,10 @@ class BertOutput(nn.Module):
         self.dense = Dense(cfg.intermediate_size, cfg.hidden_size,
                            compute_dtype(cfg))
         self.LayerNorm = LayerNorm12(cfg.hidden_size)
+        self.rate = cfg.hidden_dropout_prob
 
-    def forward(self, x, residual):
-        return self.LayerNorm(self.dense(x) + residual)
+    def forward(self, x, residual, rng=None):
+        return self.LayerNorm(dropout(self.dense(x), self.rate, rng) + residual)
 
 
 class BertLayer(nn.Module):
@@ -206,9 +216,9 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg)
         self.output = BertOutput(cfg)
 
-    def forward(self, x, mask):
-        attn = self.attention(x, mask)
-        return self.output(self.intermediate(attn), attn)
+    def forward(self, x, mask, rng=None):
+        attn = self.attention(x, mask, rng)
+        return self.output(self.intermediate(attn), attn, rng)
 
 
 class BertEncoder(nn.Module):
@@ -218,15 +228,15 @@ class BertEncoder(nn.Module):
         super().__init__()
         self.layer = nn.ModuleList(BertLayer(cfg) for _ in range(num_layers))
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, rng=None):
         for layer in self.layer:
-            x = layer(x, mask)
+            x = layer(x, mask, rng)
         return x
 
 
 class BertEmbeddings(nn.Module):
-    """word + position + token-type embeddings -> LN
-    (BertEmbeddings, :44-73; dropout is the identity in eval)."""
+    """word + position + token-type embeddings -> LN -> dropout
+    (BertEmbeddings, :44-73)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -237,14 +247,15 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = Embed(cfg.type_vocab_size,
                                            cfg.hidden_size, dt)
         self.LayerNorm = LayerNorm12(cfg.hidden_size)
+        self.rate = cfg.hidden_dropout_prob
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, rng=None):
         L = input_ids.shape[1]
         position_ids = torch.arange(L, device=input_ids.device)[None, :]
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(position_ids)
              + self.token_type_embeddings(torch.zeros_like(input_ids)))
-        return self.LayerNorm(x)
+        return dropout(self.LayerNorm(x), self.rate, rng)
 
 
 class LXRTXLayer(nn.Module):
@@ -264,13 +275,13 @@ class LXRTXLayer(nn.Module):
         self.visn_inter = BertIntermediate(cfg)
         self.visn_output = BertOutput(cfg)
 
-    def forward(self, lang, lang_mask, visn, visn_mask):
-        lang_x = self.visual_attention(lang, visn, visn_mask)
-        visn_x = self.visual_attention(visn, lang, lang_mask)
-        lang_s = self.lang_self_att(lang_x, lang_mask)
-        visn_s = self.visn_self_att(visn_x, visn_mask)
-        lang_o = self.lang_output(self.lang_inter(lang_s), lang_s)
-        visn_o = self.visn_output(self.visn_inter(visn_s), visn_s)
+    def forward(self, lang, lang_mask, visn, visn_mask, rng=None):
+        lang_x = self.visual_attention(lang, visn, visn_mask, rng)
+        visn_x = self.visual_attention(visn, lang, lang_mask, rng)
+        lang_s = self.lang_self_att(lang_x, lang_mask, rng)
+        visn_s = self.visn_self_att(visn_x, visn_mask, rng)
+        lang_o = self.lang_output(self.lang_inter(lang_s), lang_s, rng)
+        visn_o = self.visn_output(self.visn_inter(visn_s), visn_s, rng)
         return lang_o, visn_o
 
 
@@ -281,18 +292,20 @@ class NextActionPrediction(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         dt = compute_dtype(cfg)
-        self.net = nn.Sequential(
-            Dense(cfg.hidden_size, cfg.hidden_size, dt), nn.ReLU(),
-            LayerNorm12(cfg.hidden_size), nn.Dropout(cfg.pred_head_dropout_prob),
-            Dense(cfg.hidden_size, 1, dt))
+        self.net = nn.ModuleDict({
+            "0": Dense(cfg.hidden_size, cfg.hidden_size, dt),
+            "2": LayerNorm12(cfg.hidden_size),
+            "4": Dense(cfg.hidden_size, 1, dt)})
+        self.rate = cfg.pred_head_dropout_prob
 
-    def forward(self, x):
-        return self.net(x)
+    def forward(self, x, rng=None):
+        x = self.net["2"](F.relu(self.net["0"](x)))
+        return self.net["4"](dropout(x, self.rate, rng))
 
 
 class MLPProjectionHead(nn.Module):
-    """768 -> 512 -> 512 -> hidden, bias-free, ReLU
-    (vilmodel_cmt.py:714-728; its dropout is the identity in eval)."""
+    """dropout 0.15 -> 768 -> 512 -> 512 -> hidden, bias-free, ReLU
+    (vilmodel_cmt.py:714-728)."""
 
     def __init__(self, cfg: ModelConfig, hidden_dim: int = 512):
         super().__init__()
@@ -300,6 +313,25 @@ class MLPProjectionHead(nn.Module):
         self.fc1 = Dense(cfg.hidden_size, hidden_dim, dt, bias=False)
         self.fc2 = Dense(hidden_dim, hidden_dim, dt, bias=False)
         self.fc3 = Dense(hidden_dim, cfg.hidden_size, dt, bias=False)
+        self.rate = 0.15
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
+        x = dropout(x, self.rate, rng)
         return self.fc3(F.relu(self.fc2(F.relu(self.fc1(x)))))
+
+
+class Critic(nn.Module):
+    """768 -> 512 -> ReLU -> dropout 0.5 -> 1 value head
+    (model_HAMT.py:289-300); `state2value.{0,3}` are the reference's
+    Sequential indices."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        dt = compute_dtype(cfg)
+        self.state2value = nn.ModuleDict({"0": Dense(cfg.hidden_size, 512, dt),
+                                          "3": Dense(512, 1, dt)})
+        self.rate = 0.5
+
+    def forward(self, state, rng=None):
+        x = F.relu(self.state2value["0"](state))
+        return self.state2value["3"](dropout(x, self.rate, rng))[..., 0]

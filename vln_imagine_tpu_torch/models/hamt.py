@@ -11,13 +11,20 @@ wrapper, models/model_HAMT.py:13-97).  Each reference mode is a method:
   :730-790) as one masked segment-mean matmul
 - visual    (:1056-1205), cross-modal streams [txt; imagine] x [hist; obs]
 
-This slice carries the eval modes of the released R2R recipe: no ViT, no
-REVERIE objects, no `no_lang_ca`, no full ImagineEmbeddings, and the cosine
-alignment loss only.  Feature dropout is the identity in eval.
+Every mode takes `rng` (ops/dropout.py): with it the flax blocks' dropouts
+and the wrapper's env-feature dropout (`drop_env`, `feat_dropout`) are
+active, without it they are the identity.  The released recipe's stop-
+gradients (`fix_lang_embedding`, `fix_hist_embedding`, and
+`fix_imagine_embeds` / `fix_obs_embedding`) run their branch under
+`torch.no_grad()`, so no residuals are kept for layers that get no gradient.
+
+Not ported yet: the ViT, REVERIE objects, `no_lang_ca`, the full
+ImagineEmbeddings, and the infonce / margin alignment losses.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -36,11 +43,18 @@ from vln_imagine_tpu_torch.models.bert import (
     NextActionPrediction,
     compute_dtype,
 )
+from vln_imagine_tpu_torch.ops.dropout import dropout
 from vln_imagine_tpu_torch.ops.masks import extend_neg_mask, mask_logits
 
 
+def _stop_gradient(fixed: bool):
+    """The context of a branch whose output the JAX package wraps in
+    `stop_gradient`: no autograd inside it."""
+    return torch.no_grad() if fixed else contextlib.nullcontext()
+
+
 class ImageEmbeddings(nn.Module):
-    """img/angle linear+LN + nav-type + token-type -> LN
+    """img/angle linear+LN + nav-type + token-type -> LN -> dropout
     (vilmodel_cmt.py:521-544)."""
 
     def __init__(self, cfg: ModelConfig):
@@ -52,13 +66,14 @@ class ImageEmbeddings(nn.Module):
         self.ang_layer_norm = LayerNorm12(H)
         self.nav_type_embedding = Embed(3, H, dt)
         self.layer_norm = LayerNorm12(H)
+        self.rate = cfg.hidden_dropout_prob
 
-    def forward(self, img_feat, ang_feat, type_embeddings, nav_types):
+    def forward(self, img_feat, ang_feat, type_embeddings, nav_types, rng=None):
         x = (self.img_layer_norm(self.img_linear(img_feat))
              + self.ang_layer_norm(self.ang_linear(ang_feat))
              + type_embeddings
              + self.nav_type_embedding(nav_types))
-        return self.layer_norm(x)
+        return dropout(self.layer_norm(x), self.rate, rng)
 
 
 class HistoryEmbeddings(nn.Module):
@@ -82,19 +97,20 @@ class HistoryEmbeddings(nn.Module):
         self.pano_ang_linear = Dense(cfg.angle_feat_size, H, dt)
         self.pano_ang_layer_norm = LayerNorm12(H)
         self.pano_encoder = BertEncoder(cfg, cfg.num_pano_layers)
+        self.rate = cfg.hidden_dropout_prob
 
     def _type(self, batch_size: int) -> torch.Tensor:
         ids = torch.zeros((batch_size,), dtype=torch.long,
                           device=self.cls_token.device)
         return self.type_embedding(ids)
 
-    def initial(self, batch_size: int) -> torch.Tensor:
+    def initial(self, batch_size: int, rng=None) -> torch.Tensor:
         """The [CLS]-style step-0 global history token (:592-595)."""
         x = self.cls_token[0, 0][None, :] + self._type(batch_size)
-        return self.layer_norm(x)
+        return dropout(self.layer_norm(x), self.rate, rng)
 
     def forward(self, img_feats, ang_feats, step_ids, pano_img_feats,
-                pano_ang_feats):
+                pano_ang_feats, rng=None):
         B = img_feats.shape[0]
         x = (self.img_layer_norm(self.img_linear(img_feats))
              + self.ang_layer_norm(self.ang_linear(ang_feats))
@@ -102,10 +118,11 @@ class HistoryEmbeddings(nn.Module):
              + self._type(B))
         pano = (self.pano_img_layer_norm(self.pano_img_linear(pano_img_feats))
                 + self.pano_ang_layer_norm(self.pano_ang_linear(pano_ang_feats)))
+        pano = dropout(pano, self.rate, rng)
         zero_mask = torch.zeros((B, 1, 1, pano.shape[1]), dtype=torch.float32,
                                 device=pano.device)
-        pano = self.pano_encoder(pano, zero_mask)
-        return self.layer_norm(x + pano.mean(dim=1))
+        pano = self.pano_encoder(pano, zero_mask, rng)
+        return dropout(self.layer_norm(x + pano.mean(dim=1)), self.rate, rng)
 
 
 class BypassImagineEmbeddings(nn.Module):
@@ -167,9 +184,9 @@ class HamtEncoder(nn.Module):
 
 
 class HamtModel(nn.Module):
-    """NavCMT + the VLNBertCMT wrapper, one module (eval modes)."""
+    """NavCMT + the VLNBertCMT wrapper's env-feature dropout, one module."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, feat_dropout: float = 0.4):
         super().__init__()
         unported = {"no_lang_ca": cfg.no_lang_ca,
                     "obj_feat_size": cfg.obj_feat_size > 0,
@@ -180,6 +197,7 @@ class HamtModel(nn.Module):
             raise NotImplementedError(
                 f"not ported yet: {[k for k, v in unported.items() if v]}")
         self.config = cfg
+        self.feat_dropout = feat_dropout
         self.embeddings = BertEmbeddings(cfg)
         self.img_embeddings = ImageEmbeddings(cfg)
         self.hist_embeddings = HistoryEmbeddings(cfg)
@@ -190,36 +208,47 @@ class HamtModel(nn.Module):
         self.encoder = HamtEncoder(cfg)
         self.next_action = NextActionPrediction(cfg)
 
+    def drop_env(self, feats, rng):
+        """The VLNBertCMT wrapper's env-feature dropout (models/model_HAMT.py)."""
+        return dropout(feats, self.feat_dropout, rng)
+
     # ------------------------------------------------------------------ modes
-    def language(self, txt_ids, txt_mask):
-        ext = extend_neg_mask(txt_mask)
-        x = self.embeddings(txt_ids)
-        for layer in self.encoder.layer:
-            x = layer(x, ext)
+    def language(self, txt_ids, txt_mask, rng=None):
+        with _stop_gradient(self.config.fix_lang_embedding):
+            ext = extend_neg_mask(txt_mask)
+            x = self.embeddings(txt_ids, rng)
+            for layer in self.encoder.layer:
+                x = layer(x, ext, rng)
         return x
 
-    def history_initial(self, batch_size: int):
-        return self.hist_embeddings.initial(batch_size)
+    def history_initial(self, batch_size: int, rng=None):
+        with _stop_gradient(self.config.fix_hist_embedding):
+            return self.hist_embeddings.initial(batch_size, rng)
 
     def history_step(self, hist_img_feats, prev_act_angle, step_id: int,
-                     pano_img_feats, pano_ang_feats):
+                     pano_img_feats, pano_ang_feats, rng=None):
         """One new history token for time `step_id` (agent_cmt.py:596-605)."""
-        B = hist_img_feats.shape[0]
-        step_ids = torch.full((B,), step_id, dtype=torch.long,
-                              device=hist_img_feats.device)
-        return self.hist_embeddings(hist_img_feats, prev_act_angle, step_ids,
-                                    pano_img_feats, pano_ang_feats)
+        with _stop_gradient(self.config.fix_hist_embedding):
+            hist_img_feats = self.drop_env(hist_img_feats, rng)
+            pano_img_feats = self.drop_env(pano_img_feats, rng)
+            B = hist_img_feats.shape[0]
+            step_ids = torch.full((B,), step_id, dtype=torch.long,
+                                  device=hist_img_feats.device)
+            return self.hist_embeddings(hist_img_feats, prev_act_angle,
+                                        step_ids, pano_img_feats,
+                                        pano_ang_feats, rng)
 
-    def imagine(self, imagine_feats, imagine_mask=None):
-        return self.imagine_embeddings(imagine_feats)
+    def imagine(self, imagine_feats, imagine_mask=None, rng=None):
+        with _stop_gradient(self.config.fix_imagine_embeds):
+            return self.imagine_embeddings(self.drop_env(imagine_feats, rng))
 
     def align_with_contrastive_loss(self, txt_embeds, txt_mask, imagine_embeds,
-                                    imagine_mask, np_weights):
+                                    imagine_mask, np_weights, rng=None):
         """Alignment of projected imagination embeddings to the mean
         noun-phrase token embedding of their sub-instruction.  Returns
         (loss, new_imagine): valid rows are overwritten with their
         projection, the reference's in-place update (vilmodel_cmt.py:781)."""
-        proj = self.contrastive_alignment_model.image_proj(imagine_embeds)
+        proj = self.contrastive_alignment_model.image_proj(imagine_embeds, rng)
         mean_np = torch.einsum("bil,blh->bih", np_weights.to(txt_embeds.dtype),
                                txt_embeds)
         valid = imagine_mask & (torch.sum(np_weights, dim=-1) > 0)
@@ -230,16 +259,19 @@ class HamtModel(nn.Module):
 
     def visual(self, txt_embeds, txt_mask, hist_embeds, hist_mask,
                ob_img_feats, ob_ang_feats, ob_nav_types, ob_valid,
-               imagine_embeds=None, imagine_mask=None) -> VisualOut:
+               imagine_embeds=None, imagine_mask=None, rng=None) -> VisualOut:
         """Per-step cross-modal encoding + action logits
         (vilmodel_cmt.py:1056-1205)."""
         cfg = self.config
         ext_txt = extend_neg_mask(txt_mask)
         B, T_obs = ob_nav_types.shape
-        type_emb = self.embeddings.token_type_embeddings(
-            torch.ones((B, T_obs), dtype=torch.long, device=ob_nav_types.device))
-        ob_embeds = self.img_embeddings(ob_img_feats, ob_ang_feats, type_emb,
-                                        ob_nav_types)
+        with _stop_gradient(cfg.fix_obs_embedding):
+            ob_img_feats = self.drop_env(ob_img_feats, rng)
+            type_emb = self.embeddings.token_type_embeddings(
+                torch.ones((B, T_obs), dtype=torch.long,
+                           device=ob_nav_types.device))
+            ob_embeds = self.img_embeddings(ob_img_feats, ob_ang_feats,
+                                            type_emb, ob_nav_types, rng)
 
         hist_len = hist_embeds.shape[1]
         visn = torch.cat([hist_embeds, ob_embeds], dim=1)
@@ -255,7 +287,7 @@ class HamtModel(nn.Module):
                                   dim=-1)
 
         for layer in self.encoder.x_layers:
-            lang, visn = layer(lang, lang_mask, visn, visn_mask)
+            lang, visn = layer(lang, lang_mask, visn, visn_mask, rng)
 
         hist_out = visn[:, :hist_len]
         ob_out = visn[:, hist_len:hist_len + T_obs]
@@ -271,7 +303,7 @@ class HamtModel(nn.Module):
         else:
             raise NotImplementedError(f"act_pred_token {cfg.act_pred_token!r}")
 
-        logits = self.next_action(head_in)[..., 0]
+        logits = self.next_action(head_in, rng)[..., 0]
         logits = mask_logits(logits, (ob_nav_types != 0) & ob_valid)
         state = txt_out[:, 0] * hist_out[:, 0]
         return VisualOut(logits, txt_out, hist_out, ob_out, state)

@@ -1,16 +1,42 @@
-"""Fused multi-head attention forward: a hand-written CUDA kernel for Hopper
-(`csrc/attention_fwd.cu`) and its plain PyTorch version.
+"""Fused multi-head attention: hand-written CUDA kernels for Hopper and their
+plain PyTorch versions.
 
-The kernel replaces the JAX package's Pallas TPU kernel
-`vln_imagine_tpu/ops/attention.py:_fwd_kernel`.  Both functions here take the
-[B, L, H, D] projection layout that `models/bert.py:MHAttention` produces
-and return [B, Lq, H, D], so the model needs no head transposes.
+| kernel | wrapper                  | source                 | replaces (vln_imagine_tpu/ops/attention.py) |
+|--------|--------------------------|------------------------|---------------------------------------------|
+| K1     | `attention_fwd`          | `csrc/attention_fwd.cu` | `_fwd_kernel`                              |
+| K2     | `attention_dropout_fwd`  | `csrc/attention_fwd.cu` | `_fwd_dropout_kernel`                      |
+| K3     | `attention_dropout_bwd`  | `csrc/attention_bwd.cu` | `_bwd_dropout_kernel`                      |
+| K4     | `attention_bwd`          | `csrc/attention_bwd.cu` | `_bwd_kernel`                              |
 
-`fused_attention` runs the plain version only for tensors on the CPU.  For a
-CUDA tensor it launches the kernel or raises; nothing falls back.
+All of them take the [B, L, H, D] projection layout that
+`models/bert.py:MHAttention` produces (strided views of the packed QKV
+product) and return [B, L, H, D], so the model needs no head transposes.
 
-The kernel is built at first use with nvcc into `build/kernels/` at the root
-of the checkout (a plain C entry point, loaded with ctypes) and launched on
+Each wrapper runs its plain version only for tensors on the CPU.  For a CUDA
+tensor it launches its kernel or raises; nothing falls back.  Each wrapper's
+`launches` counts its kernel's launches.
+
+`fused_attention` is the model's entry: K1 (or K2 with attention-probs
+dropout) under `torch.no_grad`, else `FusedAttention`, whose backward is K4
+(or K3).  The backward recomputes P from q, k and the bias, as the TPU
+kernels do: no [Lq, Lk] tensor is stored between the passes.
+
+Dropout bits.  An element of P is kept when its 32 random bits are
+>= round(rate * 2^32) and kept values are scaled by 1 / (1 - rate), as the
+TPU kernels' `_dropout_mask`.  Two sources, chosen per call, which the
+kernels and the plain versions produce bit for bit:
+
+- "hash": the JAX package's `_hash_mask_bits`, a function of the (h, q, k)
+  position within one batch item's [H, Lq, Lk] block only (the CPU stand-in
+  for the TPU's per-core PRNG; tests hold the kernels' math against the
+  interpret-mode Pallas kernels with it);
+- "philox": Philox-4x32-10 keyed on the per-call 64-bit seed, counter
+  (k, q, h, b), first output word: different masks across batch items and
+  across calls.  The training source.
+
+The kernels are built at first use with nvcc into `build/kernels/` at the
+root of the checkout (one shared library with a plain C interface per
+source, loaded with ctypes, cached by content hash) and launched on
 PyTorch's current stream without synchronising.
 """
 
@@ -26,80 +52,251 @@ from pathlib import Path
 
 import torch
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "attention_fwd.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = ("attention_fwd.cu", "attention_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
-MAX_LK = 1024  # the f32 score rows of a 16-query tile stay in shared memory
+MAX_LK = 1024  # forward: the f32 score rows of a 16-query tile stay in shared memory
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on an H100
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+BITS = {"hash": 1, "philox": 2}
 
-_lib = None
+_libs: dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
+
+_M32 = 0xFFFFFFFF
+
+
+# ------------------------------------------------------------------ bits
+def hash_bits(B: int, H: int, Lq: int, Lk: int, device=None) -> torch.Tensor:
+    """The JAX package's `_hash_mask_bits` over each batch item's
+    [H, Lq, Lk] block, as int64 holding uint32 values, [B, H, Lq, Lk]."""
+    def iota(n, mult):
+        return (torch.arange(n, dtype=torch.int64, device=device) * mult) & _M32
+    x = (iota(H, 2654435761)[:, None, None] ^ iota(Lq, 40503)[None, :, None]
+         ^ iota(Lk, 69069)[None, None, :])
+    x = ((x ^ (x >> 15)) * 0x2C1B3C6D) & _M32
+    x = ((x ^ (x >> 12)) * 0x297A2D39) & _M32
+    x = x ^ (x >> 15)
+    return x[None].expand(B, H, Lq, Lk)
+
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit halves of the 64-bit product a * b for uint32 values
+    held in int64 (b split in 16-bit halves so nothing overflows)."""
+    t = a * (b & 0xFFFF)
+    u = a * (b >> 16) + (t >> 16)
+    return u >> 16, ((u & 0xFFFF) << 16) | (t & 0xFFFF)
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int, rounds: int = 10):
+    """Philox-4x32-`rounds` (Salmon et al., SC'11) on int64 tensors holding
+    uint32 values; returns the four output words."""
+    for _ in range(rounds):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+    return c0, c1, c2, c3
+
+
+def philox_bits(B: int, H: int, Lq: int, Lk: int, seed: int,
+                device=None) -> torch.Tensor:
+    """First Philox-4x32-10 word for counter (k, q, h, b) under key
+    (seed low 32 bits, seed high 32 bits), [B, H, Lq, Lk] int64."""
+    def ar(n, dim):
+        shape = [1, 1, 1, 1]
+        shape[dim] = n
+        return torch.arange(n, dtype=torch.int64, device=device).view(shape)
+    shape = (B, H, Lq, Lk)
+    c0, c1, c2, c3 = (ar(n, d).expand(shape)
+                      for n, d in ((Lk, 3), (Lq, 2), (H, 1), (B, 0)))
+    return philox4x32(c0, c1, c2, c3, seed & _M32, (seed >> 32) & _M32)[0]
+
+
+def keep_threshold(rate: float) -> int:
+    """Bits >= this are kept (the TPU kernels' round(rate * 2^32))."""
+    return min(round(rate * 2 ** 32), _M32)
+
+
+def keep_scale(rate: float) -> float:
+    """1 / (1 - rate) rounded to f32 as the TPU kernels compute it."""
+    return float(torch.tensor(1.0) / torch.tensor(1.0 - rate))
+
+
+def dropout_mask(shape, rate: float, seed: int, bits: str,
+                 device=None) -> torch.Tensor:
+    """f32 [B, H, Lq, Lk]: 0 where dropped, 1 / (1 - rate) where kept."""
+    B, H, Lq, Lk = shape
+    if bits == "hash":
+        b = hash_bits(B, H, Lq, Lk, device)
+    elif bits == "philox":
+        b = philox_bits(B, H, Lq, Lk, seed, device)
+    else:
+        raise ValueError(f"bits must be one of {sorted(BITS)}, got {bits!r}")
+    return (b >= keep_threshold(rate)).float() * keep_scale(rate)
+
+
+# ------------------------------------------------------- plain versions
+def _probs(q, k, bias, scale):
+    """f32 softmax(QK^T * scale + bias), [B, H, Lq, Lk]."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()
+    return torch.softmax(s, dim=-1)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: torch.Tensor | None, scale: float) -> torch.Tensor:
-    """Plain attention on [B, L, H, D]: the kernel's arithmetic in PyTorch.
+    """Plain attention on [B, L, H, D]: K1's arithmetic in PyTorch.
 
     f32 scores, + bias, softmax in f32, P rounded to V's dtype, P V with f32
     accumulation, output in Q's dtype (as the TPU kernel and the JAX
     package's `reference_attention` / `attention_core_blhd`)."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if bias is not None:
-        s = s + bias.float()
-    p = torch.softmax(s, dim=-1)
+    p = _probs(q, k, bias, scale)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
 
 
-def _build() -> Path:
-    """Compile the kernel once per source content; returns the library path."""
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"attention_fwd_{digest}.so"
-    if lib_path.exists():
-        return lib_path
+def attention_dropout_reference(q, k, v, bias, scale: float, rate: float,
+                                seed: int, bits: str) -> torch.Tensor:
+    """K2's arithmetic: K1 with P multiplied by the keep mask after the
+    softmax, before the cast to V's dtype."""
+    p = _probs(q, k, bias, scale)
+    p = p * dropout_mask(p.shape, rate, seed, bits, q.device)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def _sum_to(x: torch.Tensor, shape) -> torch.Tensor:
+    """Sum a [B, H, Lq, Lk] gradient over the dims a bias broadcast."""
+    dims = tuple(d for d, n in enumerate(shape) if n == 1 and x.shape[d] != 1)
+    return x.sum(dim=dims, keepdim=True) if dims else x
+
+
+def attention_bwd_reference(q, k, v, bias, do, scale: float, rate: float = 0.0,
+                            seed: int = 0, bits: str = "philox"):
+    """K3's arithmetic (K4's with rate 0), written out as the TPU kernel
+    computes it rather than by autograd: P recomputed in f32,
+    dP = (dO V^T) * m, dS = P * (dP - rowsum(dP * P)), dQ = dS K * scale,
+    dK = dS^T Q * scale, dV = (P * m)^T dO, each in f32 and returned in the
+    input's dtype as [B, L, H, D].  dBias (f32, the bias's shape) is dS
+    summed over the broadcast dims, or None without a bias."""
+    p = _probs(q, k, bias, scale)
+    dof, vf = do.float(), v.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    pm = p
+    if rate > 0.0:
+        m = dropout_mask(p.shape, rate, seed, bits, q.device)
+        dp = dp * m
+        pm = p * m
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", pm, dof)
+    dbias = None if bias is None else _sum_to(ds, bias.shape)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+# ------------------------------------------------------------ building
+def _source_digest(name: str) -> str:
+    """Content hash of a source, the headers it may include, and the flags."""
+    h = hashlib.sha256((CSRC / name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"{Path(name).stem}_{_source_digest(name)}.so"
+
+
+def build_kernels() -> dict[str, Path]:
+    """Compile every source that has no library for its content yet, one
+    nvcc process per source, all started together.  Returns name -> path."""
+    paths = {name: _lib_path(name) for name in SOURCES}
+    todo = [name for name, path in paths.items() if not path.exists()]
+    if not todo:
+        return paths
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME else "nvcc"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    jobs = []
     try:
-        subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-                       check=True, capture_output=True, text=True)
-        os.replace(tmp, lib_path)
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{e.stderr}") from e
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / name)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs.append((name, tmp, proc))
+        errors = []
+        for name, tmp, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed to build {CSRC / name}:\n{err}")
+            else:
+                os.replace(tmp, paths[name])
+        if errors:
+            raise RuntimeError("\n".join(errors))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path
+        for _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return paths
 
 
-def load_kernel() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library."""
-    global _lib
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    # q k v bias o | dtype B H Lq Lk D | 13 strides | scale | bits threshold
+    # keep_scale seed | stream
+    "vln_attention_fwd": ([_PTR] * 5 + [_INT] * 6 + [_LL] * 13
+                          + [ctypes.c_float, _INT, ctypes.c_uint32,
+                             ctypes.c_float, ctypes.c_uint64, _PTR]),
+    # q k v bias do dq dk dv dbias | dtype B H Lq Lk D | 16 strides | scale |
+    # bits threshold keep_scale seed | stream
+    "vln_attention_bwd": ([_PTR] * 9 + [_INT] * 6 + [_LL] * 16
+                          + [ctypes.c_float, _INT, ctypes.c_uint32,
+                             ctypes.c_float, ctypes.c_uint64, _PTR]),
+}
+_ENTRY = {"attention_fwd.cu": "vln_attention_fwd",
+          "attention_bwd.cu": "vln_attention_bwd"}
+
+
+def load_kernels() -> dict[str, ctypes.CDLL]:
+    """Build (if needed) and load every kernel library; source -> library."""
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
-            fn = lib.vln_attention_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                           + [ctypes.c_longlong] * 13
-                           + [ctypes.c_float, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+        if len(_libs) < len(SOURCES):
+            for name, path in build_kernels().items():
+                lib = ctypes.CDLL(str(path))
+                fn = getattr(lib, _ENTRY[name])
+                fn.argtypes = _ARGTYPES[_ENTRY[name]]
+                fn.restype = ctypes.c_int
+                _libs[name] = lib
+    return dict(_libs)
 
 
-def _launch(q, k, v, bias, scale) -> torch.Tensor:
+# ------------------------------------------------------------ launching
+def _check(q, k, v, bias):
+    """Validate what the kernels take; returns bias expanded to
+    [B, H, Lq, Lk] (a view, stride 0 where broadcast) or None."""
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"attention kernel takes bf16 or f32 q/k/v of one dtype, "
-                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise TypeError(f"attention kernels take bf16 or f32 q/k/v of one "
+                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if k.shape != (B, Lk, H, D) or v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match [B, L, H, D]")
@@ -112,43 +309,215 @@ def _launch(q, k, v, bias, scale) -> torch.Tensor:
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the last dim of q, k and v must be contiguous")
     if bias is None:
-        bias_ptr, bstrides = None, (0, 0, 0, 0)
-    else:
-        if bias.dtype != torch.float32 or bias.device != q.device:
-            raise TypeError("bias must be f32 on the device of q")
-        if bias.dim() != 4:
-            raise ValueError(f"bias must be 4-d [B, 1|H, 1|Lq, Lk], got "
-                             f"{tuple(bias.shape)}")
-        bias = bias.expand(B, H, Lq, Lk)  # a view: stride 0 where broadcast
-        bias_ptr, bstrides = bias.data_ptr(), bias.stride()
+        return None
+    if bias.dtype != torch.float32 or bias.device != q.device:
+        raise TypeError("bias must be f32 on the device of q")
+    if bias.dim() != 4:
+        raise ValueError(f"bias must be 4-d [B, 1|H, 1|Lq, Lk], got "
+                         f"{tuple(bias.shape)}")
+    return bias.expand(B, H, Lq, Lk)
+
+
+def _dropout_args(rate: float, seed: int, bits: str):
+    if rate <= 0.0:
+        return 0, 0, 1.0, 0
+    if not rate < 1.0:
+        raise ValueError(f"dropout rate {rate} outside [0, 1)")
+    if bits not in BITS:
+        raise ValueError(f"bits must be one of {sorted(BITS)}, got {bits!r}")
+    return BITS[bits], keep_threshold(rate), keep_scale(rate), seed & (2**64 - 1)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_fwd(q, k, v, bias, scale, rate=0.0, seed=0, bits="philox"):
+    bias = _check(q, k, v, bias)
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    bias_ptr, bstrides = (None, (0, 0, 0, 0)) if bias is None else (
+        bias.data_ptr(), bias.stride())
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
-    lib = load_kernel()
+    lib = load_kernels()["attention_fwd.cu"]
     err = lib.vln_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
         _DTYPE_CODE[q.dtype], B, H, Lq, Lk, D,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        *bstrides, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *bstrides, float(scale), *_dropout_args(rate, seed, bits), _stream(q))
     if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
-    fused_attention.launches += 1
+        raise RuntimeError(f"attention forward kernel launch failed: CUDA "
+                           f"error {err}")
     return out
 
 
+def bwd_smem_bytes(Lq: int, Lk: int, D: int) -> int:
+    """Shared memory of one backward block: Q, dO [Lq, D+1], K, V [Lk, D+1]
+    and P, dS [Lq, Lk+1] in f32, the keep flags [Lq, Lk] in bytes."""
+    return (4 * (2 * Lq * (D + 1) + 2 * Lk * (D + 1) + 2 * Lq * (Lk + 1))
+            + Lq * Lk + 16)
+
+
+def _launch_bwd(q, k, v, bias, do, scale, need_dbias, rate=0.0, seed=0,
+                bits="philox"):
+    full_bias = _check(q, k, v, bias)
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} does not match q")
+    if do.stride(-1) != 1:
+        raise ValueError("the last dim of dO must be contiguous")
+    if bwd_smem_bytes(Lq, Lk, D) > SMEM_LIMIT:
+        raise ValueError(f"attention backward holds one (batch, head) in "
+                         f"shared memory: Lq {Lq} x Lk {Lk} at D {D} needs "
+                         f"{bwd_smem_bytes(Lq, Lk, D)} > {SMEM_LIMIT} bytes")
+    bias_ptr, bstrides = (None, (0, 0, 0, 0)) if full_bias is None else (
+        full_bias.data_ptr(), full_bias.stride())
+    dq = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Lk, H, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Lk, H, D), dtype=q.dtype, device=q.device)
+    # dS per (batch, head); summed over the bias's broadcast dims below
+    ds = (torch.empty((B, H, Lq, Lk), dtype=torch.float32, device=q.device)
+          if need_dbias and bias is not None else None)
+    lib = load_kernels()["attention_bwd.cu"]
+    err = lib.vln_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if ds is None else ds.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, H, Lq, Lk, D,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        do.stride(0), do.stride(1), do.stride(2),
+        *bstrides, float(scale), *_dropout_args(rate, seed, bits), _stream(q))
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: CUDA "
+                           f"error {err}")
+    dbias = None if ds is None else _sum_to(ds, bias.shape)
+    return dq, dk, dv, dbias
+
+
+def _on_card(q: torch.Tensor) -> bool:
+    """False for CPU tensors (the plain version), True for CUDA; raises for
+    any other device."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention for device {q.device}")
+    return True
+
+
+# ------------------------------------------------------------- wrappers
+def attention_fwd(q, k, v, bias, scale: float) -> torch.Tensor:
+    """K1: [B, Lq, H, D] x [B, Lk, H, D] -> [B, Lq, H, D]."""
+    if not _on_card(q):
+        return attention_reference(q, k, v, bias, scale)
+    out = _launch_fwd(q, k, v, bias, scale)
+    attention_fwd.launches += 1
+    return out
+
+
+def attention_dropout_fwd(q, k, v, bias, scale: float, rate: float, seed: int,
+                          bits: str = "philox") -> torch.Tensor:
+    """K2: K1 with attention-probs dropout at `rate` from `bits`."""
+    if not _on_card(q):
+        return attention_dropout_reference(q, k, v, bias, scale, rate, seed,
+                                           bits)
+    out = _launch_fwd(q, k, v, bias, scale, rate, seed, bits)
+    attention_dropout_fwd.launches += 1
+    return out
+
+
+def attention_bwd(q, k, v, bias, do, scale: float, need_dbias: bool = False):
+    """K4: (dQ, dK, dV, dBias or None) of K1."""
+    if not _on_card(q):
+        dq, dk, dv, db = attention_bwd_reference(q, k, v, bias, do, scale)
+        return dq, dk, dv, db if need_dbias else None
+    out = _launch_bwd(q, k, v, bias, do, scale, need_dbias)
+    attention_bwd.launches += 1
+    return out
+
+
+def attention_dropout_bwd(q, k, v, bias, do, scale: float, rate: float,
+                          seed: int, bits: str = "philox",
+                          need_dbias: bool = False):
+    """K3: (dQ, dK, dV, dBias or None) of K2, the mask regenerated."""
+    if not _on_card(q):
+        dq, dk, dv, db = attention_bwd_reference(q, k, v, bias, do, scale,
+                                                 rate, seed, bits)
+        return dq, dk, dv, db if need_dbias else None
+    out = _launch_bwd(q, k, v, bias, do, scale, need_dbias, rate, seed, bits)
+    attention_dropout_bwd.launches += 1
+    return out
+
+
+for _w in (attention_fwd, attention_dropout_fwd, attention_bwd,
+           attention_dropout_bwd):
+    _w.launches = 0
+
+KERNELS = {"attention_fwd": attention_fwd,
+           "attention_dropout_fwd": attention_dropout_fwd,
+           "attention_dropout_bwd": attention_dropout_bwd,
+           "attention_bwd": attention_bwd}
+
+
+def reset_launch_counts() -> None:
+    for w in KERNELS.values():
+        w.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: w.launches for name, w in KERNELS.items()}
+
+
+# ------------------------------------------------------------ autograd
+class FusedAttention(torch.autograd.Function):
+    """Attention whose forward is K1 (rate 0) or K2 and whose backward is K4
+    or K3.  Saves q, k, v and the bias (views, no copies) and the seed; P is
+    recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, rate, seed, bits):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.args = (scale, rate, seed, bits)
+        if rate > 0.0:
+            return attention_dropout_fwd(q, k, v, bias, scale, rate, seed, bits)
+        return attention_fwd(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias = ctx.saved_tensors
+        scale, rate, seed, bits = ctx.args
+        need_dbias = bias is not None and ctx.needs_input_grad[3]
+        if rate > 0.0:
+            dq, dk, dv, db = attention_dropout_bwd(
+                q, k, v, bias, do, scale, rate, seed, bits, need_dbias)
+        else:
+            dq, dk, dv, db = attention_bwd(q, k, v, bias, do, scale, need_dbias)
+        return dq, dk, dv, db, None, None, None, None
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: torch.Tensor | None, scale: float) -> torch.Tensor:
+                    bias: torch.Tensor | None, scale: float,
+                    dropout_rate: float = 0.0, seed: int | None = None,
+                    bits: str = "philox") -> torch.Tensor:
     """[B, Lq, H, D] x [B, Lk, H, D] -> [B, Lq, H, D].
 
     bias: additive f32 [B, 1|H, 1|Lq, Lk] (the -10000 padding masks), or
-    None.  CPU tensors take `attention_reference`; CUDA tensors launch the
-    kernel, and `fused_attention.launches` counts those launches."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, bias, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention for device {q.device}")
-    return _launch(q, k, v, bias, scale)
-
-
-fused_attention.launches = 0
+    None.  dropout_rate > 0 drops attention probabilities with the mask of
+    (`seed`, `bits`).  Without autograd the forward kernel runs directly;
+    with it, `FusedAttention` records the kernels' backward.  CPU tensors
+    take the plain versions; CUDA tensors launch the kernels."""
+    rate = float(dropout_rate)
+    if rate > 0.0 and seed is None:
+        raise ValueError("attention dropout needs a seed")
+    seed = 0 if seed is None else int(seed)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, bias))
+    if needs_grad:
+        return FusedAttention.apply(q, k, v, bias, scale, rate, seed, bits)
+    if rate > 0.0:
+        return attention_dropout_fwd(q, k, v, bias, scale, rate, seed, bits)
+    return attention_fwd(q, k, v, bias, scale)

@@ -1,19 +1,32 @@
-"""Batched HAMT episode rollout, eval half: greedy (argmax) actions.
+"""Batched HAMT episode rollout: greedy eval, and the IL / RL training half.
 
 The port of `vln_imagine_tpu/train/rollout_hamt.py`.  The reference's
 rollout (VLN-HAMT/finetune_src/r2r/agent_cmt.py:371-759) alternates host
 feature packing, per-item simulator calls and CUDA forwards; here every step
 is tensor code on one device: observation, visual forward, action
-selection, history update and env transition.
+selection, history update, env transition and reward shaping.
 
 Semantics kept from the JAX package:
 - items that pick STOP still append one history token but freeze afterwards
   (agent_cmt.py:586-609)
 - the history buffer has T+1 fixed slots written under a mask, so the step
   body keeps static shapes
-- early exit is the reference's python `break` (agent_cmt.py:658-659): the
-  loop checks once per step whether every item has ended, which costs one
-  host sync per step.  The IL/RL training half waits for the training slice.
+- early exit (eval only) is the reference's python `break`
+  (agent_cmt.py:658-659): the loop checks once per step whether every item
+  has ended, which costs one host sync per step.  Training rollouts run all
+  T steps and keep ended items frozen
+- teacher CE: sum reduction over steps and items on the unmasked logits,
+  `ignoreid` skipped, then * train_ml / batch (agent_cmt.py:105,547,747)
+- RL reward shaping: +-2 terminal with an nDTW bonus, +-1 move shaping with
+  delta-nDTW, near-miss penalty (:615-653), on the incremental DTW row
+- A2C: discounted returns seeded with the critic value of the final state
+  (under stop-gradient) for unfinished items, one batched critic call over
+  all T*B step states (not detached: the critic loss reaches the model),
+  0.5 L2 critic loss, entropy bonus under 'sample', normalised by
+  `normalize_loss` (:661-744)
+
+Not ported yet: 'mixed' feedback (the fused rollout), r2r_back's two
+phases, REVERIE objects.
 """
 
 from __future__ import annotations
@@ -25,52 +38,102 @@ import torch
 from vln_imagine_tpu_torch.config import Config
 from vln_imagine_tpu_torch.envx import env as envx
 from vln_imagine_tpu_torch.envx.tables import EpisodeBatch, WorldTables
+from vln_imagine_tpu_torch.models.bert import Critic
 from vln_imagine_tpu_torch.models.hamt import HamtModel
+from vln_imagine_tpu_torch.ops.dropout import Rng
 from vln_imagine_tpu_torch.ops.masks import LOGIT_NEG_INF
 from vln_imagine_tpu_torch.platform import resolve_device
 
 
 class RolloutResult(NamedTuple):
+    loss: torch.Tensor              # scalar total loss (IL + RL + aux)
+    ml_loss: torch.Tensor           # scalar
+    rl_loss: torch.Tensor           # scalar
     aux_loss: torch.Tensor          # scalar cosine alignment loss
     path_nodes: torch.Tensor        # [B, T+1]
     path_len: torch.Tensor          # [B]
     logits: torch.Tensor | None     # [T, B, T_obs] (None under early exit)
     actions: torch.Tensor | None    # [T, B]
+    entropy_sum: torch.Tensor       # scalar, 'sample' feedback (log metric)
     steps: int                      # steps the loop ran
 
 
-def _select_action(logits: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Greedy action slot (agent_cmt.py:560-577, feedback='argmax'): the
-    first maximum of the masked log-softmax, as jnp.argmax."""
+def sample_categorical(logp: torch.Tensor,
+                       generator: torch.Generator) -> torch.Tensor:
+    """One draw per row from the categorical distribution of `logp` [B, K],
+    by the Gumbel-max trick as `jax.random.categorical` (no host sync)."""
+    u = torch.rand(logp.shape, generator=generator, device=logp.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    return torch.argmax(logp + gumbel, dim=-1)
+
+
+def _select_action(logits, valid, teacher, feedback: str, rng: Rng | None):
+    """Action slot per item (agent_cmt.py:560-577); under 'sample' also its
+    log-probability and the policy entropy, which only the RL loss reads."""
+    if feedback == "teacher":
+        return teacher, None, None
     logp = torch.log_softmax(
         torch.where(valid, logits, LOGIT_NEG_INF).float(), dim=-1)
-    return torch.argmax(logp, dim=-1).to(torch.int32)
+    if feedback == "argmax":
+        return torch.argmax(logp, dim=-1).to(torch.int32), None, None
+    if feedback != "sample":
+        raise NotImplementedError(f"feedback {feedback!r} is not ported yet")
+    a = sample_categorical(logp, rng.device)
+    entropy = -torch.sum(torch.where(valid, logp.exp() * logp, 0.0), dim=-1)
+    chosen = logp.gather(1, a.clamp(0, logp.shape[1] - 1)[:, None])[:, 0]
+    return a.to(torch.int32), chosen, entropy
 
 
-@torch.no_grad()
 def rollout_hamt(model: HamtModel, tables: WorldTables, ep: EpisodeBatch,
-                 cfg: Config, max_steps: int | None = None,
-                 early_exit: bool = True) -> RolloutResult:
-    """Greedy rollout of a batch of episodes; tables and ep lie on the
-    model's device."""
+                 cfg: Config, rng: Rng | None = None, critic: Critic | None = None,
+                 feedback: str = "argmax", train_ml: float | None = None,
+                 train_rl: bool = False, deterministic: bool = True,
+                 max_steps: int | None = None,
+                 early_exit: bool = False) -> RolloutResult:
+    """Roll out a batch of episodes; tables and ep lie on the model's device.
+
+    feedback: 'argmax' (greedy), 'teacher' (gt-path teacher forcing) or
+    'sample' (actions drawn from `rng`).  train_ml weights the teacher CE;
+    train_rl adds the A2C loss (needs `critic`).  `deterministic` turns every
+    dropout off; `rng` is needed for dropout and for 'sample'.  Autograd is
+    on only when a loss is asked for."""
+    if feedback in ("teacher", "argmax"):
+        train_rl = False
+    training = train_ml is not None or train_rl
+    if early_exit and training:
+        raise ValueError("early_exit is for inference rollouts only")
+    if cfg.dataset != "r2r":
+        raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported yet")
+    if train_rl and critic is None:
+        raise ValueError("train_rl needs the critic")
+    drop = None if deterministic else rng
+    with torch.set_grad_enabled(training):
+        return _rollout(model, tables, ep, cfg, rng, drop, critic, feedback,
+                        train_ml, train_rl, max_steps, early_exit)
+
+
+def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
+             train_rl, max_steps, early_exit) -> RolloutResult:
     mcfg, tcfg, ecfg = cfg.model, cfg.train, cfg.env
     B = ep.batch
     T = max_steps or ecfg.max_action_len
     K = tables.max_candidates
+    ignore = tcfg.ignoreid
     dev = ep.scan.device
+    zero = torch.zeros((), device=dev)
 
     # ---- per-episode prologue (once; agent_cmt.py:392-496) -----------------
-    txt_embeds = model.language(ep.txt_ids, ep.txt_mask)
-    aux_loss = torch.zeros((), device=dev)
+    txt_embeds = model.language(ep.txt_ids, ep.txt_mask, drop)
+    aux_loss = zero
     imagine_embeds = None
     if mcfg.imagine_enc_pano:
-        imagine_embeds = model.imagine(ep.imagine_feats, ep.imagine_mask)
+        imagine_embeds = model.imagine(ep.imagine_feats, ep.imagine_mask, drop)
         if mcfg.use_cosine_aux_loss:
             aux_loss, imagine_embeds = model.align_with_contrastive_loss(
                 txt_embeds, ep.txt_mask, imagine_embeds, ep.imagine_mask,
-                ep.np_weights)
+                ep.np_weights, drop)
 
-    h0 = model.history_initial(B)
+    h0 = model.history_initial(B, drop)
     hist_buf = torch.zeros((B, T + 1, mcfg.hidden_size), dtype=h0.dtype,
                            device=dev)
     hist_buf[:, 0] = h0
@@ -78,19 +141,42 @@ def rollout_hamt(model: HamtModel, tables: WorldTables, ep: EpisodeBatch,
     slots = torch.arange(T + 1, device=dev)
 
     st = envx.reset(tables, ep, T)
-    logits_seq, actions = [], []
-    t = 0
-    for t in range(T):
+    if train_rl:
+        dtw_row = envx.dtw_init(tables, ep)
+        last_dist = envx.distance_to_goal(tables, ep, st.node)
+        last_ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
+
+    def visual_forward(st, h_buf, h_len):
         obs = envx.observe_hamt(tables, ep, st, mcfg.angle_feat_size)
         if ecfg.ob_type == "cand":
             # candidates + [STOP] only (agent_cmt.py:502 _candidate_variable)
             obs = obs._replace(valid=obs.valid & (obs.nav_types != 0))
-        h_mask = slots[None, :] < hist_len[:, None]
-        out = model.visual(txt_embeds, ep.txt_mask, hist_buf, h_mask,
+        h_mask = slots[None, :] < h_len[:, None]
+        out = model.visual(txt_embeds, ep.txt_mask, h_buf, h_mask,
                            obs.img, obs.ang, obs.nav_types, obs.valid,
                            imagine_embeds=imagine_embeds,
-                           imagine_mask=ep.imagine_mask)
+                           imagine_mask=ep.imagine_mask, rng=drop)
+        return obs, out
+
+    ml_acc = ent_acc = zero
+    ys = {k: [] for k in ("logits", "actions", "logp", "entropy", "state",
+                          "reward", "mask")}
+    t = 0
+    for t in range(T):
+        obs, out = visual_forward(st, hist_buf, hist_len)
         act_logits = out.act_logits
+        teacher = (envx.teacher_hamt(tables, ep, st, t, ignore)
+                   if feedback == "teacher" or train_ml is not None else None)
+
+        # IL: summed CE with ignore index from the UNMASKED logits, as the
+        # reference computes ml_loss before the no_cand_backtrack masking
+        # (agent_cmt.py:547 vs :549-558)
+        if train_ml is not None:
+            logp = torch.log_softmax(act_logits.float(), dim=-1)
+            tgt = teacher.clamp(0, logp.shape[1] - 1).long()
+            ce = -logp.gather(1, tgt[:, None])[:, 0]
+            ml_acc = ml_acc + torch.sum(torch.where(teacher == ignore, 0.0, ce))
+
         if tcfg.no_cand_backtrack:
             # mask candidates leading to already-visited nodes (incl. the
             # current one), agent_cmt.py:549-558; the [STOP] slot stays open
@@ -102,8 +188,17 @@ def rollout_hamt(model: HamtModel, tables: WorldTables, ep: EpisodeBatch,
             bt_full = torch.nn.functional.pad(bt, (0, act_logits.shape[1] - K))
             act_logits = torch.where(bt_full, LOGIT_NEG_INF, act_logits)
 
-        a_t = _select_action(act_logits, (obs.nav_types != 0) & obs.valid)
-        stop_sel = (a_t == obs.stop_slot) & ~st.ended
+        a_t, logp_a, entropy = _select_action(
+            act_logits, (obs.nav_types != 0) & obs.valid, teacher, feedback,
+            rng)
+        if entropy is not None:
+            ent_acc = ent_acc + torch.sum(torch.where(st.ended, 0.0, entropy))
+
+        # stop selected this step / the teacher says ignore (ended items)
+        stop_sel = a_t == obs.stop_slot
+        if feedback == "teacher":
+            stop_sel = stop_sel | (a_t == ignore)
+        stop_sel = stop_sel & ~st.ended
         is_stop = stop_sel | st.ended
         a_env = torch.where(is_stop, K, a_t).to(torch.int32)
 
@@ -111,23 +206,86 @@ def rollout_hamt(model: HamtModel, tables: WorldTables, ep: EpisodeBatch,
         hist_img, pano_img, pano_ang, prev_ang = envx.history_inputs(
             tables, ep, st, torch.where(is_stop, -1, a_env),
             mcfg.angle_feat_size)
-        h_tok = model.history_step(hist_img, prev_ang, t, pano_img, pano_ang)
+        h_tok = model.history_step(hist_img, prev_ang, t, pano_img, pano_ang,
+                                   drop)
         grow = ~st.ended  # just-stopped items still record one token
         write = (slots[None, :] == hist_len[:, None]) & grow[:, None]
         hist_buf = torch.where(write[:, :, None], h_tok[:, None, :], hist_buf)
         hist_len = torch.where(grow, hist_len + 1, hist_len)
 
+        ended_pre = st.ended
         st = envx.step_hamt(tables, ep, st, a_env)
+        moved = ~is_stop & ~ended_pre
+
+        if train_rl:
+            # reward shaping on the updated pose (agent_cmt.py:615-653)
+            dist = envx.distance_to_goal(tables, ep, st.node)
+            new_row = envx.dtw_push(tables, ep, dtw_row, st.node)
+            dtw_row = torch.where(moved[:, None], new_row, dtw_row)
+            ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
+            stop_rew = torch.where(dist < 3.0, 2.0 + ndtw * 2.0, -2.0)
+            delta = -(dist - last_dist)
+            ndtw_rew = ndtw - last_ndtw
+            move_rew = torch.where(delta > 0.0, 1.0 + ndtw_rew,
+                                   torch.where(delta < 0.0, -1.0 + ndtw_rew,
+                                               0.0))
+            move_rew = move_rew - torch.where(
+                (last_dist <= 1.0) & (dist - last_dist > 0.0),
+                (1.0 - last_dist) * 2.0, 0.0)
+            reward = torch.where(ended_pre, 0.0,
+                                 torch.where(is_stop, stop_rew, move_rew))
+            last_dist = torch.where(ended_pre, last_dist, dist)
+            last_ndtw = torch.where(moved, ndtw, last_ndtw)
+            ys["reward"].append(reward)
+            ys["mask"].append(torch.where(ended_pre, 0.0, 1.0))
+            ys["logp"].append(logp_a)
+            ys["entropy"].append(entropy)
+            ys["state"].append(out.state)
+
         if not early_exit:
-            logits_seq.append(act_logits)
-            actions.append(a_t)
+            ys["logits"].append(act_logits)
+            ys["actions"].append(a_t)
         elif bool(st.ended.all()):  # one host sync per step
             break
+
+    loss = (mcfg.cosine_weight * aux_loss if mcfg.use_cosine_aux_loss
+            else zero)
+    ml_loss = rl_loss = zero
+    if train_ml is not None:
+        ml_loss = ml_acc * train_ml / B
+        loss = loss + ml_loss
+
+    if train_rl:
+        # the final state's value, under stop-gradient
+        with torch.no_grad():
+            _, last_out = visual_forward(st, hist_buf, hist_len)
+            last_value = critic(last_out.state, drop)
+        discount = torch.where(st.ended, 0.0, last_value.float())
+        states = torch.stack(ys["state"])                    # [T, B, H]
+        values = critic(states.reshape(T * B, -1), drop).float().reshape(T, B)
+        rewards, masks = torch.stack(ys["reward"]), torch.stack(ys["mask"])
+        logps, entropys = torch.stack(ys["logp"]), torch.stack(ys["entropy"])
+        # reverse-time A2C pass (agent_cmt.py:712-732)
+        for s in reversed(range(T)):
+            discount = discount * tcfg.gamma + rewards[s]
+            adv = (discount - values[s]).detach()
+            rl_loss = (rl_loss + torch.sum(-logps[s] * adv * masks[s])
+                       + torch.sum(((discount - values[s]) ** 2) * masks[s]) * 0.5)
+        if feedback == "sample":
+            rl_loss = rl_loss + torch.sum(
+                -tcfg.entropy_loss_weight * entropys * masks)
+        if tcfg.normalize_loss == "total":
+            rl_loss = rl_loss / torch.clamp(torch.sum(masks), min=1.0)
+        elif tcfg.normalize_loss == "batch":
+            rl_loss = rl_loss / B
+        loss = loss + rl_loss
+
     return RolloutResult(
-        aux_loss=aux_loss, path_nodes=st.path_nodes, path_len=st.path_len,
-        logits=torch.stack(logits_seq) if logits_seq else None,
-        actions=torch.stack(actions) if actions else None,
-        steps=t + 1)
+        loss=loss, ml_loss=ml_loss, rl_loss=rl_loss, aux_loss=aux_loss,
+        path_nodes=st.path_nodes, path_len=st.path_len,
+        logits=torch.stack(ys["logits"]) if ys["logits"] else None,
+        actions=torch.stack(ys["actions"]) if ys["actions"] else None,
+        entropy_sum=ent_acc, steps=t + 1)
 
 
 def make_eval_fn(model: HamtModel, tables: WorldTables, cfg: Config,

@@ -1,8 +1,16 @@
-"""HAMT trainer, eval half: model construction, seeded init, greedy eval.
+"""HAMT trainer: model and critic construction, seeded init, greedy eval and
+the IL + RL update step.
 
-The port of `vln_imagine_tpu/train/trainer.py:HamtTrainer`.  The model holds
-its parameters, so the eval step takes only the episodes.  The train step
-waits for the training slice.
+The port of `vln_imagine_tpu/train/trainer.py:HamtTrainer`.  The modules
+hold their parameters and the optimizers their state, so the eval step takes
+only the episodes and the train step only the two episode batches.
+
+One train step is one reference iteration (agent_cmt.py:799-832): under
+'sample' feedback an IL rollout (teacher forcing, weight ml_weight) and an
+RL rollout (sampled actions, A2C) share one backward; under 'teacher' only
+the IL rollout runs.  The navigator and the critic each have their own
+optimizer (train/optim.py): the navigator's clips at 40 and carries the
+3-stage imagination warm-up, the critic's is plain Adam.
 """
 
 from __future__ import annotations
@@ -13,11 +21,16 @@ import torch
 from torch import nn
 
 from vln_imagine_tpu_torch.config import Config
-from vln_imagine_tpu_torch.envx.tables import WorldTables
-from vln_imagine_tpu_torch.models.bert import LayerNorm12
+from vln_imagine_tpu_torch.envx.tables import EpisodeBatch, WorldTables
+from vln_imagine_tpu_torch.models.bert import Critic, LayerNorm12
 from vln_imagine_tpu_torch.models.hamt import HamtModel
+from vln_imagine_tpu_torch.ops.dropout import Rng
 from vln_imagine_tpu_torch.platform import resolve_device
-from vln_imagine_tpu_torch.train.rollout_hamt import make_eval_fn
+from vln_imagine_tpu_torch.train.optim import (
+    plain_optimizer,
+    warmup_variant4_optimizer,
+)
+from vln_imagine_tpu_torch.train.rollout_hamt import make_eval_fn, rollout_hamt
 
 # flax's lecun_normal: a normal truncated at +-2 std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -47,20 +60,91 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 
 
 class HamtTrainer:
-    """Builds the HAMT model with seeded weights on `device` (the card unless
-    the caller names one) and the greedy eval step over `tables`."""
+    """Builds the HAMT model and its critic with seeded weights on `device`
+    (the card unless the caller names one), their optimizers, the greedy
+    eval step and the train step over `tables`.  Every random draw of
+    training comes from `self.rng`, seeded from `cfg.train.seed`."""
 
     def __init__(self, cfg: Config, tables: WorldTables, device=None,
                  seed: int | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        gen = torch.Generator().manual_seed(
-            cfg.train.seed if seed is None else seed)
-        model = HamtModel(cfg.model)
+        seed = cfg.train.seed if seed is None else seed
+        gen = torch.Generator().manual_seed(seed)
+        model = HamtModel(cfg.model, feat_dropout=cfg.train.feat_dropout)
+        critic = Critic(cfg.model)
         init_params(model, gen)  # on the CPU: the same weights on any device
+        init_params(critic, gen)
         self.model = model.to(self.device).eval()
+        self.critic = critic.to(self.device)
         self.tables = tables.to(self.device)
+        self.rng = Rng(seed, self.device)
+        tcfg, mcfg = cfg.train, cfg.model
+        if (tcfg.experimental_warmup and tcfg.experimental_warmup_type == "variant4"
+                and mcfg.imagine_enc_pano and mcfg.use_cosine_aux_loss):
+            self.optimizer = warmup_variant4_optimizer(
+                self.model.named_parameters(), tcfg.lr, tcfg.iters, tcfg.optim,
+                tcfg.max_grad_norm, stage1_iters=tcfg.warmup_stage1_iters,
+                stage2_iters=tcfg.warmup_stage2_iters,
+                weight_decay=tcfg.weight_decay)
+        else:
+            self.optimizer = plain_optimizer(
+                self.model.parameters(), tcfg.lr, tcfg.optim,
+                tcfg.max_grad_norm, weight_decay=tcfg.weight_decay)
+        self.critic_optimizer = plain_optimizer(
+            self.critic.parameters(), tcfg.lr, tcfg.optim, max_grad_norm=None)
 
     def make_eval_step(self):
         """episodes -> (path_nodes, path_len), greedy with early exit."""
         return make_eval_fn(self.model, self.tables, self.cfg, self.device)
+
+    def make_train_step(self, feedback: str = "sample"):
+        """Returns step(ep_il, ep_rl) -> metrics: one IL (+ RL) update of the
+        model and the critic.  The metrics (`loss`, `ml_loss`, `aux_loss`,
+        `rl_loss`, `entropy`, `grad_norm` before the clip) come back as
+        device tensors; the step itself never waits for the device."""
+        cfg, model, critic, tables, rng = (self.cfg, self.model, self.critic,
+                                           self.tables, self.rng)
+        tcfg = cfg.train
+        if feedback not in ("teacher", "sample"):
+            raise ValueError(f"feedback {feedback!r}")
+        if feedback == "sample" and tcfg.ml_weight != 0 and tcfg.fused_sample_rollout:
+            raise NotImplementedError("the fused sample rollout is not ported yet")
+        # teacher-forced rollouts end with the annotated path, so they need
+        # only max_gt_path_len steps
+        t_il = min(cfg.env.max_gt_path_len, cfg.env.max_action_len)
+        dev = self.device
+
+        def run(ep, **kw):
+            return rollout_hamt(model, tables, ep, cfg, rng=rng, critic=critic,
+                                deterministic=False, **kw)
+
+        def step(ep_il: EpisodeBatch, ep_rl: EpisodeBatch) -> dict:
+            ep_il, ep_rl = ep_il.to(dev), ep_rl.to(dev)
+            self.optimizer.zero_grad()
+            self.critic_optimizer.zero_grad()
+            zero = torch.zeros((), device=dev)
+            metrics = dict(ml_loss=zero, aux_loss=zero, rl_loss=zero,
+                           entropy=zero)
+            loss = zero
+            if feedback == "teacher":
+                res = run(ep_il, feedback="teacher",
+                          train_ml=tcfg.teacher_weight, max_steps=t_il)
+                loss = loss + res.loss
+                metrics.update(ml_loss=res.ml_loss, aux_loss=res.aux_loss)
+            else:
+                if tcfg.ml_weight != 0:
+                    res = run(ep_il, feedback="teacher",
+                              train_ml=tcfg.ml_weight, max_steps=t_il)
+                    loss = loss + res.loss
+                    metrics.update(ml_loss=res.ml_loss, aux_loss=res.aux_loss)
+                res = run(ep_rl, feedback="sample", train_rl=True)
+                loss = loss + res.loss
+                metrics.update(rl_loss=res.rl_loss, entropy=res.entropy_sum)
+            loss.backward()
+            metrics["grad_norm"] = self.optimizer.step()
+            self.critic_optimizer.step()
+            metrics["loss"] = loss
+            return {k: v.detach() for k, v in metrics.items()}
+
+        return step
