@@ -36,11 +36,13 @@ JSON line; any failed check exits non-zero:
 6. kernels      every kernel against its plain PyTorch version on the card:
                 K1 at every (Lq, Lk) of the eval path, B 8 and 64, and of
                 the teacher step, B 8; K2 (both bit sources), K3 (both) and
-                K4 at every training shape, B 8;
+                K4 at every training shape, B 8; K3 and K4 also at the long
+                shapes 220/220 and 270/270 (the DUET and RxR text stacks);
                 bf16 and f32, [B,1,1,Lk] mask and per-head bias (dBias
                 checked there), q/k/v as views of a packed projection.
                 Kernel, plain and library times (CUDA-graph replays between
-                CUDA events) beside the least time the card could take.
+                CUDA events) beside the least time the card could take.  Two
+                K3 calls give the same bits.
 
 Then the kernel summary line `{"kernels": [...]}`, the card's name and power
 limit, and last the result line.  Without a CUDA device, or outside a
@@ -105,6 +107,9 @@ UPDATE_FRACTION = 1e-3
 # 60/80, 60/60)
 SHAPES = [(60, 60), (80, 80), (80, 67), (67, 80), (67, 67), (36, 36)]
 TRAIN_SHAPES = SHAPES + [(80, 60), (60, 80)]
+# the backward at the text stacks of DUET (200 + 20 tokens) and RxR HAMT
+# (250 + 20), past what one block per (batch, head) could hold
+LONG_SHAPES = [(220, 220), (270, 270)]
 HEADS, HEAD_DIM = 12, 64
 BATCHES = (64, 8)
 TRAIN_BATCH = 8
@@ -624,8 +629,39 @@ def kernels_phase(torch):
                     cases.append(kernel_case(
                         torch, kernel, TRAIN_BATCH, lq, lk, dt, bk, gen,
                         bits=bits, timed=timed and bits != "hash"))
-    emit({"phase": "kernels", "cases": cases})
+    for lq, lk in LONG_SHAPES:  # K3, K4 past one block per (batch, head)
+        for dt in ("bfloat16", "float32"):
+            for bk in ("mask", "per_head"):
+                timed = dt == "bfloat16" and bk == "mask"
+                for kernel, bits in (("attention_dropout_bwd", "philox"),
+                                     ("attention_bwd", None)):
+                    cases.append(kernel_case(
+                        torch, kernel, TRAIN_BATCH, lq, lk, dt, bk, gen,
+                        bits=bits, timed=timed))
+    emit({"phase": "kernels", "cases": cases,
+          "bwd_deterministic": bwd_determinism(torch, gen)})
     return cases
+
+
+def bwd_determinism(torch, gen) -> list:
+    """Two K3 calls with one seed give the same bits (no atomics), dBias
+    included, in both dtypes, at a training and a long shape."""
+    from vln_imagine_tpu_torch.ops import attention as A
+
+    out = []
+    for lq, lk in ((80, 67), LONG_SHAPES[-1]):
+        for dt in ("bfloat16", "float32"):
+            q, k, v, do, bias = _case_inputs(torch, TRAIN_BATCH, lq, lk,
+                                             getattr(torch, dt), "per_head",
+                                             gen)
+            first, second = (A.attention_dropout_bwd(
+                q, k, v, bias, do, HEAD_DIM ** -0.5, DROPOUT, 0xD5EED,
+                need_dbias=True) for _ in range(2))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(first, second))
+            check(same, f"two K3 calls differ at {lq}x{lk} {dt}")
+            out.append({"Lq": lq, "Lk": lk, "dtype": dt, "identical": same})
+    return out
 
 
 def main() -> None:

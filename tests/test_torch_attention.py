@@ -16,7 +16,11 @@ import pytest
 import torch
 
 from vln_imagine_tpu_torch.ops.attention import (
+    MAX_LK,
+    SMEM_LIMIT,
     FusedAttention,
+    _aligned,
+    _aligned_dout,
     attention_bwd,
     attention_bwd_reference,
     attention_dropout_bwd,
@@ -24,6 +28,7 @@ from vln_imagine_tpu_torch.ops.attention import (
     attention_dropout_reference,
     attention_fwd,
     attention_reference,
+    bwd_tile_plan,
     dropout_mask,
     fused_attention,
     launch_counts,
@@ -325,6 +330,125 @@ def test_fused_attention_backward_matches_autograd(case, bits):
                                    msg=f"d{n}")
 
 
+# ------------------------------------- the backward kernels' arithmetic
+# csrc/attention_bwd.cu in bf16, emulated on the CPU: the first kernel
+# sweeps the keys in sub-tiles of 16 with an online row max, keeping the row
+# sum of exp(S - max) and of exp(S - max) * dP, and stores LSE and delta =
+# rowsum(dP * P); both kernels rebuild P = exp(S - LSE) and dS = P (dP -
+# delta) in f32, round dS and P * M to bf16 for the tensor-core products dQ,
+# dK and dV (f32 accumulation), and round the outputs to bf16.  The
+# emulation is held against the plain version and the interpret-mode Pallas
+# K3 (hash bits) at every training shape within BF16_TOL: the rounding of
+# dS and P * M costs the kernel less than that.
+
+# (Lq, Lk) of every attention call of a train step: the eval path's, and the
+# IL rollout's x-layer shapes (8 steps keep 9 history slots: 60 visual
+# tokens)
+TRAIN_SHAPES = [(60, 60), (80, 80), (80, 67), (67, 80), (67, 67), (36, 36),
+                (80, 60), (60, 80)]
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate_bwd_kernels(q, k, v, bias, do, scale, mask, sub=16):
+    """The two backward kernels' arithmetic on bf16 q, k, v, dO [B, L, H, D]
+    (f32 tensors holding bf16 values), the f32 bias and the dropout mask
+    [B, H, Lq, Lk]; returns bf16-rounded dQ, dK, dV as f32."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale + bias
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v) * mask
+    mx = torch.full(s.shape[:-1], -torch.inf)
+    total, dot = torch.zeros_like(mx), torch.zeros_like(mx)
+    for j0 in range(0, s.shape[-1], sub):  # sweep 0: online statistics
+        sj, dpj = s[..., j0:j0 + sub], dp[..., j0:j0 + sub]
+        m = torch.maximum(mx, sj.amax(-1))
+        corr = torch.exp(mx - m)
+        e = torch.exp(sj - m[..., None])
+        total = total * corr + e.sum(-1)
+        dot = dot * corr + (e * dpj).sum(-1)
+        mx = m
+    lse, delta = mx + torch.log(total), dot / total
+    p = torch.exp(s - lse[..., None])
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", _bf16(ds), k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", _bf16(ds), q) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p * mask), do)
+    return _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+@pytest.mark.parametrize("lq,lk", TRAIN_SHAPES)
+def test_bwd_kernel_arithmetic_within_bf16_tolerance(lq, lk):
+    import jax.numpy as jnp
+
+    from vln_imagine_tpu.ops import attention as A
+
+    B, H, D = 2, 2, 64
+    rng = np.random.default_rng(lq * 100 + lk)
+    q, do = (_bf16(torch.from_numpy(rng.standard_normal(
+        (B, lq, H, D)).astype(np.float32))) for _ in range(2))
+    k, v = (_bf16(torch.from_numpy(rng.standard_normal(
+        (B, lk, H, D)).astype(np.float32))) for _ in range(2))
+    keep = rng.random((B, lk)) < 0.8
+    keep[:, 0] = True
+    bias = torch.from_numpy(
+        ((1.0 - keep[:, None, None, :]) * -10000.0).astype(np.float32))
+    scale, rate = 1.0 / np.sqrt(D), 0.1
+    mask = dropout_mask((B, H, lq, lk), rate, 0, "hash")
+    got = _emulate_bwd_kernels(q, k, v, bias, do, scale, mask)
+
+    plain = attention_bwd_reference(q, k, v, bias, do, scale, rate, 0, "hash")
+    jq, jk, jv, jdo = (_bhld(x) for x in (q, k, v, do))
+    jbias = jnp.broadcast_to(jnp.asarray(bias.numpy()), (B, 1, lq, lk))
+    pallas = A._pallas_attention_dropout_bwd(
+        scale, rate, (jq, jk, jv, jbias, jnp.asarray([7], jnp.int32)), jdo,
+        bits_fn=A._hash_mask_bits, interpret=True)
+    for g, w, wp, n in zip(got, plain, pallas, "qkv"):
+        torch.testing.assert_close(g, w, rtol=BF16_TOL, atol=BF16_TOL,
+                                   msg=f"d{n} vs plain")
+        np.testing.assert_allclose(
+            g.numpy(), np.asarray(wp).transpose(0, 2, 1, 3), rtol=BF16_TOL,
+            atol=BF16_TOL, err_msg=f"d{n} vs interpret-mode K3")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_unaligned_dout_is_copied_to_an_aligned_allocation(dtype):
+    """A dO the backward's 16-byte loads cannot take becomes a fresh copy:
+    a contiguous view one element off 16 bytes as well as a view whose head
+    stride is not a multiple of 16 bytes."""
+    B, L, H, D = 2, 5, 3, 64
+    flat = torch.randn(B * L * H * D + 1).to(dtype)
+    shifted = flat[1:].view(B, L, H, D)  # contiguous, 2 or 4 bytes off
+    strided = torch.randn(B, L, H, D + 1).to(dtype)[..., :D]
+    aligned = torch.randn(B, L, H, D).to(dtype)
+    assert shifted.is_contiguous() and not _aligned(shifted)
+    for do in (shifted, strided):
+        got = _aligned_dout(do)
+        assert _aligned(got) and got.data_ptr() != do.data_ptr()
+        assert torch.equal(got, do)
+    assert _aligned_dout(aligned) is aligned
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_tile_plan_fits_shared_memory(D, dtype):
+    """The backward's shared memory is bounded by its tiles: every Lq, Lk up
+    to MAX_LK fits one block of an H100."""
+    worst = 0
+    for n in range(1, MAX_LK + 1):
+        for lq, lk in ((n, n), (n, MAX_LK), (MAX_LK, n)):
+            plan = bwd_tile_plan(lq, lk, D, dtype)
+            assert plan["staged_keys"] >= min(lk, plan["sub"])
+            worst = max(worst, plan["smem_dq"], plan["smem_dkdv"])
+    assert worst <= SMEM_LIMIT
+    # and it stops growing with L once a row takes more than one staged chunk
+    # (at most 128 keys or queries)
+    tail = {tuple(bwd_tile_plan(n, n, D, dtype)[key]
+                  for key in ("smem_dq", "smem_dkdv"))
+            for n in range(129, MAX_LK + 1)}
+    assert len(tail) == 1
+
+
 # ------------------------------------------------------- philox bits
 def test_philox_known_answers():
     """Philox-4x32-10 against the known-answer vectors of Random123
@@ -404,11 +528,6 @@ def test_kernel_matches_plain_on_card(cuda, lq, lk, per_head, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-# training shapes: the eval path's, and the IL rollout's x-layer shapes
-# (8 steps keep 9 history slots: 60 visual tokens), at the training batch
-TRAIN_SHAPES = MAIN_PATH_SHAPES + [(80, 60), (60, 80)]
-
-
 def _card_case(cuda, lq, lk, per_head, dtype, seed):
     B, H, D = 8, 12, 64
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -461,3 +580,66 @@ def test_bwd_kernel_matches_plain_on_card(cuda, lq, lk, per_head):
     want = attention_bwd_reference(q, k, v, bias, do, 0.125)
     for g, w in zip(grads, want if per_head else want[:3]):
         torch.testing.assert_close(g, w, rtol=CARD_F32_TOL, atol=CARD_F32_TOL)
+
+
+# ragged and long calls: one row, tiles cut on both sides, past the 112 rows
+# that one block per (batch, head) could hold, and the text stacks of DUET
+# (200 + 20 tokens) and RxR HAMT (250 + 20)
+LONG_SHAPES = [(1, 1), (17, 33), (113, 113), (220, 220), (270, 270)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_head", [False, True])
+@pytest.mark.parametrize("lq,lk", LONG_SHAPES)
+def test_bwd_kernels_long_and_ragged_on_card(cuda, lq, lk, per_head, dtype):
+    q, k, v, bias, do = _card_case(cuda, lq, lk, per_head, dtype,
+                                   lq * 13 + lk)
+    seed, tol = 2 ** 33 + 5, (CARD_F32_TOL if dtype == torch.float32
+                              else BF16_TOL)
+    before = (attention_dropout_bwd.launches, attention_bwd.launches)
+    k3 = attention_dropout_bwd(q, k, v, bias, do, 0.125, 0.1, seed, "philox",
+                               need_dbias=per_head)
+    k4 = attention_bwd(q, k, v, bias, do, 0.125, need_dbias=per_head)
+    torch.cuda.synchronize()
+    assert (attention_dropout_bwd.launches,
+            attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for got, want in ((k3, attention_bwd_reference(
+            q, k, v, bias, do, 0.125, 0.1, seed, "philox")),
+            (k4, attention_bwd_reference(q, k, v, bias, do, 0.125))):
+        for g, w in zip(got, want if per_head else want[:3]):
+            torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                       atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_is_deterministic_on_card(cuda, dtype):
+    """No atomics: two K3 calls with one seed give the same bits, dBias
+    included."""
+    q, k, v, bias, do = _card_case(cuda, 80, 67, True, dtype, 99)
+    first, second = (attention_dropout_bwd(q, k, v, bias, do, 0.125, 0.1,
+                                           12345, "philox", need_dbias=True)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_takes_dout_off_16_bytes_on_card(cuda, dtype):
+    """A contiguous dO that starts one element past 16 bytes is copied, not
+    read with misaligned 16-byte loads."""
+    q, k, v, bias, do = _card_case(cuda, 67, 80, True, dtype, 7)
+    shifted = torch.empty(do.numel() + 1, dtype=dtype,
+                          device=cuda)[1:].view(do.shape)
+    shifted.copy_(do)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    tol = CARD_F32_TOL if dtype == torch.float32 else BF16_TOL
+    got = attention_dropout_bwd(q, k, v, bias, shifted, 0.125, 0.1, 3,
+                                "philox", need_dbias=True)
+    torch.cuda.synchronize()
+    want = attention_bwd_reference(q, k, v, bias, do, 0.125, 0.1, 3, "philox")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)

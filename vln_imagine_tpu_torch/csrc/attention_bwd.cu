@@ -4,9 +4,9 @@
 // Replaces vln_imagine_tpu/ops/attention.py:_bwd_kernel (K4, reached through
 // _pallas_attention_bwd) and _bwd_dropout_kernel (K3, through
 // _pallas_attention_dropout_bwd).  For every (batch, head), as the TPU
-// kernels compute it, all in f32:
+// kernels compute it:
 //
-//     P  = softmax(Q K^T * scale + bias)      recomputed, never loaded
+//     P  = softmax(Q K^T * scale + bias)      recomputed in f32, never loaded
 //     M  = the forward's dropout mask          regenerated (dropout_bits.cuh);
 //                                              M = 1 for K4
 //     dP = (dO V^T) * M
@@ -19,39 +19,106 @@
 // no bias gradient; the JAX package's autodiff of reference_attention does).
 //
 // Layout.  Q, K, V and dO arrive as strided [B, L, H, D] views (slices of the
-// packed projection product); only the last dim must be contiguous.  The
-// bias is f32 [B, 1|H, 1|Lq, Lk] read through its strides (stride 0 where it
+// packed projection product, row stride 3*H*D); the last dim is contiguous
+// and every row starts on 16 bytes (the wrapper checks both), so tiles are
+// copied into shared memory with 16-byte cp.async.  The bias is f32
+// [B, 1|H, 1|Lq, Lk] read through its strides (stride 0 where it
 // broadcasts), as in attention_fwd.cu.
 //
 // What bounds it.  At the model's shapes (L <= 80, H 12, D 64) the work is
 // five [L, L, D] products per (batch, head), about 10*L*D flops per 2*L*D
 // input elements: far below the ~295 flop/byte at which an H100's tensor
 // cores, not its memory, become the limit, so by the roofline the kernel is
-// bound by bytes.  This first version runs its products on the CUDA cores
-// from shared memory, which bounds it in practice (shared-memory loads per
-// FMA); tensor cores (mma.sync / wgmma) and register tiling are later work.
+// bound by bytes.  In practice it is bound by latency and instruction rate:
+// a (batch, head) is only a few hundred tensor-core instructions, so what
+// counts is how many warps run at once, how long each one's chain of
+// dependent steps is, and the fixed cost of two launches.
 //
-// Design.  One block per (head, batch item) holds all Lq rows: Q, dO, K, V
-// (f32, rows padded to D+1 words so that lanes reading different rows hit
-// different banks) and P, dP/dS (f32 [Lq, Lk+1]) live in shared memory, so
-// dK and dV are summed over the query rows inside the block, in a fixed
-// order, with no atomics: a train step on the card is reproducible.  The
-// price is that Lq and Lk are bounded by the 227 KB of shared memory
-// (80 x 80 at D 64 takes 141 KB; the wrapper raises beyond the limit) and
-// that B*H blocks (96 at the training batch) fill less than one wave of the
-// card's 132 SMs.
+// Design (FlashAttention-2's backward in its deterministic form).  Two
+// kernels, launched back to back on the caller's stream; every output
+// element is written by exactly one block and nothing is summed with
+// atomics, so two calls give the same bits.
+//
+//   attention_bwd_dq_kernel    one block per (16 query rows, head, batch
+//       item).  Its kWarps warps take the key sub-tiles (kSub keys) in turn,
+//       staged at most 128 keys (64 at D 128) at a time.  Sweep 0: S and
+//       dO V^T, each warp's online row max and sum and rowsum(dP * P)
+//       rescaled as the max moves, merged across the warps in warp order
+//       into LSE and delta = rowsum(dP * P) (f32 [B, H, Lq], written for the
+//       second kernel) and, with dropout, the keep bits (one bit an element,
+//       [B, H, Lq, ceil(Lk / 16)] words of 16 bits in 32).  Sweep 1: P from
+//       the LSE, dS, the warp's partial dQ += dS K in registers; dS to device
+//       memory only for dBias.  When all keys fit one staged chunk, sweep 1
+//       reads S and dP back from shared memory instead of recomputing them.
+//       The partials are added in warp order through shared memory and
+//       written once.
+//   attention_bwd_dkdv_kernel  one block per (16 keys, head, batch item).
+//       Its warps take the query sub-tiles in turn, recompute S^T = K Q^T
+//       and (dO V^T)^T, P from the LSE, dS from delta and the mask from the
+//       keep bits, and sum partial dK and dV in registers, added in warp
+//       order at the end.
+//
+// The split over warps shortens each warp's chain of dependent steps (at
+// 80 x 80: two sub-tiles a sweep in place of five) and puts 480 blocks of
+// four warps on the card per kernel at B 8, where one block per (batch,
+// head) gave 96; a register cap keeps all of them resident at once.  Shared
+// memory per block is bounded by the tiles, not by L, so Lq and Lk run to
+// the forward's limit; past one chunk (L > 128) the dq kernel stages K and V
+// again for sweep 1, which is why long calls cost more per element.  The
+// scratch (LSE, delta, keep bits) is allocated by the wrapper.  Philox runs
+// once per element, in sweep 0, among the products of the same sub-tile;
+// sweep 1 and the dkdv kernel read the packed bits (on an H100 at B 8 and L
+// 36 to 270, a dkdv kernel that drew the bits again was 7 to 11 % slower a
+// call).  The dkdv kernel is launched as a programmatic dependent of the dq
+// kernel, so its launch and its K, V staging overlap the dq kernel's tail.
+// The tiles fix each block's shared memory; static_asserts in launch()
+// hold the largest (a full chunk) under the card's 227 KB.
+//
+// Products.  bf16: mma.sync.m16n8k16 (bf16 in, f32 accumulate) with
+// operands from shared memory through ldmatrix (rows padded by 16 bytes, so
+// the eight rows of each 8x8 matrix fall in distinct banks).  QK^T and dO V^T
+// take the bf16 inputs as they are, so they equal the reference's f32
+// products up to the order of summation.  For dQ, dK and dV the f32 P * M and
+// dS are rounded to bf16 (round to nearest even) and staged through a small
+// per-warp buffer, as FlashAttention does: each term carries a relative
+// error of at most 2^-9, far inside the 1e-2 tolerance of the bf16 outputs
+// (the CPU emulation in tests/test_torch_attention.py gives its size at every
+// training shape).  f32: the same tiles and fragment layout, with the
+// products as f32 FMAs on the CUDA cores (no TF32), so the f32 instantiation
+// stays within 1e-4 of the plain version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "dropout_bits.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;               // warps per block
+constexpr int kRows = 16;               // query rows (dq) or keys (dkdv) a block
+                                        // (the mma's M)
+constexpr int kSub = 16;                // columns of one register sub-tile
 constexpr int kThreads = kWarps * 32;
+constexpr int kNT = kSub / 8;           // 8-column mma tiles in a sub-tile
+constexpr int kMaxWords = 1024 / 16;    // keep-bit words of a row at the longest Lk
+
+// blocks per SM the register budget must allow: four at bf16 D <= 64, so
+// that the B 8 training calls (up to 480 blocks) run in one wave
+template <typename T, int D>
+constexpr int min_blocks() { return std::is_same<T, float>::value || D > 64 ? 2 : 4; }
+
+// keys (dq) or queries (dkdv) staged in shared memory at a time, at most
+__host__ __device__ constexpr int chunk_rows(int D) { return D <= 64 ? 128 : 64; }
+// padded row of a staged [rows, D] tile and of the per-warp [16, kSub] buffer,
+// in elements: 16 bytes of padding
+template <typename T>
+__host__ __device__ constexpr int pad() { return 16 / static_cast<int>(sizeof(T)); }
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 struct Params {
   const void* q;
@@ -62,8 +129,13 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  float* ds;  // nullptr: dS not wanted
+  float* ds;          // nullptr: dS not wanted
+  float* lse;         // [B, H, Lq] scratch
+  float* delta;       // [B, H, Lq] scratch
+  uint32_t* keep;     // [B, H, Lq, ceil(Lk / 16)] scratch, 16 bits a word;
+                      // nullptr without dropout
   int B, H, Lq, Lk;
+  int kc, qc;         // keys (dq) and queries (dkdv) staged at a time
   long long sqb, sql, sqh;
   long long skb, skl, skh;
   long long svb, svl, svh;
@@ -73,180 +145,617 @@ struct Params {
   vln::DropoutParams drop;  // drop.bits == kBitsNone: K4
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// ------------------------------------------------------------ primitives
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as a dtype cast
+// 16 bytes global -> shared; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+// 4 bytes global -> shared; zero-filled when !valid (src is then not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// Programmatic dependent launch (sm_90): the dq kernel lets the dkdv kernel
+// start early, so its launch and its K, V staging overlap the dq kernel;
+// the dkdv kernel waits for the dq kernel's results (complete and visible)
+// before it reads them.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
-// rows [0, n) of a strided [L, D] slice into shared memory, f32, stride D+1
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long row_stride,
-                                      int n) {
-  for (int idx = threadIdx.x; idx < n * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
-    dst[r * (D + 1) + d] = to_f32(src[r * row_stride + d]);
-  }
+__device__ __forceinline__ void wait_for_primary() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_kernel(const Params p) {
-  static_assert(D % 32 == 0, "D must be a multiple of 32");
-  constexpr int DS = D + 1;
-  extern __shared__ float smem[];
-  const int Lq = p.Lq, Lk = p.Lk, PS = Lk + 1;
-  float* qs = smem;              // [Lq][DS]
-  float* dos = qs + Lq * DS;     // [Lq][DS]
-  float* ks = dos + Lq * DS;     // [Lk][DS]
-  float* vs = ks + Lk * DS;      // [Lk][DS]
-  float* ps = vs + Lk * DS;      // [Lq][PS] scores -> P -> P * M
-  float* dss = ps + Lq * PS;     // [Lq][PS] dO V^T -> dP -> dS
-  unsigned char* kept = reinterpret_cast<unsigned char*>(dss + Lq * PS);  // [Lq][Lk]
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Warp products on shared-memory tiles, results in the mma's accumulator
+// layout: lane (g = lane / 4, t = lane % 4) holds c[n][0..1] at row g,
+// columns 8n + 2t, 8n + 2t + 1, and c[n][2..3] at row g + 8.
+//
+// gemm_nt: c[16, 8NT] += A[16, K] B[8NT, K]^T  (both K-contiguous)
+template <typename T, int K, int NT>
+__device__ __forceinline__ void gemm_nt(float (&c)[NT][4], const T* A, int lda,
+                                        const T* B, int ldb) {
   const int lane = threadIdx.x & 31;
-  const bool dropout = p.drop.bits != vln::kBitsNone;
-
-  stage<T, D>(qs, static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh, p.sql, Lq);
-  stage<T, D>(dos, static_cast<const T*>(p.dout) + b * p.sob + h * p.soh, p.sol,
-              Lq);
-  stage<T, D>(ks, static_cast<const T*>(p.k) + b * p.skb + h * p.skh, p.skl, Lk);
-  stage<T, D>(vs, static_cast<const T*>(p.v) + b * p.svb + h * p.svh, p.svl, Lk);
-  __syncthreads();
-
-  // ---- s = q_i . k_j * scale + bias,  g = do_i . v_j ----------------------
-  for (int idx = threadIdx.x; idx < Lq * Lk; idx += kThreads) {
-    const int i = idx / Lk, j = idx % Lk;
-    const float* qr = qs + i * DS;
-    const float* kr = ks + j * DS;
-    const float* dr = dos + i * DS;
-    const float* vr = vs + j * DS;
-    float s = 0.f, g = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      s = fmaf(qr[d], kr[d], s);
-      g = fmaf(dr[d], vr[d], g);
-    }
-    s *= p.scale;
-    if (p.bias != nullptr)
-      s += p.bias[b * p.sbb + h * p.sbh + i * p.sbq + j * p.sbk];
-    ps[i * PS + j] = s;
-    dss[i * PS + j] = g;
-  }
-  __syncthreads();
-
-  // ---- per row (one warp): P, dP = g * M, dS = P * (dP - rowsum(dP * P)) --
-  for (int i = warp; i < Lq; i += kWarps) {
-    float* prow = ps + i * PS;
-    float* drow = dss + i * PS;
-    float m = -INFINITY;
-    for (int j = lane; j < Lk; j += 32) m = fmaxf(m, prow[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float e = expf(prow[j] - m);
-      prow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float dot = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float pv = prow[j] / sum;
-      float dp = drow[j];
-      if (dropout) {
-        const float mv = vln::dropout_mask(p.drop, b, h, i, j);
-        kept[i * Lk + j] = mv != 0.f;
-        dp *= mv;
+  if constexpr (std::is_same<T, float>::value) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float a0 = A[g * lda + k], a1 = A[(g + 8) * lda + k];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float b0 = B[(8 * n + 2 * t) * ldb + k];
+        const float b1 = B[(8 * n + 2 * t + 1) * ldb + k];
+        c[n][0] = fmaf(a0, b0, c[n][0]);
+        c[n][1] = fmaf(a0, b1, c[n][1]);
+        c[n][2] = fmaf(a1, b0, c[n][2]);
+        c[n][3] = fmaf(a1, b1, c[n][3]);
       }
-      prow[j] = pv;
-      drow[j] = dp;
-      dot += dp * pv;
     }
-    dot = warp_sum(dot);
-    for (int j = lane; j < Lk; j += 32) {
-      const float pv = prow[j];
-      drow[j] = pv * (drow[j] - dot);
-      if (dropout) prow[j] = pv * (kept[i * Lk + j] ? p.drop.keep_scale : 0.f);
+  } else {
+    static_assert(NT % 2 == 0, "pairs of 8-column tiles");
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      unsigned a[4];
+      ldsm_x4(a, A + (lane & 15) * lda + k0 + (lane >> 4) * 8);
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        unsigned b[4];
+        ldsm_x4(b, B + (8 * n + (lane & 7) + ((lane >> 4) << 3)) * ldb + k0 +
+                       ((lane >> 3) & 1) * 8);
+        mma_bf16(c[n], a, b[0], b[1]);
+        mma_bf16(c[n + 1], a, b[2], b[3]);
+      }
     }
-  }
-  __syncthreads();
-
-  // ---- dQ = dS K * scale ----------------------------------------------------
-  T* dq = static_cast<T*>(p.dq);
-  for (int idx = threadIdx.x; idx < Lq * D; idx += kThreads) {
-    const int i = idx / D, d = idx % D;
-    const float* drow = dss + i * PS;
-    float acc = 0.f;
-    for (int j = 0; j < Lk; ++j) acc = fmaf(drow[j], ks[j * DS + d], acc);
-    dq[((static_cast<long long>(b) * Lq + i) * p.H + h) * D + d] =
-        from_f32<T>(acc * p.scale);
-  }
-
-  // ---- dK = dS^T Q * scale,  dV = (P * M)^T dO -------------------------------
-  T* dk = static_cast<T*>(p.dk);
-  T* dv = static_cast<T*>(p.dv);
-  for (int idx = threadIdx.x; idx < Lk * D; idx += kThreads) {
-    const int j = idx / D, d = idx % D;
-    float ak = 0.f, av = 0.f;
-    for (int i = 0; i < Lq; ++i) {
-      ak = fmaf(dss[i * PS + j], qs[i * DS + d], ak);
-      av = fmaf(ps[i * PS + j], dos[i * DS + d], av);
-    }
-    const long long o = ((static_cast<long long>(b) * Lk + j) * p.H + h) * D + d;
-    dk[o] = from_f32<T>(ak * p.scale);
-    dv[o] = from_f32<T>(av);
-  }
-
-  if (p.ds != nullptr) {
-    float* dsg = p.ds + (static_cast<long long>(b) * p.H + h) * Lq * Lk;
-    for (int idx = threadIdx.x; idx < Lq * Lk; idx += kThreads)
-      dsg[idx] = dss[(idx / Lk) * PS + idx % Lk];
   }
 }
 
-size_t smem_bytes(int Lq, int Lk, int D) {
-  return sizeof(float) * (2 * static_cast<size_t>(Lq) * (D + 1) +
-                          2 * static_cast<size_t>(Lk) * (D + 1) +
-                          2 * static_cast<size_t>(Lq) * (Lk + 1)) +
-         static_cast<size_t>(Lq) * Lk + 16;
+// gemm_nn: c[16, 8NT] += A[16, K] B[K, 8NT]  (A K-contiguous, B N-contiguous)
+template <typename T, int K, int NT>
+__device__ __forceinline__ void gemm_nn(float (&c)[NT][4], const T* A, int lda,
+                                        const T* B, int ldb) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (std::is_same<T, float>::value) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float a0 = A[g * lda + k], a1 = A[(g + 8) * lda + k];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float b0 = B[k * ldb + 8 * n + 2 * t];
+        const float b1 = B[k * ldb + 8 * n + 2 * t + 1];
+        c[n][0] = fmaf(a0, b0, c[n][0]);
+        c[n][1] = fmaf(a0, b1, c[n][1]);
+        c[n][2] = fmaf(a1, b0, c[n][2]);
+        c[n][3] = fmaf(a1, b1, c[n][3]);
+      }
+    }
+  } else {
+    static_assert(NT % 2 == 0, "pairs of 8-column tiles");
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      unsigned a[4];
+      ldsm_x4(a, A + (lane & 15) * lda + k0 + (lane >> 4) * 8);
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        unsigned b[4];
+        ldsm_x4_trans(b, B + (k0 + (lane & 15)) * ldb + 8 * n + (lane >> 4) * 8);
+        mma_bf16(c[n], a, b[0], b[1]);
+        mma_bf16(c[n + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// two adjacent values of one row, rounded to T
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float x, float y) {
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
+  }
+}
+
+// an accumulator [16, 8NT] into a row-major [16, ld] tile
+template <typename T, int NT>
+__device__ __forceinline__ void store_acc(T* dst, int ld, const float (&c)[NT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    store2(dst + g * ld + 8 * n + 2 * t, c[n][0], c[n][1]);
+    store2(dst + (g + 8) * ld + 8 * n + 2 * t, c[n][2], c[n][3]);
+  }
+}
+
+// rows [row0, row0 + n) of a strided [L, D] slice into a [n, D + pad] tile;
+// rows >= L are zero-filled (0 * anything stays finite in the products)
+template <typename T, int D>
+__device__ __forceinline__ void stage(T* dst, const T* src, long long row_stride,
+                                      int row0, int L, int n) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = D / kVec;
+  constexpr int LD = D + pad<T>();
+  for (int idx = threadIdx.x; idx < n * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow, c = (idx % kPerRow) * kVec;
+    const int row = row0 + r;
+    const bool valid = row < L;
+    cp_async16(dst + r * LD + c, src + (valid ? row : 0) * row_stride + c, valid);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ unsigned quad_or(unsigned x) {
+  x |= __shfl_xor_sync(0xffffffffu, x, 1);
+  return x | __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Shared memory of the dq kernel: Q and dO [kRows, LD]; K and V [kc, LD],
+// whose room takes each warp's partial dQ (f32 [kWarps, kRows, D]) once the
+// sweeps are done; a [kRows, LDS] dS buffer per warp; each warp's row max,
+// sum and dot (f32 [3, kWarps, kRows]); the bias of the staged keys (f32
+// [kRows, kc]); the keep bits of the block's rows ([kRows, kMaxWords]); S
+// and dP of sweep 0, kept for sweep 1 when all keys fit one chunk (f32
+// [2, kRows, kc], each thread's own values; not allocated otherwise).
+// Room of a staged pair of [rows, LD] tiles, which later takes the warps'
+// partial sums (f32 [kWarps, kRows, D]).
+template <typename T, int D>
+__host__ __device__ constexpr size_t chunk_bytes(int rows) {
+  return 2 * static_cast<size_t>(rows) * (D + pad<T>()) * sizeof(T) >
+                 static_cast<size_t>(kWarps) * kRows * D * sizeof(float)
+             ? 2 * static_cast<size_t>(rows) * (D + pad<T>()) * sizeof(T)
+             : static_cast<size_t>(kWarps) * kRows * D * sizeof(float);
 }
 
 template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.Lq, p.Lk, D);
-  auto kernel = attention_bwd_kernel<T, D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+__host__ __device__ constexpr size_t dq_smem(int kc, bool keep_sd) {
+  return 2 * static_cast<size_t>(kRows) * (D + pad<T>()) * sizeof(T) +
+         chunk_bytes<T, D>(kc) +
+         static_cast<size_t>(kWarps) * kRows * (kSub + pad<T>()) * sizeof(T) +
+         3 * static_cast<size_t>(kWarps) * kRows * sizeof(float) +
+         static_cast<size_t>(kRows) * kc * sizeof(float) +
+         static_cast<size_t>(kRows) * kMaxWords * sizeof(uint16_t) +
+         (keep_sd ? 2 * static_cast<size_t>(kRows) * kc * sizeof(float) : 0);
+}
+
+// Shared memory of the dkdv kernel: K and V [kRows, LD]; Q and dO [qc, LD],
+// whose room takes each warp's partial dK, then dV (f32 [kWarps, kRows, D]),
+// once the queries are done; two [kRows, LDS] buffers per warp ((P*M)^T and
+// dS^T); LSE and delta of the staged queries (f32 [2, qc]), their keep
+// words for the block's keys ([qc], as 32 bits) and the bias (f32
+// [qc, kRows]).
+template <typename T, int D>
+__host__ __device__ constexpr size_t dkdv_smem(int qc) {
+  return 2 * static_cast<size_t>(kRows) * (D + pad<T>()) * sizeof(T) +
+         chunk_bytes<T, D>(qc) +
+         2 * static_cast<size_t>(kWarps) * kRows * (kSub + pad<T>()) * sizeof(T) +
+         (3 + kRows) * static_cast<size_t>(qc) * sizeof(float);
+}
+
+// Each warp's partial [kRows, D] sums (in `part`, f32 [kWarps, kRows, D]),
+// added in warp order and written as rows row0.. of a [B, L, H, D] output,
+// times `scale`; rows >= L are dropped.  Called by the whole block after a
+// __syncthreads that follows the partials' stores.
+template <typename T, int D>
+__device__ __forceinline__ void write_rows(T* out, const float* part, int b, int h,
+                                           int H, int row0, int L, float scale) {
+  for (int idx = 2 * threadIdx.x; idx < kRows * D; idx += 2 * kThreads) {
+    const int r = idx / D, d = idx % D, i = row0 + r;
+    float x = 0.f, y = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      x += part[w * kRows * D + idx];
+      y += part[w * kRows * D + idx + 1];
+    }
+    if (i < L)
+      store2(out + ((static_cast<long long>(b) * L + i) * H + h) * D + d, x * scale,
+             y * scale);
   }
-  kernel<<<dim3(p.H, p.B), kThreads, smem, stream>>>(p);
+}
+
+// ------------------------------------------------ pass 1: stats and dQ
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
+    attention_bwd_dq_kernel(const Params p) {
+  static_assert(D % 32 == 0, "D must be a multiple of 32");
+  constexpr int LD = D + pad<T>();
+  constexpr int LDS = kSub + pad<T>();
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kc = p.kc;
+  T* qs = reinterpret_cast<T*>(smem);   // [kRows][LD]
+  T* dos = qs + kRows * LD;             // [kRows][LD]
+  T* ks = dos + kRows * LD;             // [kc][LD]
+  T* vs = ks + kc * LD;                 // [kc][LD]
+  float* part = reinterpret_cast<float*>(ks);  // after the sweeps
+  T* scr = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(ks) +
+                                chunk_bytes<T, D>(kc));  // [kWarps][kRows][LDS]
+  float* stat = reinterpret_cast<float*>(scr + kWarps * kRows * LDS);  // [3][kWarps][kRows]
+  float* bs = stat + 3 * kWarps * kRows;                        // [kRows][kc]
+  uint16_t* kb = reinterpret_cast<uint16_t*>(bs + kRows * kc);  // [kRows][kMaxWords]
+  float* sd = reinterpret_cast<float*>(kb + kRows * kMaxWords);  // [kc / kSub][2][8][32]
+
+  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int Lq = p.Lq, Lk = p.Lk, nw = (Lk + 15) / 16;
+  const long long bh = static_cast<long long>(b) * p.H + h;
+  const bool dropout = p.drop.bits != vln::kBitsNone;
+  const T* qg = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+  const T* dog = static_cast<const T*>(p.dout) + b * p.sob + h * p.soh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
+  const float* bias = p.bias == nullptr ? nullptr : p.bias + b * p.sbb + h * p.sbh;
+
+  launch_dependents();  // the dkdv kernel may start staging K and V
+  stage<T, D>(qs, qg, p.sql, row0, Lq, kRows);
+  stage<T, D>(dos, dog, p.sol, row0, Lq, kRows);
+
+  T* wscr = scr + warp * kRows * LDS;
+  const int rows[2] = {row0 + g, row0 + g + 8};
+
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, dot[2] = {0.f, 0.f};
+  float lse[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  float dq[ND][4] = {};
+  const int nchunks = (Lk + kc - 1) / kc;
+  // one chunk: sweep 1 reads S and dP back from sweep 0 instead of
+  // recomputing them
+  const bool keep_sd = nchunks == 1;
+
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    for (int c = 0; c < nchunks; ++c) {
+      const int c0 = c * kc, nk = min(kc, Lk - c0);
+      if (sweep == 0 || nchunks > 1) {
+        __syncthreads();  // every warp is done with the previous chunk
+        stage<T, D>(ks, kg, p.skl, c0, Lk, round_up(nk, kSub));
+        stage<T, D>(vs, vg, p.svl, c0, Lk, round_up(nk, kSub));
+        for (int x = threadIdx.x; x < kRows * kc; x += kThreads) {
+          const int i = row0 + x / kc, j = c0 + x % kc;
+          const bool valid = bias != nullptr && i < Lq && j < Lk;
+          cp_async4(bs + x, valid ? bias + i * p.sbq + j * p.sbk : p.lse, valid);
+        }
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      // the warps take the chunk's key sub-tiles in turn, the same ones in
+      // both sweeps
+      for (int s0 = warp * kSub; s0 < nk; s0 += kWarps * kSub) {
+        const int word = (c0 + s0) / 16;  // keep-bit word of this sub-tile
+        float* sdt = sd + (s0 / kSub) * 2 * 8 * 32 + lane;  // this thread's S, dP
+        float s[kNT][4] = {}, dp[kNT][4] = {};
+        if (sweep == 1 && keep_sd) {
+#pragma unroll
+          for (int v = 0; v < 8; ++v) {
+            s[v / 4][v % 4] = sdt[v * 32];
+            dp[v / 4][v % 4] = sdt[(8 + v) * 32];
+          }
+        } else {
+          // S = Q K^T * scale + bias (-inf past Lk), dP = (dO V^T) * M; the
+          // keep bits drawn in sweep 0 (Philox or hash), read back after
+          unsigned kept[2] = {0u, 0u};
+          const bool draw = dropout && sweep == 0;
+          if (dropout && !draw) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) kept[r] = kb[(g + 8 * r) * kMaxWords + word];
+          }
+          gemm_nt<T, D, kNT>(s, qs, LD, ks + s0 * LD, LD);
+          gemm_nt<T, D, kNT>(dp, dos, LD, vs + s0 * LD, LD);
+#pragma unroll
+          for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1;
+              const int bit = 8 * n + 2 * t + (e & 1), j = c0 + s0 + bit;
+              s[n][e] = j < Lk ? s[n][e] * p.scale + bs[(g + 8 * r) * kc + s0 + bit]
+                               : -INFINITY;
+              if (dropout && j < Lk) {
+                if (draw && vln::dropout_keep(p.drop, b, h, rows[r], j))
+                  kept[r] |= 1u << bit;
+                dp[n][e] *= (kept[r] >> bit) & 1u ? p.drop.keep_scale : 0.f;
+              }
+            }
+          }
+          if (draw) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const unsigned w = quad_or(kept[r]);
+              if (t == 0) {
+                kb[(g + 8 * r) * kMaxWords + word] = static_cast<uint16_t>(w);
+                if (rows[r] < Lq) p.keep[(bh * Lq + rows[r]) * nw + word] = w;
+              }
+            }
+          }
+          if (sweep == 0 && keep_sd) {
+#pragma unroll
+            for (int v = 0; v < 8; ++v) {
+              sdt[v * 32] = s[v / 4][v % 4];
+              sdt[(8 + v) * 32] = dp[v / 4][v % 4];
+            }
+          }
+        }
+        if (sweep == 0) {
+          // online softmax statistics and rowsum(dP * exp(S - max))
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float m = mx[r];
+#pragma unroll
+            for (int n = 0; n < kNT; ++n)
+              m = fmaxf(m, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+            m = quad_max(m);
+            const float corr = expf(mx[r] - m);
+            sum[r] *= corr;
+            dot[r] *= corr;
+#pragma unroll
+            for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+              for (int e = 2 * r; e < 2 * r + 2; ++e) {
+                const float ev = expf(s[n][e] - m);
+                sum[r] += ev;
+                dot[r] = fmaf(ev, dp[n][e], dot[r]);
+              }
+            }
+            mx[r] = m;
+          }
+        } else {
+          // P from the LSE, dS = P * (dP - delta), dQ += dS K
+#pragma unroll
+          for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1;
+              const float pv = expf(s[n][e] - lse[r]);
+              s[n][e] = pv * (dp[n][e] - delta[r]);
+            }
+          }
+          if (p.ds != nullptr) {
+#pragma unroll
+            for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = rows[e >> 1], j = c0 + s0 + 8 * n + 2 * t + (e & 1);
+                if (i < Lq && j < Lk) p.ds[(bh * Lq + i) * Lk + j] = s[n][e];
+              }
+            }
+          }
+          store_acc<T, kNT>(wscr, LDS, s);
+          __syncwarp();
+          gemm_nn<T, kSub, ND>(dq, wscr, LDS, ks + s0 * LD, LD);
+          __syncwarp();  // the buffer is read before the next sub-tile writes it
+        }
+      }
+    }
+    if (sweep == 0) {
+      // merge the warps' statistics, in warp order: every warp gets the same
+      // LSE and delta
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float l = quad_sum(sum[r]), d = quad_sum(dot[r]);
+        if (t == 0) {
+          stat[(0 * kWarps + warp) * kRows + g + 8 * r] = mx[r];
+          stat[(1 * kWarps + warp) * kRows + g + 8 * r] = l;
+          stat[(2 * kWarps + warp) * kRows + g + 8 * r] = d;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = g + 8 * r;
+        float m = -INFINITY, l = 0.f, d = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) m = fmaxf(m, stat[w * kRows + row]);
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          const float f = expf(stat[w * kRows + row] - m);  // 0 for a warp with no keys
+          l = fmaf(stat[(kWarps + w) * kRows + row], f, l);
+          d = fmaf(stat[(2 * kWarps + w) * kRows + row], f, d);
+        }
+        lse[r] = m + logf(l);
+        delta[r] = d / l;
+        if (warp == 0 && t == 0 && rows[r] < Lq) {
+          p.lse[bh * Lq + rows[r]] = lse[r];
+          p.delta[bh * Lq + rows[r]] = delta[r];
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // K and V are done with: their room takes the partials
+  store_acc<float, ND>(part + warp * kRows * D, D, dq);
+  __syncthreads();
+  write_rows<T, D>(static_cast<T*>(p.dq), part, b, h, p.H, row0, Lq, p.scale);
+}
+
+// ---------------------------------------------------- pass 2: dK and dV
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
+    attention_bwd_dkdv_kernel(const Params p) {
+  static_assert(D % 32 == 0, "D must be a multiple of 32");
+  constexpr int LD = D + pad<T>();
+  constexpr int LDS = kSub + pad<T>();
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int qc = p.qc;
+  T* ks = reinterpret_cast<T*>(smem);   // [kRows][LD]
+  T* vs = ks + kRows * LD;              // [kRows][LD]
+  T* qs = vs + kRows * LD;              // [qc][LD]
+  T* dos = qs + qc * LD;                // [qc][LD]
+  float* part = reinterpret_cast<float*>(qs);  // after the queries
+  T* scr = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(qs) +
+                                chunk_bytes<T, D>(qc));  // [kWarps][2][kRows][LDS]
+  float* lse_s = reinterpret_cast<float*>(scr + 2 * kWarps * kRows * LDS);  // [qc]
+  float* delta_s = lse_s + qc;                                               // [qc]
+  unsigned* kw_s = reinterpret_cast<unsigned*>(delta_s + qc);                // [qc]
+  float* bs = reinterpret_cast<float*>(kw_s + qc);                           // [qc][kRows]
+
+  const int b = blockIdx.z, h = blockIdx.y, key0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int Lq = p.Lq, Lk = p.Lk, nw = (Lk + 15) / 16;
+  const long long bh = static_cast<long long>(b) * p.H + h;
+  const bool dropout = p.drop.bits != vln::kBitsNone;
+  const T* qg = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+  const T* dog = static_cast<const T*>(p.dout) + b * p.sob + h * p.soh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
+  const float* bias = p.bias == nullptr ? nullptr : p.bias + b * p.sbb + h * p.sbh;
+
+  stage<T, D>(ks, kg, p.skl, key0, Lk, kRows);
+  stage<T, D>(vs, vg, p.svl, key0, Lk, kRows);
+
+  T* wpm = scr + 2 * warp * kRows * LDS;
+  T* wds = wpm + kRows * LDS;
+  const int keys[2] = {key0 + g, key0 + g + 8};  // one keep word: bits 0..15
+
+  float dk[ND][4] = {}, dv[ND][4] = {};
+  for (int c0 = 0; c0 < Lq; c0 += qc) {
+    const int nq = min(qc, Lq - c0), nq_pad = round_up(nq, kSub);
+    __syncthreads();  // every warp is done with the previous chunk
+    stage<T, D>(qs, qg, p.sql, c0, Lq, nq_pad);
+    stage<T, D>(dos, dog, p.sol, c0, Lq, nq_pad);
+    if (c0 == 0) wait_for_primary();  // LSE, delta and keep bits come from the dq kernel
+    for (int x = threadIdx.x; x < nq_pad; x += kThreads) {
+      const int i = c0 + x;
+      const bool valid = i < Lq, bits = valid && dropout;
+      cp_async4(lse_s + x, p.lse + bh * Lq + (valid ? i : 0), valid);
+      cp_async4(delta_s + x, p.delta + bh * Lq + (valid ? i : 0), valid);
+      cp_async4(kw_s + x,
+                bits ? static_cast<const void*>(p.keep + (bh * Lq + i) * nw + key0 / 16)
+                     : static_cast<const void*>(p.lse),
+                bits);
+    }
+    for (int x = threadIdx.x; x < nq_pad * kRows; x += kThreads) {
+      const int i = c0 + x / kRows, j = key0 + x % kRows;
+      const bool valid = bias != nullptr && i < Lq && j < Lk;
+      cp_async4(bs + x, valid ? bias + i * p.sbq + j * p.sbk : p.lse, valid);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    // the warps take the chunk's query sub-tiles in turn
+    for (int s0 = warp * kSub; s0 < nq; s0 += kWarps * kSub) {
+      // transposed scores: rows are the block's keys, columns queries
+      float s[kNT][4] = {}, dp[kNT][4] = {};
+      gemm_nt<T, D, kNT>(s, ks, LD, qs + s0 * LD, LD);
+      gemm_nt<T, D, kNT>(dp, vs, LD, dos + s0 * LD, LD);
+      float pm[kNT][4];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = s0 + 8 * n + 2 * t + (e & 1), i = c0 + col;
+          const int j = keys[e >> 1];
+          float pv = 0.f, mv = 1.f;
+          if (i < Lq && j < Lk) {
+            pv = expf(s[n][e] * p.scale + bs[col * kRows + j - key0] - lse_s[col]);
+            if (dropout) mv = (kw_s[col] >> (j - key0)) & 1u ? p.drop.keep_scale : 0.f;
+          }
+          s[n][e] = pv * (dp[n][e] * mv - delta_s[col]);  // dS^T
+          pm[n][e] = pv * mv;                             // (P * M)^T
+        }
+      }
+      store_acc<T, kNT>(wpm, LDS, pm);
+      store_acc<T, kNT>(wds, LDS, s);
+      __syncwarp();
+      gemm_nn<T, kSub, ND>(dv, wpm, LDS, dos + s0 * LD, LD);
+      gemm_nn<T, kSub, ND>(dk, wds, LDS, qs + s0 * LD, LD);
+      __syncwarp();  // the buffers are read before the next sub-tile writes them
+    }
+  }
+
+  __syncthreads();  // Q and dO are done with: their room takes the partials
+  store_acc<float, ND>(part + warp * kRows * D, D, dk);
+  __syncthreads();
+  write_rows<T, D>(static_cast<T*>(p.dk), part, b, h, p.H, key0, Lk, p.scale);
+  __syncthreads();
+  store_acc<float, ND>(part + warp * kRows * D, D, dv);
+  __syncthreads();
+  write_rows<T, D>(static_cast<T*>(p.dv), part, b, h, p.H, key0, Lk, 1.f);
+}
+
+// ------------------------------------------------------------- launching
+int staged_rows(int L, int D) {
+  const int all = round_up(L, kSub);
+  return all < chunk_rows(D) ? all : chunk_rows(D);
+}
+
+template <typename T, int D>
+cudaError_t launch(Params p, cudaStream_t stream) {
+  // the most shared memory a block takes: a full staged chunk
+  constexpr size_t kSmemLimit = 232448;  // bytes a block may use on an H100
+  static_assert(dq_smem<T, D>(chunk_rows(D), true) <= kSmemLimit, "dq block too large");
+  static_assert(dkdv_smem<T, D>(chunk_rows(D)) <= kSmemLimit, "dkdv block too large");
+  p.kc = staged_rows(p.Lk, D);
+  p.qc = staged_rows(p.Lq, D);
+  const size_t smem1 = dq_smem<T, D>(p.kc, p.Lk <= chunk_rows(D));
+  const size_t smem2 = dkdv_smem<T, D>(p.qc);
+  auto k1 = attention_bwd_dq_kernel<T, D>;
+  auto k2 = attention_bwd_dkdv_kernel<T, D>;
+  cudaError_t e = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem1));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem2));
+  if (e != cudaSuccess) return e;
+  k1<<<dim3((p.Lq + kRows - 1) / kRows, p.H, p.B), kThreads, smem1, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  // the dkdv kernel as a programmatic dependent of the dq kernel
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.Lk + kRows - 1) / kRows, p.H, p.B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem2;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, k2, p);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -264,12 +773,16 @@ cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, dq, dk, dv alike).
 // Strides are in elements; dq/dk/dv are written contiguous [B, L, H, D].
-// bias and ds may be null.  bits: 0 = no dropout (K4), 1 = hash, 2 = Philox
-// (K3), with the forward's keep threshold, kept value and seed.  Returns the
-// cudaError_t of the launch.
+// bias and ds may be null.  lse and delta: f32 [B, H, Lq] scratch; keep:
+// [B, H, Lq, ceil(Lk / 16)] 32-bit scratch (16 keep bits a word), needed
+// with dropout only.
+// bits: 0 = no dropout (K4), 1 = hash, 2 = Philox (K3), with the forward's
+// keep threshold, kept value and seed.  Launches both kernels and returns
+// the first cudaError_t.
 extern "C" int vln_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* dout, void* dq, void* dk, void* dv, void* ds,
+    void* lse, void* delta, void* keep,
     int dtype, int B, int H, int Lq, int Lk, int D,
     long long sqb, long long sql, long long sqh,
     long long skb, long long skl, long long skh,
@@ -283,7 +796,11 @@ extern "C" int vln_attention_bwd(
   p.bias = static_cast<const float*>(bias);
   p.dq = dq; p.dk = dk; p.dv = dv;
   p.ds = static_cast<float*>(ds);
+  p.lse = static_cast<float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  p.keep = static_cast<uint32_t*>(keep);
   p.B = B; p.H = H; p.Lq = Lq; p.Lk = Lk;
+  p.kc = p.qc = 0;
   p.sqb = sqb; p.sql = sql; p.sqh = sqh;
   p.skb = skb; p.skl = skl; p.skh = skh;
   p.svb = svb; p.svl = svl; p.svh = svh;
@@ -296,6 +813,8 @@ extern "C" int vln_attention_bwd(
   p.drop.seed = seed;
   if (bits < vln::kBitsNone || bits > vln::kBitsPhilox) return cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
+  if (lse == nullptr || delta == nullptr) return cudaErrorInvalidValue;
+  if (bits != vln::kBitsNone && keep == nullptr) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (dtype) {

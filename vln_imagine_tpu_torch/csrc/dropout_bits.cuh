@@ -64,4 +64,10 @@ __device__ __forceinline__ float dropout_mask(const DropoutParams& d, int b,
   return bits >= d.threshold ? d.keep_scale : 0.f;
 }
 
+// Whether element (b, h, q, k) is kept: the same bits as dropout_mask.
+__device__ __forceinline__ bool dropout_keep(const DropoutParams& d, int b,
+                                             int h, int q, int k) {
+  return dropout_mask(d, b, h, q, k) != 0.f;
+}
+
 }  // namespace vln

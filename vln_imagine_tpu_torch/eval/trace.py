@@ -16,8 +16,10 @@ time against the untraced wall time: the profiler slows the host, not the
 device), the attention kernels' shares of device time, device operations
 (per step for eval), and the kernels that take the most device time.  The
 forward kernel of `csrc/attention_fwd.cu` runs as K1 in eval and as K2 in
-training (one CUDA function, dropout chosen at run time); that of
-`csrc/attention_bwd.cu` as K3 in training.
+training (one CUDA function, dropout chosen at run time).  A backward call
+(K3 in training, K4 with dropout off) is two CUDA functions of
+`csrc/attention_bwd.cu`, the dQ kernel then the dK/dV kernel; the trace
+reports their sum as "K3 / K4", with the launches of each function.
 """
 
 from __future__ import annotations
@@ -32,9 +34,12 @@ import torch
 from vln_imagine_tpu_torch.config import hamt_r2r_config
 from vln_imagine_tpu_torch.envx import synthetic_episodes, synthetic_world
 
-# CUDA function name -> the kernels it runs as
-ATTENTION_KERNELS = {"attention_fwd_kernel": "K1 / K2",
-                     "attention_bwd_kernel": "K3 / K4"}
+# CUDA function name -> (the kernels it runs as, its source under csrc/)
+ATTENTION_KERNELS = {
+    "attention_fwd_kernel": ("K1 / K2", "attention_fwd.cu"),
+    "attention_bwd_dq_kernel": ("K3 / K4", "attention_bwd.cu"),
+    "attention_bwd_dkdv_kernel": ("K3 / K4", "attention_bwd.cu"),
+}
 
 
 def bench_world(cfg):
@@ -95,11 +100,14 @@ def _trace_call(fn, top: int = 8) -> dict:
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in device)
     kernel_sum = sum(t for _, t in by_name.values())
     attention = {}
-    for fn_name, runs_as in ATTENTION_KERNELS.items():
+    for fn_name, (runs_as, _) in ATTENTION_KERNELS.items():
         count = sum(c for n, (c, _) in by_name.items() if fn_name in n)
         us = sum(t for n, (_, t) in by_name.items() if fn_name in n)
-        attention[fn_name] = {"runs_as": runs_as, "launches": count,
-                              "ms": us / 1e3, "share_of_device": us / kernel_sum}
+        entry = attention.setdefault(runs_as, {"launches": {}, "ms": 0.0})
+        entry["launches"][fn_name] = count
+        entry["ms"] += us / 1e3
+    for entry in attention.values():
+        entry["share_of_device"] = entry["ms"] * 1e3 / kernel_sum
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     return out, {
         "wall_ms": wall_us / 1e3, "untraced_wall_ms": untraced / 1e3,

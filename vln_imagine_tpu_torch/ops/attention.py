@@ -19,7 +19,10 @@ tensor it launches its kernel or raises; nothing falls back.  Each wrapper's
 `fused_attention` is the model's entry: K1 (or K2 with attention-probs
 dropout) under `torch.no_grad`, else `FusedAttention`, whose backward is K4
 (or K3).  The backward recomputes P from q, k and the bias, as the TPU
-kernels do: no [Lq, Lk] tensor is stored between the passes.
+kernels do: no [Lq, Lk] tensor is stored between the passes.  One backward
+call (one count of K3 or K4) launches two CUDA kernels, the dQ kernel and
+the dK/dV kernel, with the rows' LSE and delta and the packed keep bits as
+scratch between them.
 
 Dropout bits.  An element of P is kept when its 32 random bits are
 >= round(rate * 2^32) and kept values are scaled by 1 / (1 - rate), as the
@@ -265,9 +268,9 @@ _ARGTYPES = {
     "vln_attention_fwd": ([_PTR] * 5 + [_INT] * 6 + [_LL] * 13
                           + [ctypes.c_float, _INT, ctypes.c_uint32,
                              ctypes.c_float, ctypes.c_uint64, _PTR]),
-    # q k v bias do dq dk dv dbias | dtype B H Lq Lk D | 16 strides | scale |
-    # bits threshold keep_scale seed | stream
-    "vln_attention_bwd": ([_PTR] * 9 + [_INT] * 6 + [_LL] * 16
+    # q k v bias do dq dk dv ds lse delta keep | dtype B H Lq Lk D |
+    # 16 strides | scale | bits threshold keep_scale seed | stream
+    "vln_attention_bwd": ([_PTR] * 12 + [_INT] * 6 + [_LL] * 16
                           + [ctypes.c_float, _INT, ctypes.c_uint32,
                              ctypes.c_float, ctypes.c_uint64, _PTR]),
 }
@@ -353,26 +356,75 @@ def _launch_fwd(q, k, v, bias, scale, rate=0.0, seed=0, bits="philox"):
     return out
 
 
-def bwd_smem_bytes(Lq: int, Lk: int, D: int) -> int:
-    """Shared memory of one backward block: Q, dO [Lq, D+1], K, V [Lk, D+1]
-    and P, dS [Lq, Lk+1] in f32, the keep flags [Lq, Lk] in bytes."""
-    return (4 * (2 * Lq * (D + 1) + 2 * Lk * (D + 1) + 2 * Lq * (Lk + 1))
-            + Lq * Lk + 16)
+# The backward's tiles (csrc/attention_bwd.cu): one block of four warps per
+# 16 query rows (dq kernel) or 16 keys (dkdv kernel), the warps taking the
+# score sub-tiles of 16 keys (queries) in turn; at most 128 keys or queries
+# (64 at D 128) staged in shared memory at a time, whose room then takes the
+# warps' f32 partial sums.  Rows of staged tiles and of the per-warp
+# buffers carry 16 bytes of padding.
+BWD_WARPS, BWD_ROWS, BWD_SUB = 4, 16, 16
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def bwd_tile_plan(Lq: int, Lk: int, D: int, dtype: torch.dtype) -> dict:
+    """Tiles and shared memory per block of the backward's two kernels at one
+    shape, as `launch` in the source computes them (whose static_asserts
+    are what hold the kernels under the limit).  Shared memory is bounded by
+    the tiles, whatever Lq and Lk."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    ld, lds = D + 16 // elt, BWD_SUB + 16 // elt
+    chunk = 128 if D <= 64 else 64
+    kc = min(chunk, _round_up(Lk, BWD_SUB))  # keys staged by the dq kernel
+    qc = min(chunk, _round_up(Lq, BWD_SUB))  # queries staged by the dkdv kernel
+    rows = 2 * BWD_ROWS * ld * elt           # Q, dO (dq) or K, V (dkdv)
+    partials = BWD_WARPS * BWD_ROWS * D * 4
+    buf = BWD_WARPS * BWD_ROWS * lds * elt   # one [16, sub] buffer per warp
+    return {"rows": BWD_ROWS, "sub": BWD_SUB, "staged_keys": kc,
+            "staged_queries": qc,
+            # + row statistics per warp, bias [16, kc], keep bits [16, 64],
+            # S and dP of the first sweep [2, 16, kc]
+            "smem_dq": (rows + max(2 * kc * ld * elt, partials) + buf
+                        + 3 * BWD_WARPS * BWD_ROWS * 4 + BWD_ROWS * kc * 4
+                        + BWD_ROWS * (MAX_LK // 16) * 2
+                        + (2 * BWD_ROWS * kc * 4 if Lk <= chunk else 0)),
+            # + LSE, delta and keep word per query, bias [qc, 16]
+            "smem_dkdv": (rows + max(2 * qc * ld * elt, partials) + 2 * buf
+                          + (3 + BWD_ROWS) * qc * 4)}
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """A contiguous last dim, a 16-byte aligned start and batch, row and head
+    strides: what the backward's 16-byte copies into shared memory take."""
+    e = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all((s * e) % 16 == 0 for s in t.stride()[:3]))
+
+
+def _aligned_dout(do: torch.Tensor) -> torch.Tensor:
+    """dO as the backward kernels take it: autograd's gradient as it is, or,
+    where `_aligned` does not hold, a copy (never a fallback).  The copy is
+    a fresh allocation: `contiguous()` would return a contiguous dO that
+    starts off 16 bytes unchanged."""
+    return do if _aligned(do) else do.clone(memory_format=torch.contiguous_format)
 
 
 def _launch_bwd(q, k, v, bias, do, scale, need_dbias, rate=0.0, seed=0,
                 bits="philox"):
+    """Both backward kernels on the current stream."""
     full_bias = _check(q, k, v, bias)
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"dO {tuple(do.shape)} {do.dtype} does not match q")
-    if do.stride(-1) != 1:
-        raise ValueError("the last dim of dO must be contiguous")
-    if bwd_smem_bytes(Lq, Lk, D) > SMEM_LIMIT:
-        raise ValueError(f"attention backward holds one (batch, head) in "
-                         f"shared memory: Lq {Lq} x Lk {Lk} at D {D} needs "
-                         f"{bwd_smem_bytes(Lq, Lk, D)} > {SMEM_LIMIT} bytes")
+    do = _aligned_dout(do)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not _aligned(t):
+            raise ValueError(f"{name} must start on 16 bytes and have batch, "
+                             f"row and head strides of a multiple of 16 bytes "
+                             f"(got strides {t.stride()})")
     bias_ptr, bstrides = (None, (0, 0, 0, 0)) if full_bias is None else (
         full_bias.data_ptr(), full_bias.stride())
     dq = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
@@ -381,17 +433,24 @@ def _launch_bwd(q, k, v, bias, do, scale, need_dbias, rate=0.0, seed=0,
     # dS per (batch, head); summed over the bias's broadcast dims below
     ds = (torch.empty((B, H, Lq, Lk), dtype=torch.float32, device=q.device)
           if need_dbias and bias is not None else None)
+    # the dq kernel's LSE and delta rows and keep bits, read by the dkdv kernel
+    stats = torch.empty((2, B, H, Lq), dtype=torch.float32, device=q.device)
+    keep = (torch.empty((B, H, Lq, -(-Lk // 16)), dtype=torch.int32,
+                        device=q.device) if rate > 0.0 else None)
     lib = load_kernels()["attention_bwd.cu"]
     err = lib.vln_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if ds is None else ds.data_ptr(),
+        stats[0].data_ptr(), stats[1].data_ptr(),
+        None if keep is None else keep.data_ptr(),
         _DTYPE_CODE[q.dtype], B, H, Lq, Lk, D,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         do.stride(0), do.stride(1), do.stride(2),
-        *bstrides, float(scale), *_dropout_args(rate, seed, bits), _stream(q))
+        *bstrides, float(scale), *_dropout_args(rate, seed, bits),
+        _stream(q))
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA "
                            f"error {err}")
