@@ -36,13 +36,21 @@ JSON line; any failed check exits non-zero:
 6. kernels      every kernel against its plain PyTorch version on the card:
                 K1 at every (Lq, Lk) of the eval path, B 8 and 64, and of
                 the teacher step, B 8; K2 (both bit sources), K3 (both) and
-                K4 at every training shape, B 8; K3 and K4 also at the long
-                shapes 220/220 and 270/270 (the DUET and RxR text stacks);
-                bf16 and f32, [B,1,1,Lk] mask and per-head bias (dBias
-                checked there), q/k/v as views of a packed projection.
-                Kernel, plain and library times (CUDA-graph replays between
-                CUDA events) beside the least time the card could take.  Two
-                K3 calls give the same bits.
+                K4 at every training shape, B 8; every kernel also at the
+                long shapes 220/220 and 270/270 (the DUET and RxR text
+                stacks), K1 and K2 at 80/129 (one key past a staged chunk)
+                and at D 32 and 128; bf16 and f32, [B,1,1,Lk] mask and
+                per-head bias (dBias checked there), q/k/v as views of a
+                packed projection.  Kernel, plain and library times
+                (CUDA-graph replays between CUDA events) beside the least
+                time the card could take.  Two K2 calls, and two K3 calls,
+                give the same bits.
+
+    python3 chip_smoke.py --parent DIR
+
+also builds DIR's forward source (another checkout, e.g. a `git archive` of
+the parent commit) and times its K1/K2 beside this checkout's on the same
+inputs, in turns (`parent_ms` in the kernels phase).
 
 Then the kernel summary line `{"kernels": [...]}`, the card's name and power
 limit, and last the result line.  Without a CUDA device, or outside a
@@ -107,9 +115,12 @@ UPDATE_FRACTION = 1e-3
 # 60/80, 60/60)
 SHAPES = [(60, 60), (80, 80), (80, 67), (67, 80), (67, 67), (36, 36)]
 TRAIN_SHAPES = SHAPES + [(80, 60), (60, 80)]
-# the backward at the text stacks of DUET (200 + 20 tokens) and RxR HAMT
-# (250 + 20), past what one block per (batch, head) could hold
+# the text stacks of DUET (200 + 20 tokens) and RxR HAMT (250 + 20): past
+# one staged chunk of 128 keys or queries
 LONG_SHAPES = [(220, 220), (270, 270)]
+# the forward one key past a chunk (sweep 1 stages K and V again), and at
+# the head dims other than the model's
+FWD_EDGE_CASES = [(80, 129, 64), (67, 80, 32), (67, 80, 128)]
 HEADS, HEAD_DIM = 12, 64
 BATCHES = (64, 8)
 TRAIN_BATCH = 8
@@ -462,10 +473,10 @@ def train_parity_phase(torch, cfg, world):
 
 
 # --------------------------------------------------------------- phase 6
-def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen):
+def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen, D=HEAD_DIM):
     from vln_imagine_tpu_torch.ops.masks import extend_neg_mask
 
-    dev, H, D = "cuda", HEADS, HEAD_DIM
+    dev, H = "cuda", HEADS
     # q from one packed [B, Lq, 3*H*D] product, k/v from another: strided
     # views with row stride 2304, as MHAttention hands them to the kernels
     qx = torch.randn(B, lq, 3 * H * D, device=dev, generator=gen).to(dtype)
@@ -495,16 +506,18 @@ def _max_err(got, want) -> float:
 
 
 def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
-                bits=None, timed=False):
+                bits=None, timed=False, D=HEAD_DIM, parent=None):
     """One kernel against its plain version (and, timed, against the
-    library call) at one shape."""
+    library call, and for the forward against `parent`'s kernel, the C
+    entry of another checkout's forward) at one shape."""
     import torch.nn.functional as F
 
     from vln_imagine_tpu_torch.ops import attention as A
 
     dtype = getattr(torch, dtype_name)
-    q, k, v, do, bias = _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen)
-    scale, seed = HEAD_DIM ** -0.5, 0x5EED_1234_ABCD
+    q, k, v, do, bias = _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen,
+                                     D)
+    scale, seed = D ** -0.5, 0x5EED_1234_ABCD
     wrapper = A.KERNELS[kernel]
     need_db = bias_kind == "per_head"
     if kernel == "attention_fwd":
@@ -553,8 +566,9 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
             check(torch.allclose(g.float(), w.float(), rtol=tol, atol=tol),
                   f"{kernel} vs plain B{B} {lq}x{lk} {dtype_name} "
                   f"{bias_kind} {bits}: max abs err {err}")
-    case = {"kernel": kernel, "B": B, "Lq": lq, "Lk": lk, "dtype": dtype_name,
-            "bias": bias_kind, "bits": bits, "max_abs_err": err, "tol": tol}
+    case = {"kernel": kernel, "B": B, "Lq": lq, "Lk": lk, "D": D,
+            "dtype": dtype_name, "bias": bias_kind, "bits": bits,
+            "max_abs_err": err, "tol": tol}
     if not timed:
         return case
 
@@ -562,10 +576,10 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
     # products' operations at the input type's peak (the dropout bits'
     # integer work is not counted)
     elt = q.element_size()
-    qkv_bytes = (B * lq + 2 * B * lk) * HEADS * HEAD_DIM * elt
-    o_bytes = B * lq * HEADS * HEAD_DIM * elt
+    qkv_bytes = (B * lq + 2 * B * lk) * HEADS * D * elt
+    o_bytes = B * lq * HEADS * D * elt
     bias_bytes = bias.numel() * 4
-    mn = B * HEADS * lq * lk * HEAD_DIM
+    mn = B * HEADS * lq * lk * D
     mask = bias.to(dtype)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if kernel in ("attention_fwd", "attention_dropout_fwd"):
@@ -593,7 +607,27 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
         def library():  # SDPA's backward alone
             return torch.autograd.grad(lib_out, (lq_, lk_, lv_), lib_do,
                                        retain_graph=True)
-    case.update(ms=time_ms(torch, run), plain_ms=time_ms(torch, plain))
+    if parent is not None and kernel in ("attention_fwd",
+                                         "attention_dropout_fwd"):
+        rate = DROPOUT if kernel == "attention_dropout_fwd" else 0.0
+
+        def parent_run():
+            out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+            check(parent(*A.fwd_args(q, k, v, bias, out, scale, rate, seed,
+                                     bits or "philox")) == 0,
+                  "the parent's forward kernel did not launch")
+            return (out,)
+
+        check(_max_err(parent_run(), want) <= tol, "the parent's forward "
+              f"kernel disagrees with plain at B{B} {lq}x{lk}")
+        # in turns: kernel, parent, parent, kernel
+        times = [time_ms(torch, f) for f in (run, parent_run, parent_run, run)]
+        case.update(ms=(times[0] + times[3]) / 2, ms_all=[times[0], times[3]],
+                    parent_ms=(times[1] + times[2]) / 2,
+                    parent_ms_all=times[1:3])
+    else:
+        case["ms"] = time_ms(torch, run)
+    case["plain_ms"] = time_ms(torch, plain)
     if kernel in ("attention_fwd", "attention_dropout_fwd"):
         case["library_ms"] = time_ms(torch, library)
     else:
@@ -602,7 +636,7 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
     return case
 
 
-def kernels_phase(torch):
+def kernels_phase(torch, parent=None):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for B in BATCHES:  # K1: the eval path's batches
@@ -610,7 +644,8 @@ def kernels_phase(torch):
             for dt in ("bfloat16", "float32"):
                 for bk in ("mask", "per_head"):
                     cases.append(kernel_case(torch, "attention_fwd", B, lq, lk,
-                                             dt, bk, gen, timed=True))
+                                             dt, bk, gen, timed=True,
+                                             parent=parent))
     for lq, lk in TRAIN_SHAPES[len(SHAPES):]:  # K1 in a teacher step
         for dt in ("bfloat16", "float32"):
             for bk in ("mask", "per_head"):
@@ -628,24 +663,36 @@ def kernels_phase(torch):
                                      ("attention_bwd", None)):
                     cases.append(kernel_case(
                         torch, kernel, TRAIN_BATCH, lq, lk, dt, bk, gen,
-                        bits=bits, timed=timed and bits != "hash"))
-    for lq, lk in LONG_SHAPES:  # K3, K4 past one block per (batch, head)
+                        bits=bits, timed=timed and bits != "hash",
+                        parent=parent))
+    for lq, lk in LONG_SHAPES:  # every kernel past one staged chunk
         for dt in ("bfloat16", "float32"):
             for bk in ("mask", "per_head"):
                 timed = dt == "bfloat16" and bk == "mask"
-                for kernel, bits in (("attention_dropout_bwd", "philox"),
+                for kernel, bits in (("attention_fwd", None),
+                                     ("attention_dropout_fwd", "philox"),
+                                     ("attention_dropout_bwd", "philox"),
                                      ("attention_bwd", None)):
                     cases.append(kernel_case(
                         torch, kernel, TRAIN_BATCH, lq, lk, dt, bk, gen,
-                        bits=bits, timed=timed))
+                        bits=bits, timed=timed, parent=parent))
+    for lq, lk, D in FWD_EDGE_CASES:  # the forward at a chunk's edge, D 32, 128
+        for dt in ("bfloat16", "float32"):
+            for bk in ("mask", "per_head"):
+                for kernel, bits in (("attention_fwd", None),
+                                     ("attention_dropout_fwd", "philox")):
+                    cases.append(kernel_case(
+                        torch, kernel, TRAIN_BATCH, lq, lk, dt, bk, gen,
+                        bits=bits, D=D))
     emit({"phase": "kernels", "cases": cases,
-          "bwd_deterministic": bwd_determinism(torch, gen)})
+          "fwd_deterministic": determinism(torch, gen, "attention_dropout_fwd"),
+          "bwd_deterministic": determinism(torch, gen, "attention_dropout_bwd")})
     return cases
 
 
-def bwd_determinism(torch, gen) -> list:
-    """Two K3 calls with one seed give the same bits (no atomics), dBias
-    included, in both dtypes, at a training and a long shape."""
+def determinism(torch, gen, kernel) -> list:
+    """Two K2 (or K3) calls with one seed give the same bits (no atomics),
+    K3's dBias included, in both dtypes, at a training and a long shape."""
     from vln_imagine_tpu_torch.ops import attention as A
 
     out = []
@@ -654,17 +701,52 @@ def bwd_determinism(torch, gen) -> list:
             q, k, v, do, bias = _case_inputs(torch, TRAIN_BATCH, lq, lk,
                                              getattr(torch, dt), "per_head",
                                              gen)
-            first, second = (A.attention_dropout_bwd(
-                q, k, v, bias, do, HEAD_DIM ** -0.5, DROPOUT, 0xD5EED,
-                need_dbias=True) for _ in range(2))
+            if kernel == "attention_dropout_fwd":
+                first, second = ((A.attention_dropout_fwd(
+                    q, k, v, bias, HEAD_DIM ** -0.5, DROPOUT, 0xD5EED),)
+                    for _ in range(2))
+            else:
+                first, second = (A.attention_dropout_bwd(
+                    q, k, v, bias, do, HEAD_DIM ** -0.5, DROPOUT, 0xD5EED,
+                    need_dbias=True) for _ in range(2))
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(first, second))
-            check(same, f"two K3 calls differ at {lq}x{lk} {dt}")
+            check(same, f"two {kernel} calls differ at {lq}x{lk} {dt}")
             out.append({"Lq": lq, "Lk": lk, "dtype": dt, "identical": same})
     return out
 
 
+def build_parent_fwd(parent: Path):
+    """The C entry `vln_attention_fwd` of another checkout's forward source
+    (`--parent`), built with this checkout's flags, to time it beside this
+    one's kernel on the same inputs.  Its arguments are the same."""
+    import ctypes
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from vln_imagine_tpu_torch.ops import attention as A
+
+    src = parent / KERNEL_SOURCES[0]
+    check(src.is_file(), f"--parent: no {src}")
+    out = A.BUILD_DIR / "parent_attention_fwd.so"
+    A.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME else "nvcc"
+    subprocess.run([nvcc, *A.NVCC_FLAGS, "-o", str(out), str(src)],
+                   check=True, capture_output=True, text=True, timeout=600)
+    fn = ctypes.CDLL(str(out)).vln_attention_fwd
+    fn.argtypes = A._ARGTYPES["vln_attention_fwd"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another checkout whose forward kernel (K1, K2) is "
+                         "timed beside this one's in the kernels phase")
+    args = ap.parse_args()
     missing = [s for s in KERNEL_SOURCES if not (ROOT / s).is_file()]
     if missing:
         print("chip_smoke: run it from a checkout of the repository "
@@ -684,9 +766,11 @@ def main() -> None:
 
     t = time.perf_counter()
     libs = attention.load_kernels()
+    parent = None if args.parent is None else build_parent_fwd(args.parent)
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "libraries": [Path(lib._name).name for lib in libs.values()],
-          "nvcc_flags": attention.NVCC_FLAGS})
+          "nvcc_flags": attention.NVCC_FLAGS,
+          "parent": None if args.parent is None else str(args.parent)})
 
     cfg = hamt_r2r_config()
     world = bench_world(cfg)
@@ -695,7 +779,7 @@ def main() -> None:
     path_launches["train"] = train_phase(torch, cfg, world)
     path_launches["train_parity"] = train_parity_phase(torch, cfg, world)
     # after the paths, so that their peak memory is their own
-    cases = kernels_phase(torch)
+    cases = kernels_phase(torch, parent)
 
     summary = []
     for name, (source, replaces) in KERNELS.items():

@@ -411,6 +411,135 @@ def test_bwd_kernel_arithmetic_within_bf16_tolerance(lq, lk):
             atol=BF16_TOL, err_msg=f"d{n} vs interpret-mode K3")
 
 
+# ------------------------------------- the forward kernel's arithmetic
+# csrc/attention_fwd.cu in bf16, emulated on the CPU: the keys are staged at
+# most 128 at a time; the four warps of a block take the 16-key sub-tiles of
+# each chunk in turn; sweep 0 keeps each warp's online row max and sum of
+# exp(S - max), merged in warp order into the exact max and sum of the row;
+# sweep 1 forms P = exp(S - max) * (1 / sum) (times the keep mask for K2),
+# rounds it to bf16, and accumulates O += P V in f32 over the chunk's keys,
+# 16 at a time in key order (each warp does so for its own columns of O),
+# chunk after chunk; O is rounded to bf16.  With one chunk sweep 1 reuses
+# sweep 0's S; past one chunk it stages K again and recomputes S the same
+# way.  The emulation is held against the interpret-mode Pallas K1 and K2
+# (hash bits) within BF16_TOL at main-path shapes, one key past a chunk, and
+# long rows.
+
+FWD_EMULATION_SHAPES = [(67, 80), (80, 80), (36, 36), (80, 129), (220, 220),
+                        (40, 1024)]
+
+
+def _emulate_fwd_kernel(q, k, v, bias, scale, mask=None, sub=16, warps=4,
+                        chunk=128):
+    """The forward kernel's order on bf16 q, k, v [B, L, H, D] (f32 tensors
+    holding bf16 values), the f32 bias [B, 1|H, 1|Lq, Lk] and the keep mask
+    [B, H, Lq, Lk] or None; returns the bf16-rounded O as f32."""
+    B, Lq, H, _ = q.shape
+    Lk = k.shape[1]
+    chunks = [(c0, min(chunk, Lk - c0)) for c0 in range(0, Lk, chunk)]
+
+    def scores(c0, n):  # S of one staged chunk
+        return (torch.einsum("bqhd,bkhd->bhqk", q, k[:, c0:c0 + n]) * scale
+                + bias[..., c0:c0 + n])
+
+    def tiles(n):  # (first key in the chunk, warp) of each sub-tile
+        return [(s0, (s0 // sub) % warps) for s0 in range(0, n, sub)]
+
+    mx = [torch.full((B, H, Lq), -torch.inf) for _ in range(warps)]
+    total = [torch.zeros(B, H, Lq) for _ in range(warps)]
+    for c0, n in chunks:  # sweep 0
+        s = scores(c0, n)
+        for s0, w in tiles(n):
+            sj = s[..., s0:s0 + sub]
+            m = torch.maximum(mx[w], sj.amax(-1))
+            total[w] = (total[w] * torch.exp(mx[w] - m)
+                        + torch.exp(sj - m[..., None]).sum(-1))
+            mx[w] = m
+    row_max = torch.stack(mx).amax(0)
+    row_sum = torch.zeros(B, H, Lq)
+    for w in range(warps):  # a warp with no keys adds 0
+        row_sum = row_sum + total[w] * torch.exp(mx[w] - row_max)
+
+    inv = 1.0 / row_sum  # the kernel multiplies by the rounded reciprocal
+    out = torch.zeros(q.shape)
+    for c0, n in chunks:  # sweep 1
+        s = scores(c0, n) if len(chunks) > 1 else s
+        p = torch.exp(s - row_max[..., None]) * inv[..., None]
+        if mask is not None:
+            p = p * mask[..., c0:c0 + n]
+        p = _bf16(p)
+        for s0 in range(0, n, sub):
+            out = out + torch.einsum("bhqk,bkhd->bqhd", p[..., s0:s0 + sub],
+                                     v[:, c0 + s0:c0 + s0 + sub])
+    return _bf16(out)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("lq,lk", FWD_EMULATION_SHAPES)
+def test_fwd_kernel_arithmetic_within_bf16_tolerance(lq, lk, kernel):
+    import jax.numpy as jnp
+
+    from vln_imagine_tpu.ops import attention as A
+
+    B, H, D = 2, 2, 64
+    rng = np.random.default_rng(lq * 10000 + lk)
+    q = _bf16(torch.from_numpy(rng.standard_normal((B, lq, H, D)).astype(
+        np.float32)))
+    k, v = (_bf16(torch.from_numpy(rng.standard_normal(
+        (B, lk, H, D)).astype(np.float32))) for _ in range(2))
+    keep = rng.random((B, lk)) < 0.8
+    keep[:, 0] = True
+    bias = torch.from_numpy(
+        ((1.0 - keep[:, None, None, :]) * -10000.0).astype(np.float32))
+    scale, rate = 1.0 / np.sqrt(D), 0.1
+    mask = (dropout_mask((B, H, lq, lk), rate, 0, "hash") if kernel == "K2"
+            else None)
+    got = _emulate_fwd_kernel(q, k, v, bias, scale, mask)
+
+    jq, jk, jv = (jnp.asarray(x.numpy(), jnp.bfloat16).transpose(0, 2, 1, 3)
+                  for x in (q, k, v))
+    jbias = jnp.broadcast_to(jnp.asarray(bias.numpy()), (B, 1, lq, lk))
+    if kernel == "K1":
+        pallas = _interp_fwd(jq, jk, jv, jbias, scale)
+        plain = attention_reference(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                    bias, scale)
+    else:
+        pallas, _ = A._pallas_attention_dropout_fwd(
+            jq, jk, jv, jbias, jnp.asarray([7], jnp.int32), scale, rate,
+            bits_fn=A._hash_mask_bits, interpret=True)
+        plain = attention_dropout_reference(
+            q.bfloat16(), k.bfloat16(), v.bfloat16(), bias, scale, rate, 0,
+            "hash")
+    np.testing.assert_allclose(
+        got.numpy(),
+        np.asarray(pallas.astype(jnp.float32)).transpose(0, 2, 1, 3),
+        rtol=BF16_TOL, atol=BF16_TOL, err_msg=f"{kernel} vs interpret mode")
+    torch.testing.assert_close(got, plain.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL, msg=f"{kernel} vs plain")
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_launch_fwd_raises_on_unaligned_view_before_any_build(which,
+                                                              monkeypatch):
+    """q, k or v one element past 16 bytes is refused before the kernels
+    are built or loaded: the forward's 16-byte copies cannot take it."""
+    from vln_imagine_tpu_torch.ops import attention as A
+
+    def no_build():
+        raise AssertionError("the kernels were built or loaded")
+
+    monkeypatch.setattr(A, "load_kernels", no_build)
+    B, L, H, D = 2, 5, 3, 64
+    t = {n: torch.randn(B, L, H, D).to(torch.bfloat16) for n in "qkv"}
+    shifted = torch.zeros(t[which].numel() + 1,
+                          dtype=torch.bfloat16)[1:].view(B, L, H, D)
+    shifted.copy_(t[which])
+    assert shifted.is_contiguous() and not _aligned(shifted)
+    t[which] = shifted
+    with pytest.raises(ValueError, match="16 bytes"):
+        A._launch_fwd(t["q"], t["k"], t["v"], None, 0.125)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_unaligned_dout_is_copied_to_an_aligned_allocation(dtype):
     """A dO the backward's 16-byte loads cannot take becomes a fresh copy:
@@ -528,8 +657,8 @@ def test_kernel_matches_plain_on_card(cuda, lq, lk, per_head, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def _card_case(cuda, lq, lk, per_head, dtype, seed):
-    B, H, D = 8, 12, 64
+def _card_case(cuda, lq, lk, per_head, dtype, seed, D=64):
+    B, H = 8, 12
     g = torch.Generator(device="cuda").manual_seed(seed)
     qx = torch.randn(B, lq, 3 * H * D, device=cuda, generator=g).to(dtype)
     kv = torch.randn(B, lk, 3 * H * D, device=cuda, generator=g).to(dtype)
@@ -643,3 +772,46 @@ def test_bwd_kernel_takes_dout_off_16_bytes_on_card(cuda, dtype):
     want = attention_bwd_reference(q, k, v, bias, do, 0.125, 0.1, 3, "philox")
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+# the forward past one staged chunk of 128 keys (the text stacks of DUET and
+# RxR HAMT), one key past it, and at the head dims other than the model's
+FWD_CARD_CASES = [(220, 220, 64), (270, 270, 64), (80, 129, 64), (67, 80, 32),
+                  (67, 80, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_head", [False, True])
+@pytest.mark.parametrize("lq,lk,D", FWD_CARD_CASES)
+def test_fwd_kernels_long_boundary_and_head_dims_on_card(cuda, lq, lk, D,
+                                                         per_head, dtype):
+    q, k, v, bias, _ = _card_case(cuda, lq, lk, per_head, dtype,
+                                  lq * 17 + lk + D, D=D)
+    scale, seed = D ** -0.5, 2 ** 35 + 3
+    tol = CARD_F32_TOL if dtype == torch.float32 else BF16_TOL
+    before = (attention_fwd.launches, attention_dropout_fwd.launches)
+    k1 = attention_fwd(q, k, v, bias, scale)
+    k2 = attention_dropout_fwd(q, k, v, bias, scale, 0.1, seed, "philox")
+    torch.cuda.synchronize()
+    assert (attention_fwd.launches,
+            attention_dropout_fwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(
+        k1.float(), attention_reference(q, k, v, bias, scale).float(),
+        rtol=tol, atol=tol)
+    torch.testing.assert_close(
+        k2.float(), attention_dropout_reference(
+            q, k, v, bias, scale, 0.1, seed, "philox").float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk", [(80, 67), (270, 270)])
+def test_fwd_dropout_kernel_is_deterministic_on_card(cuda, lq, lk, dtype):
+    """No atomics: two K2 calls with one seed give the same bits."""
+    q, k, v, bias, _ = _card_case(cuda, lq, lk, True, dtype, 98)
+    first, second = (attention_dropout_fwd(q, k, v, bias, 0.125, 0.1, 12345,
+                                           "philox") for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

@@ -7,9 +7,12 @@
 //
 //     O = (softmax(Q K^T * scale + bias) * M) V
 //
-// in the same order as the TPU kernels: f32 scores, + bias, row max, exp,
-// normalise, P times the dropout mask M (K2 only; dropout_bits.cuh), P
-// rounded to V's dtype, P V accumulated in f32, O in Q's dtype.  K2 draws
+// in the same order as the TPU kernels: f32 scores, + bias, exact row max
+// and row sum, P = exp(S - max) / sum normalised before it is rounded, P
+// times the dropout mask M (K2 only; dropout_bits.cuh), P rounded to V's
+// dtype, P V accumulated in f32, O in Q's dtype.  P is never left
+// unnormalised and rescaled later (FlashAttention's form), so the kernel
+// rounds the same P as the plain version at every Lk up to 1024.  K2 draws
 // its mask from a counter-based generator in place of the TPU's per-core
 // PRNG, so the backward kernel (attention_bwd.cu) regenerates it from the
 // seed and no [Lq, Lk] mask ever reaches device memory.
@@ -17,44 +20,80 @@
 // Layout.  Q, K, V and O are [B, L, H, D] (the projection layout of the
 // model's packed QKV product), so no head transposes surround the kernel.
 // Q/K/V arrive as strided views (row stride 3*H*D when they are slices of
-// the packed product); only the last dim must be contiguous.  The additive
-// bias is f32 [B, 1|H, 1|Lq, Lk] read through its strides, so the [B,1,1,Lk]
-// padding mask is read with stride 0 over heads and query rows and never
-// materialised.
+// the packed product); the last dim is contiguous and every row starts on
+// 16 bytes (the wrapper checks both), so tiles are copied into shared memory
+// with 16-byte cp.async.  The additive bias is f32 [B, 1|H, 1|Lq, Lk] read
+// through its strides: the [B,1,1,Lk] padding mask has stride 0 over heads
+// and query rows, and a block stages its one row once.
 //
 // What bounds it.  At the model's shapes (L <= 80, H 12, D 64) the work is
-// about 4*L*D flops per byte of Q/K/V/O, far below the ~295 flop/byte at
-// which an H100's tensor cores, and not its memory, become the limit: the
-// kernel is bound by bytes.  The design therefore keeps everything of size
-// [Lq, Lk] out of device memory: scores and probabilities live in shared
-// memory only, each block reads its Q tile and its head's K and V once and
-// writes its O tile once.  Blocks of the same head re-read K and V; those
-// reads are served by L2 (K and V of one head are at most a few tens of KB).
+// two [L, L, D] products per (batch, head), about 4*L*D flops per 4*L*D
+// bytes of Q/K/V/O: far below the ~295 flop/byte at which an H100's tensor
+// cores, not its memory, become the limit, so by the roofline the kernel is
+// bound by bytes.  In practice it is bound by instruction issue and latency:
+// a (16 rows, head) tile is a few dozen tensor-core instructions beside a few
+// hundred for the softmax, the staging and the merges, so what counts is how
+// few instructions each element of S costs, how many warps run at once and
+// how long each one's chain of dependent steps is.
 //
-// Design.  One block per (query tile of 16 rows, head, batch item), four
-// warps, four query rows per warp.  K is staged chunk by chunk (64 keys)
-// into shared memory transposed, so that the 32 lanes of a warp, each
-// scoring its own key, read consecutive words.  The full f32 score row of
-// each query stays in shared memory; max and sum are warp shuffles.  V is
-// then staged chunk by chunk and every lane accumulates D/32 output columns.
-// Plain FMA on the CUDA cores: tensor cores (mma.sync / wgmma) and TMA are
-// later work.
+// Design (the skeleton of attention_bwd.cu's dq kernel).  One block of
+// kWarps warps per (16 query rows, head, batch item): 480 blocks at B 8 and
+// 3,840 at B 64 for L 80.  The keys are staged at most 128 (64 at D 128) at
+// a time; the warps take the chunk's 16-key sub-tiles in turn.
+//   Sweep 0: S = Q K^T * scale + bias on the tensor cores, each warp's
+//   online row max and sum of exp(S - max), merged across the warps in warp
+//   order into the exact max and sum of every row.
+//   Sweep 1: each warp turns its sub-tiles of S into
+//   P = exp(S - max) * (1 / sum) (one rounded reciprocal a row: a division
+//   an element was the costliest single step on an H100), times the keep
+//   mask for K2, rounded to V's dtype into a [16, keys] tile of P in shared
+//   memory; then each warp takes a quarter of O's columns (16 at least: two
+//   warps at D 32) and adds P V over all the chunk's keys.
+// So no partial O is merged across warps, the P V work is even across warps
+// however the keys fall, and each output element is written once, from
+// registers: no atomics, and two calls give the same bits.  When all keys
+// fit one staged chunk (every shape of the main path), sweep 0 keeps S in
+// registers for sweep 1 and V's copy overlaps sweep 0; past one chunk,
+// sweep 1 stages K and V again and recomputes S with the same instructions,
+// so both sweeps see the same bits.  Shared memory per block is bounded by
+// the tiles, not by L; a static_assert in launch() holds the largest (a full
+// chunk) under the card's 227 KB.  A register budget for six blocks (24
+// warps) an SM at bf16 D <= 64 serves the B 64 eval calls.  On an H100, a
+// warp per 16 query rows walking every key (no merges, K and V staged once
+// per block) was slower than the key split at every eval and training
+// shape: it needs far more registers a thread and five sub-tiles a warp in
+// place of two.
+//
+// Products (attention_tiles.cuh).  bf16: mma.sync.m16n8k16 (bf16 in, f32
+// accumulate), Q, K and P through ldmatrix, V through ldmatrix.trans, from
+// rows padded by 16 bytes.  f32: the same tiles and fragment layout with
+// CUDA-core FMAs (no TF32).  exp is the fast __expf (ex2.approx: about
+// 1e-6 relative error where exp(S - max) is not negligible, far inside the
+// 1e-4 tolerance of the f32 outputs; faster at B 64).
+//
+// Measured (chip_smoke.py --parent: CUDA-graph replays, inputs warm in L2;
+// NVIDIA H100 80GB HBM3, power limit 700 W; bf16, H 12, D 64, [B,1,1,Lk]
+// mask).  K1 at the six eval shapes: 0.0155 to 0.0342 ms at B 64 (SDPA
+// 0.0251 to 0.0455; the CUDA-core kernel this replaces 0.0483 to 0.1327),
+// 0.0052 to 0.0077 ms at B 8 (SDPA 0.0079 to 0.0119).  K2 with Philox bits
+// at the eight training shapes, B 8: 0.0067 to 0.0098 ms (SDPA with dropout
+// 0.0121 to 0.0163; before 0.0143 to 0.0256).  The byte bound is 0.0042 to
+// 0.0094 ms at B 64 and 0.0005 to 0.0012 ms at B 8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
 
+#include <type_traits>
+
+#include "attention_tiles.cuh"
 #include "dropout_bits.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
-constexpr int kKeyChunk = 64;
-constexpr int kThreads = kWarps * 32;
-constexpr int kKtStride = kKeyChunk + 1;  // padded row of the transposed K chunk
+using namespace vln;
 
 struct Params {
   const void* q;
@@ -63,6 +102,8 @@ struct Params {
   const float* bias;  // nullptr: no bias
   void* o;
   int B, H, Lq, Lk;
+  int kc;             // keys staged at a time
+  int brows;          // bias rows staged: 1 when they are all one row
   long long sqb, sql, sqh;
   long long skb, skl, skh;
   long long svb, svl, svh;
@@ -71,182 +112,224 @@ struct Params {
   vln::DropoutParams drop;  // drop.bits == kBitsNone: K1
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// blocks per SM the register budget must allow: six at bf16 D <= 64 (at
+// most 85 registers a thread), so that B 64 eval calls keep 24 warps an SM
+template <typename T, int D>
+constexpr int min_blocks() { return std::is_same<T, float>::value || D > 64 ? 2 : 6; }
+
+// key sub-tiles a warp takes in one staged chunk, at most
+template <int D>
+__host__ __device__ constexpr int subs_per_warp() { return chunk_rows(D) / (kSub * kWarps); }
+
+// Shared memory of a block: Q [kRows, LD]; K and V [kc, LD]; each warp's
+// row max and sum (f32 [2, kWarps, kRows]); the bias of the staged keys (f32
+// [brows, kc]); P of the staged keys in V's dtype ([kRows, kc + pad]).
+template <typename T, int D>
+__host__ __device__ constexpr size_t fwd_smem(int kc, int brows) {
+  return static_cast<size_t>(kRows) * (D + pad<T>()) * sizeof(T) +
+         2 * static_cast<size_t>(kc) * (D + pad<T>()) * sizeof(T) +
+         2 * static_cast<size_t>(kWarps) * kRows * sizeof(float) +
+         static_cast<size_t>(brows) * kc * sizeof(float) +
+         static_cast<size_t>(kRows) * (kc + pad<T>()) * sizeof(T);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as a dtype cast
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+// warps that take a column slice of O in sweep 1 (16 columns at least)
+template <int D>
+__host__ __device__ constexpr int col_warps() { return D / 16 < kWarps ? D / 16 : kWarps; }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
     attention_fwd_kernel(const Params p) {
   static_assert(D % 32 == 0, "D must be a multiple of 32");
-  constexpr int kCols = D / 32;  // output columns per lane
+  constexpr int LD = D + pad<T>();
+  constexpr int NC = D / col_warps<D>();
+  constexpr int kSubs = subs_per_warp<D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kc = p.kc;
+  T* qs = reinterpret_cast<T*>(smem);          // [kRows][LD]
+  T* ks = qs + kRows * LD;                     // [kc][LD]
+  T* vs = ks + kc * LD;                        // [kc][LD]
+  float* stat = reinterpret_cast<float*>(vs + kc * LD);  // [2][kWarps][kRows]
+  float* bs = stat + 2 * kWarps * kRows;                 // [brows][kc]
+  T* ps = reinterpret_cast<T*>(bs + p.brows * kc);       // [kRows][LDP]
+  const int LDP = kc + pad<T>();
 
-  extern __shared__ float smem[];
-  const int Lk = p.Lk;
-  float* qs = smem;                          // [kRowsPerBlock][D]
-  float* ss = qs + kRowsPerBlock * D;        // [kRowsPerBlock][Lk] scores, probs
-  float* kv = ss + kRowsPerBlock * Lk;       // K chunk [D][kKtStride] | V chunk [kKeyChunk][D]
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wrow = warp * kRowsPerWarp;      // this warp's first row in the tile
-
+  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int Lq = p.Lq, Lk = p.Lk;
+  const bool dropout = p.drop.bits != vln::kBitsNone;
   const T* qg = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
   const T* kg = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
   const T* vg = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
+  const float* bias = p.bias == nullptr ? nullptr : p.bias + b * p.sbb + h * p.sbh;
+  const int bld = p.brows == 1 ? 0 : kc;  // row stride of the staged bias
 
-  for (int idx = threadIdx.x; idx < kRowsPerBlock * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
-    const int i = row0 + r;
-    qs[idx] = i < p.Lq ? to_f32(qg[i * p.sql + d]) : 0.f;
-  }
+  stage<T, D>(qs, qg, p.sql, row0, Lq, kRows);
 
-  // ---- scores: s[i, j] = (q_i . k_j) * scale + bias[i, j] -----------------
-  for (int c0 = 0; c0 < Lk; c0 += kKeyChunk) {
-    const int nk = min(kKeyChunk, Lk - c0);
-    __syncthreads();  // Q staged; previous K chunk consumed
-    for (int idx = threadIdx.x; idx < nk * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D;
-      kv[d * kKtStride + j] = to_f32(kg[(c0 + j) * p.skl + d]);
-    }
-    __syncthreads();
+  const int rows[2] = {row0 + g, row0 + g + 8};
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, inv[2];
+  float o[NC / 8][4] = {};
+  float sk[kSubs][kNT][4];  // sweep 0's S, kept for sweep 1 in one chunk
+  const int nchunks = (Lk + kc - 1) / kc;
+  const bool keep_s = nchunks == 1;
 
-    float acc[kRowsPerWarp][2];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) acc[r][0] = acc[r][1] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float k0 = kv[d * kKtStride + lane];
-      const float k1 = kv[d * kKtStride + lane + 32];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float qv = qs[(wrow + r) * D + d];
-        acc[r][0] = fmaf(qv, k0, acc[r][0]);
-        acc[r][1] = fmaf(qv, k1, acc[r][1]);
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    for (int c = 0; c < nchunks; ++c) {
+      const int c0 = c * kc, nk = min(kc, Lk - c0);
+      if (sweep == 0 || !keep_s) {
+        __syncthreads();  // every warp is done with the previous chunk
+        stage<T, D>(ks, kg, p.skl, c0, Lk, round_up(nk, kSub));
+        for (int x = threadIdx.x; x < p.brows * kc; x += kThreads) {
+          const int i = row0 + x / kc, j = c0 + x % kc;
+          const bool valid = bias != nullptr && i < Lq && j < Lk;
+          cp_async4(bs + x, valid ? bias + i * p.sbq + j * p.sbk : p.q, valid);
+        }
+        if (keep_s) {
+          // V's copy overlaps sweep 0; it is waited for before the merge
+          cp_async_commit();
+          stage<T, D>(vs, vg, p.svl, c0, Lk, round_up(nk, kSub));
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          if (sweep == 1) stage<T, D>(vs, vg, p.svl, c0, Lk, round_up(nk, kSub));
+          cp_async_wait_all();
+        }
+        __syncthreads();
       }
-    }
+      // the warps take the chunk's key sub-tiles in turn, the same ones in
+      // both sweeps
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int i = row0 + wrow + r;
+      for (int u = 0; u < kSubs; ++u) {
+        const int s0 = (warp + u * kWarps) * kSub;
+        if (s0 >= nk) break;
+        float s[kNT][4];
+        if (sweep == 1 && keep_s) {
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int j = lane + 32 * t;
-        if (j < nk) {
-          float s = acc[r][t] * p.scale;
-          if (p.bias != nullptr && i < p.Lq)
-            s += p.bias[b * p.sbb + h * p.sbh + i * p.sbq + (c0 + j) * p.sbk];
-          ss[(wrow + r) * Lk + c0 + j] = s;
+          for (int n = 0; n < kNT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] = sk[u][n][e];
+        } else {
+          // S = Q K^T * scale + bias, -inf past Lk
+#pragma unroll
+          for (int n = 0; n < kNT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+          gemm_nt<T, D, kNT>(s, qs, LD, ks + s0 * LD, LD);
+#pragma unroll
+          for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int col = s0 + 8 * n + 2 * t;
+              const float2 bv = *reinterpret_cast<const float2*>(bs + (g + 8 * r) * bld + col);
+              s[n][2 * r] = c0 + col < Lk ? s[n][2 * r] * p.scale + bv.x : -INFINITY;
+              s[n][2 * r + 1] = c0 + col + 1 < Lk ? s[n][2 * r + 1] * p.scale + bv.y : -INFINITY;
+            }
+          }
+          if (sweep == 0 && keep_s) {
+#pragma unroll
+            for (int n = 0; n < kNT; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sk[u][n][e] = s[n][e];
+          }
+        }
+        if (sweep == 0) {
+          // online row max and sum of exp(S - max)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float m = mx[r];
+#pragma unroll
+            for (int n = 0; n < kNT; ++n) m = fmaxf(m, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+            m = quad_max(m);
+            sum[r] *= __expf(mx[r] - m);
+#pragma unroll
+            for (int n = 0; n < kNT; ++n)
+#pragma unroll
+              for (int e = 2 * r; e < 2 * r + 2; ++e) sum[r] += __expf(s[n][e] - m);
+            mx[r] = m;
+          }
+        } else {
+          // P = exp(S - max) / sum, times the keep mask, into the P tile
+          // rounded to T
+#pragma unroll
+          for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1, j = c0 + s0 + 8 * n + 2 * t + (e & 1);
+              float pv = __expf(s[n][e] - mx[r]) * inv[r];
+              if (dropout && rows[r] < Lq && j < Lk)
+                pv *= vln::dropout_mask(p.drop, b, h, rows[r], j);
+              s[n][e] = pv;
+            }
+          }
+          store_acc<T, kNT>(ps + s0, LDP, s);
+        }
+      }
+      if (sweep == 1) {
+        // O[:, slice] += P V[:, slice] over the chunk's keys
+        __syncthreads();
+        if (warp < col_warps<D>()) {
+          for (int k0 = 0; k0 < nk; k0 += kSub)
+            gemm_nn<T, kSub, NC / 8>(o, ps + k0, LDP, vs + k0 * LD + warp * NC, LD);
         }
       }
     }
-  }
-  __syncwarp();
-
-  // ---- softmax over each full row, dropout, P rounded to V's dtype --------
+    if (sweep == 0) {
+      // merge the warps' statistics, in warp order: every warp gets the
+      // same max and sum of each row
+      cp_async_wait_all();  // V, when its copy overlapped sweep 0
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int i = row0 + wrow + r;
-    float* srow = ss + (wrow + r) * Lk;
-    float m = -INFINITY;
-    for (int j = lane; j < Lk; j += 32) m = fmaxf(m, srow[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float e = expf(srow[j] - m);
-      srow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < Lk; j += 32) {
-      float pv = srow[j] / sum;
-      if (p.drop.bits != vln::kBitsNone) pv *= vln::dropout_mask(p.drop, b, h, i, j);
-      srow[j] = to_f32(from_f32<T>(pv));
-    }
-  }
-  __syncwarp();
-
-  // ---- O = P V, f32 accumulation -----------------------------------------
-  float o[kRowsPerWarp][kCols];
+      for (int r = 0; r < 2; ++r) {
+        const float l = quad_sum(sum[r]);
+        if (t == 0) {
+          stat[warp * kRows + g + 8 * r] = mx[r];
+          stat[(kWarps + warp) * kRows + g + 8 * r] = l;
+        }
+      }
+      __syncthreads();
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
+      for (int r = 0; r < 2; ++r) {
+        const int row = g + 8 * r;
+        float m = -INFINITY, l = 0.f;
 #pragma unroll
-    for (int t = 0; t < kCols; ++t) o[r][t] = 0.f;
-
-  for (int c0 = 0; c0 < Lk; c0 += kKeyChunk) {
-    const int nk = min(kKeyChunk, Lk - c0);
-    __syncthreads();  // every warp is done with the previous chunk
-    for (int idx = threadIdx.x; idx < nk * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D;
-      kv[j * D + d] = to_f32(vg[(c0 + j) * p.svl + d]);
-    }
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {
-      float vv[kCols];
+        for (int w = 0; w < kWarps; ++w) m = fmaxf(m, stat[w * kRows + row]);
 #pragma unroll
-      for (int t = 0; t < kCols; ++t) vv[t] = kv[j * D + lane + 32 * t];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float pr = ss[(wrow + r) * Lk + c0 + j];
-#pragma unroll
-        for (int t = 0; t < kCols; ++t) o[r][t] = fmaf(pr, vv[t], o[r][t]);
+        for (int w = 0; w < kWarps; ++w)  // 0 for a warp with no keys
+          l = fmaf(stat[(kWarps + w) * kRows + row], __expf(stat[w * kRows + row] - m), l);
+        mx[r] = m;
+        inv[r] = 1.f / l;
       }
     }
   }
 
-  T* og = static_cast<T*>(p.o);
+  if (warp < col_warps<D>()) {
+    T* og = static_cast<T*>(p.o);
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int i = row0 + wrow + r;
-    if (i < p.Lq) {
-      T* orow = og + ((static_cast<long long>(b) * p.Lq + i) * p.H + h) * D;
+    for (int n = 0; n < NC / 8; ++n) {
 #pragma unroll
-      for (int t = 0; t < kCols; ++t) orow[lane + 32 * t] = from_f32<T>(o[r][t]);
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] < Lq)
+          store2(og + ((static_cast<long long>(b) * Lq + rows[r]) * p.H + h) * D + warp * NC +
+                     8 * n + 2 * t,
+                 o[n][2 * r], o[n][2 * r + 1]);
+      }
     }
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(kRowsPerBlock) * D +
-                       static_cast<size_t>(kRowsPerBlock) * p.Lk +
-                       static_cast<size_t>(D) * kKtStride);
+cudaError_t launch(Params p, cudaStream_t stream) {
+  // the most shared memory a block takes: a full staged chunk
+  constexpr size_t kSmemLimit = 232448;  // bytes a block may use on an H100
+  static_assert(fwd_smem<T, D>(chunk_rows(D), kRows) <= kSmemLimit, "block too large");
+  p.kc = staged_rows(p.Lk, D);
+  p.brows = p.bias == nullptr || p.sbq == 0 ? 1 : kRows;
+  const size_t smem = fwd_smem<T, D>(p.kc, p.brows);
   auto kernel = attention_fwd_kernel<T, D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((p.Lq + kRowsPerBlock - 1) / kRowsPerBlock, p.H, p.B);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3((p.Lq + kRows - 1) / kRows, p.H, p.B), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -263,9 +346,10 @@ cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  Strides are in
-// elements.  bias may be null.  bits: 0 = no dropout (K1), 1 = hash,
-// 2 = Philox (K2), with the keep threshold, the kept value and the seed.
-// Returns the cudaError_t of the launch.
+// elements; o is written contiguous [B, Lq, H, D].  bias may be null.
+// bits: 0 = no dropout (K1), 1 = hash, 2 = Philox (K2), with the keep
+// threshold, the kept value and the seed.  Returns the cudaError_t of the
+// launch.
 extern "C" int vln_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     int dtype, int B, int H, int Lq, int Lk, int D,
@@ -279,6 +363,7 @@ extern "C" int vln_attention_fwd(
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.bias = static_cast<const float*>(bias);
   p.B = B; p.H = H; p.Lq = Lq; p.Lk = Lk;
+  p.kc = p.brows = 0;
   p.sqb = sqb; p.sql = sql; p.sqh = sqh;
   p.skb = skb; p.skl = skl; p.skh = skh;
   p.svb = svb; p.svl = svl; p.svh = svh;

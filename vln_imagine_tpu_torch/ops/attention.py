@@ -62,7 +62,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
-MAX_LK = 1024  # forward: the f32 score rows of a 16-query tile stay in shared memory
+MAX_LK = 1024  # the backward's packed keep bits of a row fit shared memory
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on an H100
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BITS = {"hash": 1, "philox": 2}
@@ -335,21 +335,35 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(q, k, v, bias, scale, rate=0.0, seed=0, bits="philox"):
+def _check_aligned(**tensors) -> None:
+    for name, t in tensors.items():
+        if not _aligned(t):
+            raise ValueError(f"{name} must start on 16 bytes and have batch, "
+                             f"row and head strides of a multiple of 16 bytes "
+                             f"(got strides {t.stride()})")
+
+
+def fwd_args(q, k, v, bias, out, scale, rate=0.0, seed=0, bits="philox"):
+    """The arguments of the C entry `vln_attention_fwd` for one call, after
+    the checks of `_launch_fwd`; `out` is the [B, Lq, H, D] output."""
     bias = _check(q, k, v, bias)
+    _check_aligned(q=q, k=k, v=v)
     B, Lq, H, D = q.shape
-    Lk = k.shape[1]
     bias_ptr, bstrides = (None, (0, 0, 0, 0)) if bias is None else (
         bias.data_ptr(), bias.stride())
-    out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
-    lib = load_kernels()["attention_fwd.cu"]
-    err = lib.vln_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, H, Lq, Lk, D,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        *bstrides, float(scale), *_dropout_args(rate, seed, bits), _stream(q))
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, H, Lq, k.shape[1], D,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            *bstrides, float(scale), *_dropout_args(rate, seed, bits),
+            _stream(q))
+
+
+def _launch_fwd(q, k, v, bias, scale, rate=0.0, seed=0, bits="philox"):
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    args = fwd_args(q, k, v, bias, out, scale, rate, seed, bits)
+    err = load_kernels()["attention_fwd.cu"].vln_attention_fwd(*args)
     if err != 0:
         raise RuntimeError(f"attention forward kernel launch failed: CUDA "
                            f"error {err}")
@@ -397,7 +411,7 @@ def bwd_tile_plan(Lq: int, Lk: int, D: int, dtype: torch.dtype) -> dict:
 
 def _aligned(t: torch.Tensor) -> bool:
     """A contiguous last dim, a 16-byte aligned start and batch, row and head
-    strides: what the backward's 16-byte copies into shared memory take."""
+    strides: what the kernels' 16-byte copies into shared memory take."""
     e = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all((s * e) % 16 == 0 for s in t.stride()[:3]))
@@ -420,11 +434,7 @@ def _launch_bwd(q, k, v, bias, do, scale, need_dbias, rate=0.0, seed=0,
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"dO {tuple(do.shape)} {do.dtype} does not match q")
     do = _aligned_dout(do)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not _aligned(t):
-            raise ValueError(f"{name} must start on 16 bytes and have batch, "
-                             f"row and head strides of a multiple of 16 bytes "
-                             f"(got strides {t.stride()})")
+    _check_aligned(q=q, k=k, v=v)
     bias_ptr, bstrides = (None, (0, 0, 0, 0)) if full_bias is None else (
         full_bias.data_ptr(), full_bias.stride())
     dq = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
