@@ -33,7 +33,26 @@ JSON line; any failed check exits non-zero:
                 full width: the card (K1 forward, K4 backward) against the
                 CPU (plain versions): loss and grad_norm within 1e-4
                 relative, updated parameters within UPDATE_TOL.
-6. kernels      every kernel against its plain PyTorch version on the card:
+6. duet_eval    DUET-Imagine greedy eval (`DuetTrainer.make_eval_step`) at
+                `duet_r2r_config`, full width, bf16, same world, batch 64
+                and 8: paths that start at the start node and move along
+                edges (a teleport longer than its 6-hop cap records its
+                endpoint: counted, not failed), K1's launch count (9 + 18
+                per step, K2-K4 none), episodes/s, SR/SPL/nDTW, peak memory.
+7. duet_parity  the same in f32 at batch 4, card against CPU: identical
+                paths, step-0 fused logits within LOGIT_TOL.
+8. duet_train   the DAgger step (`DuetTrainer.make_train_step`: teacher-
+                forced IL over 8 steps + sampled student over 15 supervised
+                by the SPL expert) at batch 8, every dropout on: one warm-up
+                and three timed steps; finite losses, grad_norm > 0, stage-1
+                semantics, K2 / K3 launches per step
+                (`duet_train_launches_per_step`: 432 / 432), ms per step,
+                peak memory.
+9. duet_train_parity one f32 'imitation' step, dropout off, batch 2: K1
+                forward and K4 backward (dBias into `sprel_linear`) on the
+                card against the CPU: loss, grad_norm and the sprel_linear
+                gradient within TRAIN_TOL, updates under UPDATE_TOL.
+10. kernels     every kernel against its plain PyTorch version on the card:
                 K1 at every (Lq, Lk) of the eval path, B 8 and 64, and of
                 the teacher step, B 8; K2 (both bit sources), K3 (both) and
                 K4 at every training shape, B 8; every kernel also at the
@@ -41,7 +60,10 @@ JSON line; any failed check exits non-zero:
                 stacks), K1 and K2 at 80/129 (one key past a staged chunk)
                 and at D 32 and 128; bf16 and f32, [B,1,1,Lk] mask and
                 per-head bias (dBias checked there), q/k/v as views of a
-                packed projection.  Kernel, plain and library times
+                packed projection; and at DUET's shapes and bias forms
+                (`DUET_SHAPES`: the graph bias [B,1,97,97] with dBias, the
+                -1e9 pano key padding), with launch-weighted times per DUET
+                step (`duet_weighted`).  Kernel, plain and library times
                 (CUDA-graph replays between CUDA events) beside the least
                 time the card could take.  Two K2 calls, and two K3 calls,
                 give the same bits.
@@ -121,6 +143,17 @@ LONG_SHAPES = [(220, 220), (270, 270)]
 # the forward one key past a chunk (sweep 1 stages K and V again), and at
 # the head dims other than the model's
 FWD_EDGE_CASES = [(80, 129, 64), (67, 80, 32), (67, 80, 128)]
+# DUET's calls at the released config (bias form beside each): language
+# 200/200 once an episode; per step the pano encoder 50/50 (-1e9 key
+# padding), the global branch's cross 97/220 and self 97/97 (key mask +
+# graph bias, [B, 1, 97, 97]), the local branch's cross 51/220 and self
+# 51/51 (97 = [stop] + 96 map slots, 51 = [stop] + 14 candidates + 36 views,
+# 220 = 200 text + 20 imagination tokens)
+DUET_SHAPES = [(200, 200, "mask"), (50, 50, "pad"), (97, 220, "mask"),
+               (97, 97, "graph"), (51, 220, "mask"), (51, 51, "mask")]
+DUET_TEXT_CALLS = 9
+DUET_STEP_CALLS = {(50, 50): 2, (97, 220): 4, (97, 97): 4, (51, 220): 4,
+                   (51, 51): 4}
 HEADS, HEAD_DIM = 12, 64
 BATCHES = (64, 8)
 TRAIN_BATCH = 8
@@ -185,21 +218,31 @@ def time_ms(torch, fn, iters: int = 20, repeats: int = 5,
 
 
 # --------------------------------------------------------------- phase 2
-def check_walks(world, ep, nodes, lens, T):
-    """Every path starts at its start node, stays within T+1 entries, and
-    each move follows a valid edge of `adj`."""
+def check_walks(world, ep, nodes, lens, max_len, jumps_allowed=False) -> int:
+    """Every path starts at its start node, has at most `max_len` entries of
+    valid nodes, and each move follows a valid edge of `adj`.  With
+    `jumps_allowed` (DUET, whose teleport records at most 6 hops and then
+    the endpoint itself) a move may skip, to a node other than the one it
+    leaves; returns the number of such moves."""
     import numpy as np
 
     adj, adj_valid = np.asarray(world.adj), np.asarray(world.adj_valid)
+    node_valid = np.asarray(world.node_valid)
     scan, start = np.asarray(ep.scan), np.asarray(ep.start_node)
+    jumps = 0
     for b in range(len(lens)):
         n = int(lens[b])
-        check(1 <= n <= T + 1, f"item {b}: path length {n}")
+        check(1 <= n <= max_len, f"item {b}: path length {n}")
         path = nodes[b, :n]
         check(path[0] == start[b], f"item {b}: path does not start at start")
+        check(node_valid[scan[b], path].all(), f"item {b}: invalid node")
         for a, c in zip(path[:-1], path[1:]):
             nbrs = adj[scan[b], a][adj_valid[scan[b], a]]
-            check(c in nbrs, f"item {b}: {a} -> {c} is not an edge")
+            if c not in nbrs:
+                check(jumps_allowed and c != a,
+                      f"item {b}: {a} -> {c} is not an edge")
+                jumps += 1
+    return jumps
 
 
 def main_path_phase(torch, cfg, world):
@@ -245,7 +288,7 @@ def main_path_phase(torch, cfg, world):
     for B in BATCHES:
         nodes, lens, count = runs[B]
         ep, ep_np = eps[B], eps_np[B]
-        check_walks(world, ep_np, nodes, lens, T)
+        check_walks(world, ep_np, nodes, lens, T + 1)
         # the loop breaks after the step at which the last item stopped:
         # an item that stops at step s has path_len s + 1
         steps = min(int(lens.max()), T)
@@ -472,6 +515,278 @@ def train_parity_phase(torch, cfg, world):
     return launches
 
 
+# --------------------------------------------------------------- DUET
+def duet_calls(cfg) -> tuple[int, int]:
+    """Attention calls of one DUET rollout: one per language layer once,
+    then per step one per pano encoder layer and two per cross-modal layer
+    (cross, self) in each of the two branches (9, and 2 + 16 = 18, at the
+    released config)."""
+    m = cfg.model
+    return m.num_l_layers, m.num_pano_layers + 2 * 2 * m.num_x_layers
+
+
+def duet_train_launches_per_step(cfg) -> tuple[int, int]:
+    """K2 and K3 launches of one DAgger step: the teacher-forced rollout
+    over min(max_gt_path_len, max_action_len) steps and the student rollout
+    over max_action_len steps, each with its language stack; every call has
+    dropout on (K2), and every call reaches the loss with a gradient (K3),
+    since the DUET recipe fixes neither the language nor the pano stack."""
+    m, e = cfg.model, cfg.env
+    check(not (m.fix_lang_embedding or m.fix_pano_embedding
+               or m.fix_local_branch) and m.update_lang_bert,
+          "the DUET recipe trains every stack")
+    per_episode, per_step = duet_calls(cfg)
+    t_il, t_dg = min(e.max_gt_path_len, e.max_action_len), e.max_action_len
+    k2 = 2 * per_episode + (t_il + t_dg) * per_step
+    return k2, k2
+
+
+def duet_eval_phase(torch, cfg, world):
+    import numpy as np
+
+    from vln_imagine_tpu_torch.eval.metrics import (
+        eval_batch,
+        trajectories_from_rollout,
+    )
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes, eval_steps
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.train.rollout_duet import path_buffer_len
+    from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
+
+    per_episode, per_step = duet_calls(cfg)
+    t0 = time.perf_counter()
+    trainer = DuetTrainer(cfg, world, device="cuda")
+    eval_step = trainer.make_eval_step()
+    eps_np = {B: bench_episodes(world, cfg, B) for B in BATCHES}
+    eps = {B: eps_np[B].to("cuda") for B in BATCHES}
+    for B in BATCHES:  # warm-up
+        eval_step(eps[B])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # the counted run: every count set to 0 just before, read just after
+    attention.reset_launch_counts()
+    runs = {}
+    for B in BATCHES:
+        before = attention.attention_fwd.launches
+        nodes, lens = eval_step(eps[B])
+        runs[B] = (nodes.cpu().numpy(), lens.cpu().numpy(),
+                   attention.attention_fwd.launches - before)
+    launches = attention.launch_counts()
+    check(launches["attention_fwd"] > 0 and sum(launches.values())
+          == launches["attention_fwd"], f"duet eval launches {launches}")
+
+    results = []
+    for B in BATCHES:
+        nodes, lens, count = runs[B]
+        ep, ep_np = eps[B], eps_np[B]
+        jumps = check_walks(world, ep_np, nodes, lens, path_buffer_len(cfg),
+                            jumps_allowed=True)
+        steps = eval_steps(trainer, ep, None)
+        want = per_episode + per_step * steps
+        check(count == want, f"duet batch {B}: {count} attention launches "
+              f"for {steps} steps, expected {want}")
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            out = eval_step(ep)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            check(np.array_equal(out[0].cpu().numpy(), nodes),
+                  f"duet batch {B}: greedy paths differ between runs")
+        dt = statistics.median(times)
+        gt = [list(p[:n]) for p, n in zip(ep_np.gt_path, ep_np.gt_len)]
+        summary, _ = eval_batch(np.asarray(world.dist), ep_np.scan,
+                                trajectories_from_rollout(nodes, lens), gt)
+        results.append({
+            "batch": B, "steps": steps, "attention_launches": count,
+            "episodes_per_s": B / dt, "episode_batch_ms": dt * 1e3,
+            "episode_batch_ms_all": [x * 1e3 for x in times],
+            "path_len_max": int(lens.max()), "non_edge_moves": jumps,
+            "sr": summary["sr"], "spl": summary["spl"],
+            "nDTW": summary["nDTW"],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        })
+    emit({"phase": "duet_eval", "config": "duet_r2r_config",
+          "compute_dtype": cfg.model.compute_dtype,
+          "params": sum(p.numel() for p in trainer.model.parameters()),
+          "setup_s": setup_s, "launches": launches, "runs": results})
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def duet_parity_phase(torch, cfg, world):
+    import numpy as np
+
+    from vln_imagine_tpu_torch.config import _replace
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.train.rollout_duet import rollout_duet
+    from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
+
+    cfg32 = _replace(cfg, "model", compute_dtype="float32")
+    ep = bench_episodes(world, cfg32, 4)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        trainer = DuetTrainer(cfg32, world, device=dev)
+        before = attention.attention_fwd.launches
+        nodes, lens = trainer.make_eval_step()(ep)
+        step0 = rollout_duet(trainer.model, trainer.tables, ep.to(dev), cfg32,
+                             max_steps=1).logits[0]
+        launched = attention.attention_fwd.launches - before
+        check(launched > 0 if dev == "cuda" else launched == 0,
+              f"duet {dev}: {launched} kernel launches")
+        out[dev] = (nodes.cpu().numpy(), lens.cpu().numpy(),
+                    step0.float().cpu().numpy())
+        del trainer
+    torch.cuda.empty_cache()
+    (gn, gl, glog), (cn, cl, clog) = out["cuda"], out["cpu"]
+    valid = clog > -1e8
+    check(np.array_equal(valid, glog > -1e8), "duet: masked logit slots differ")
+    err = float(np.abs(glog[valid] - clog[valid]).max())
+    same = bool(np.array_equal(gn, cn) and np.array_equal(gl, cl))
+    emit({"phase": "duet_parity", "compute_dtype": "float32", "batch": 4,
+          "paths_identical": same, "path_len": gl.tolist(),
+          "step0_fused_logit_max_abs_err": err, "tol": LOGIT_TOL})
+    check(same, "duet greedy paths differ between the card and the CPU")
+    check(err <= LOGIT_TOL, f"duet step-0 fused logits differ by {err}")
+
+
+def duet_train_phase(torch, cfg, world):
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.train.optim import label_hamt_param
+    from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
+
+    check(cfg.train.train_alg == "dagger"
+          and cfg.model.attention_probs_dropout_prob > 0,
+          "the DUET recipe trains by DAgger with attention dropout")
+    k2_want, k3_want = duet_train_launches_per_step(cfg)
+    t0 = time.perf_counter()
+    trainer = DuetTrainer(cfg, world, device="cuda")
+    ep = bench_episodes(world, cfg, TRAIN_BATCH).to("cuda")
+    model0 = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    step = trainer.make_train_step()
+    step(ep, ep)  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    times, metrics, counts = [], [], []
+    for _ in range(3):
+        before = attention.launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        m = step(ep, ep)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+        after = attention.launch_counts()
+        counts.append({k: after[k] - before[k] for k in after})
+    launches = attention.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    for m in metrics:
+        check(all(math.isfinite(v) for v in m.values()), f"duet metrics {m}")
+        check(m["grad_norm"] > 0, f"duet grad_norm {m['grad_norm']}")
+    for c in counts:
+        check(c == {"attention_fwd": 0, "attention_dropout_fwd": k2_want,
+                    "attention_dropout_bwd": k3_want, "attention_bwd": 0},
+              f"launches per DAgger step {c}, expected K2 {k2_want} and K3 "
+              f"{k3_want} only")
+    moved, still = [], []
+    for name, v in trainer.model.state_dict().items():
+        (still if torch.equal(v, model0[name]) else moved).append(name)
+    check(all(label_hamt_param(n) == "rest" for n in still)
+          and all(label_hamt_param(n) != "rest" for n in moved),
+          f"duet stage 1: moved "
+          f"{[n for n in moved if label_hamt_param(n) == 'rest'][:5]}, still "
+          f"{[n for n in still if label_hamt_param(n) != 'rest'][:5]}")
+    emit({"phase": "duet_train", "config": "duet_r2r_config",
+          "train_alg": cfg.train.train_alg,
+          "compute_dtype": cfg.model.compute_dtype, "batch": TRAIN_BATCH,
+          "params": sum(p.numel() for p in trainer.model.parameters()),
+          "setup_s": setup_s, "step_ms": statistics.median(times),
+          "step_ms_all": times, "peak_mem_bytes": peak, "metrics": metrics,
+          "launches_per_step": counts[0], "launches": launches,
+          "expected_per_step": {"attention_dropout_fwd": k2_want,
+                                "attention_dropout_bwd": k3_want},
+          "params_moved": len(moved), "params_unchanged": len(still)})
+    del trainer, model0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def duet_train_parity_phase(torch, cfg, world):
+    from vln_imagine_tpu_torch.config import _replace
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
+
+    cfg32 = _replace(cfg, "model", compute_dtype="float32",
+                     hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                     pred_head_dropout_prob=0.0)
+    cfg32 = _replace(cfg32, "train", feat_dropout=0.0, train_alg="imitation")
+    ep = bench_episodes(world, cfg32, 2)
+    out, launches = {}, None
+    for dev in ("cuda", "cpu"):
+        trainer = DuetTrainer(cfg32, world, device=dev)
+        trainer.model.contrastive_alignment_model.image_proj.rate = 0.0
+        before = {k: v.detach().cpu().clone()
+                  for k, v in trainer.model.named_parameters()}
+        if dev == "cuda":
+            attention.reset_launch_counts()
+        m = trainer.make_train_step()(ep, ep)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = attention.launch_counts()
+        sprel = trainer.model.global_encoder.sprel_linear
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() - before[k]
+                     for k, v in trainer.model.named_parameters()},
+                    torch.cat([sprel.weight.grad.flatten(),
+                               sprel.bias.grad.flatten()]).cpu())
+        del trainer
+    torch.cuda.empty_cache()
+    (gm, gu, gs), (cm, cu, cs) = out["cuda"], out["cpu"]
+    rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-30)
+           for k in ("loss", "grad_norm", "ml_loss", "aux_loss")}
+    rel["sprel_linear_grad"] = float(
+        (gs - cs).abs().max() / cs.abs().max().clamp_min(1e-30))
+    worst, n_off, n_all = 0.0, 0, 0
+    for name in cu:
+        d = (gu[name] - cu[name]).abs()
+        worst = max(worst, float(d.max()))
+        n_off += int((d > UPDATE_TOL).sum())
+        n_all += d.numel()
+    moved = sum(int((u != 0).sum()) for u in cu.values())
+    emit({"phase": "duet_train_parity", "compute_dtype": "float32", "batch": 2,
+          "train_alg": "imitation", "card": gm, "cpu": cm, "rel_err": rel,
+          "sprel_linear_grad_cpu": cs.tolist(), "tol": TRAIN_TOL,
+          "launches": launches, "update_max_abs_err": worst,
+          "update_elements_off": n_off, "update_elements": n_all,
+          "elements_moved": moved, "update_tol": UPDATE_TOL,
+          "update_fraction": UPDATE_FRACTION})
+    check(launches["attention_fwd"] > 0 and launches["attention_bwd"] > 0
+          and launches["attention_dropout_fwd"] == 0
+          and launches["attention_dropout_bwd"] == 0,
+          f"duet_train_parity launches {launches}")
+    check(float(cs.abs().max()) > 0, "no gradient reached sprel_linear")
+    check(all(r <= TRAIN_TOL for r in rel.values()), f"duet card vs CPU {rel}")
+    check(moved > 0, "no parameter moved")
+    check(worst <= 2.0 * cfg.train.lr * 10.0 + 1e-6
+          and n_off <= UPDATE_FRACTION * moved,
+          f"duet updates differ: max {worst}, {n_off} of {moved} moved "
+          f"elements beyond {UPDATE_TOL}")
+    return launches
+
+
 # --------------------------------------------------------------- phase 6
 def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen, D=HEAD_DIM):
     from vln_imagine_tpu_torch.ops.masks import extend_neg_mask
@@ -490,6 +805,10 @@ def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen, D=HEAD_DIM):
         keep = torch.rand(B, lk, device=dev, generator=gen) < 0.8
         keep[:, 0] = True
         bias = extend_neg_mask(keep)  # [B, 1, 1, Lk]
+        if bias_kind == "graph":  # + DUET's graph bias, [B, 1, Lq, Lk]
+            bias = bias + torch.randn(B, 1, lq, lk, device=dev, generator=gen)
+        elif bias_kind == "pad":  # DUET's pano key padding
+            bias = torch.where(keep, 0.0, -1e9)[:, None, None, :]
     return q, k, v, do, bias
 
 
@@ -519,7 +838,7 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
                                      D)
     scale, seed = D ** -0.5, 0x5EED_1234_ABCD
     wrapper = A.KERNELS[kernel]
-    need_db = bias_kind == "per_head"
+    need_db = bias_kind in ("per_head", "graph")
     if kernel == "attention_fwd":
         def run():
             return (A.attention_fwd(q, k, v, bias, scale),)
@@ -684,10 +1003,54 @@ def kernels_phase(torch, parent=None):
                     cases.append(kernel_case(
                         torch, kernel, TRAIN_BATCH, lq, lk, dt, bk, gen,
                         bits=bits, D=D))
+    for B in BATCHES:  # K1 at DUET's eval shapes
+        for lq, lk, bk in DUET_SHAPES:
+            for dt in ("bfloat16", "float32"):
+                cases.append(kernel_case(torch, "attention_fwd", B, lq, lk, dt,
+                                         bk, gen, timed=dt == "bfloat16"))
+    for lq, lk, bk in DUET_SHAPES:  # K2-K4 at DUET's training shapes
+        for dt in ("bfloat16", "float32"):
+            for kernel, bits in (("attention_dropout_fwd", "philox"),
+                                 ("attention_dropout_bwd", "philox"),
+                                 ("attention_bwd", None)):
+                cases.append(kernel_case(torch, kernel, TRAIN_BATCH, lq, lk,
+                                         dt, bk, gen, bits=bits,
+                                         timed=dt == "bfloat16"))
     emit({"phase": "kernels", "cases": cases,
+          "duet_weighted": duet_weighted(cases),
           "fwd_deterministic": determinism(torch, gen, "attention_dropout_fwd"),
           "bwd_deterministic": determinism(torch, gen, "attention_dropout_bwd")})
     return cases
+
+
+def duet_weighted(cases) -> dict:
+    """Launch-weighted bf16 times of each kernel over one DUET step (the 18
+    per-step calls at the released config) and over the language stack (9
+    calls), beside SDPA's and the bound, and the share of the step's time
+    that falls on the two cross-attentions over 220 keys."""
+    out = {}
+    for kernel, B in (("attention_fwd", 64), ("attention_fwd", 8),
+                      ("attention_dropout_fwd", 8),
+                      ("attention_dropout_bwd", 8), ("attention_bwd", 8)):
+        row = {}
+        for lq, lk, bk in DUET_SHAPES:
+            row[(lq, lk)] = next(
+                c for c in cases if c["kernel"] == kernel and c["B"] == B
+                and (c["Lq"], c["Lk"], c["bias"], c["dtype"])
+                == (lq, lk, bk, "bfloat16") and "ms" in c)
+        entry = {}
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            step = sum(n * row[shape][key]
+                       for shape, n in DUET_STEP_CALLS.items())
+            entry[f"step_{key}"] = step
+            entry[f"text_{key}"] = DUET_TEXT_CALLS * row[(200, 200)][key]
+        entry["step_long_key_share"] = sum(
+            n * row[shape]["ms"] for shape, n in DUET_STEP_CALLS.items()
+            if shape[1] == 220) / entry["step_ms"]
+        entry["per_call_ms"] = {f"{lq}/{lk}": row[(lq, lk)]["ms"]
+                                for lq, lk, _ in DUET_SHAPES}
+        out[f"{kernel} B{B}"] = entry
+    return out
 
 
 def determinism(torch, gen, kernel) -> list:
@@ -760,7 +1123,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from vln_imagine_tpu_torch.config import hamt_r2r_config
+    from vln_imagine_tpu_torch.config import duet_r2r_config, hamt_r2r_config
     from vln_imagine_tpu_torch.eval.trace import bench_world
     from vln_imagine_tpu_torch.ops import attention
 
@@ -772,12 +1135,17 @@ def main() -> None:
           "nvcc_flags": attention.NVCC_FLAGS,
           "parent": None if args.parent is None else str(args.parent)})
 
-    cfg = hamt_r2r_config()
-    world = bench_world(cfg)
+    cfg, dcfg = hamt_r2r_config(), duet_r2r_config()
+    world = bench_world(cfg)  # DUET's released config reads the same world
     path_launches = {"eval": main_path_phase(torch, cfg, world)}
     parity_phase(torch, cfg, world)
     path_launches["train"] = train_phase(torch, cfg, world)
     path_launches["train_parity"] = train_parity_phase(torch, cfg, world)
+    path_launches["duet_eval"] = duet_eval_phase(torch, dcfg, world)
+    duet_parity_phase(torch, dcfg, world)
+    path_launches["duet_train"] = duet_train_phase(torch, dcfg, world)
+    path_launches["duet_train_parity"] = duet_train_parity_phase(torch, dcfg,
+                                                                 world)
     # after the paths, so that their peak memory is their own
     cases = kernels_phase(torch, parent)
 

@@ -82,6 +82,13 @@ def _inputs(case, B=2, H=3, Lq=10, Lk=7, D=32, seed=0):
         v = rng.standard_normal((B, Lk, H, D)).astype(np.float32)
     if case == "per_head":
         bias = rng.standard_normal((B, H, Lq, Lk)).astype(np.float32)
+    elif case == "graph":
+        # DUET's graph self-attention: the key mask plus a bias that varies
+        # along the queries, shared by the heads, [B, 1, Lq, Lk]
+        keep = rng.random((B, Lk)) < 0.75
+        keep[:, 0] = True
+        bias = ((1.0 - keep[:, None, None, :]) * -10000.0
+                + rng.standard_normal((B, 1, Lq, Lk))).astype(np.float32)
     elif case == "none":
         bias = None
     else:
@@ -277,7 +284,7 @@ def test_bwd_matches_interpret_kernel(case):
         _close(g, w, f"K4 {case} d{n}")
 
 
-@pytest.mark.parametrize("case", ["broadcast", "per_head"])
+@pytest.mark.parametrize("case", ["broadcast", "per_head", "graph"])
 def test_dbias_matches_jax_vjp(case):
     """dBias, which the TPU kernels drop, against the JAX package's own
     autodiff of `reference_attention` with respect to the bias."""
@@ -815,3 +822,59 @@ def test_fwd_dropout_kernel_is_deterministic_on_card(cuda, lq, lk, dtype):
                                            "philox") for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# (Lq, Lk) of DUET's calls at the released config: language 200/200; per
+# step the global branch's cross 97/220 and self 97/97 (key mask + graph
+# bias), the local branch's cross 51/220 and self 51/51, and the pano
+# encoder 50/50 with its -1e9 key padding
+DUET_CASES = [(200, 200, "mask"), (97, 220, "mask"), (97, 97, "graph"),
+              (51, 220, "mask"), (51, 51, "mask"), (50, 50, "pad")]
+
+
+def _duet_bias(cuda, g, B, lq, lk, kind):
+    keep = torch.rand(B, lk, device=cuda, generator=g) < 0.8
+    keep[:, 0] = True
+    if kind == "pad":
+        return torch.where(keep, 0.0, -1e9)[:, None, None, :]
+    bias = (1.0 - keep.float())[:, None, None, :] * -10000.0
+    if kind == "graph":
+        bias = bias + torch.randn(B, 1, lq, lk, device=cuda, generator=g)
+    return bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,kind", DUET_CASES)
+def test_kernels_at_duet_shapes_on_card(cuda, lq, lk, kind, dtype):
+    """K1-K4 against plain at DUET's shapes and bias forms; dBias of the
+    [B, 1, Lq, Lk] graph bias is dS summed over the heads."""
+    q, k, v, _, do = _card_case(cuda, lq, lk, False, dtype, lq * 19 + lk)
+    g = torch.Generator(device="cuda").manual_seed(lq + lk)
+    bias = _duet_bias(cuda, g, q.shape[0], lq, lk, kind)
+    need_db = kind == "graph"
+    seed, tol = 2 ** 37 + 9, (CARD_F32_TOL if dtype == torch.float32
+                              else BF16_TOL)
+    before = launch_counts()
+    got = {"k1": (attention_fwd(q, k, v, bias, 0.125),),
+           "k2": (attention_dropout_fwd(q, k, v, bias, 0.125, 0.1, seed,
+                                        "philox"),),
+           "k3": attention_dropout_bwd(q, k, v, bias, do, 0.125, 0.1, seed,
+                                       "philox", need_dbias=need_db),
+           "k4": attention_bwd(q, k, v, bias, do, 0.125, need_dbias=need_db)}
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert all(after[n] == before[n] + 1 for n in after)
+    want = {"k1": (attention_reference(q, k, v, bias, 0.125),),
+            "k2": (attention_dropout_reference(q, k, v, bias, 0.125, 0.1,
+                                               seed, "philox"),),
+            "k3": attention_bwd_reference(q, k, v, bias, do, 0.125, 0.1, seed,
+                                          "philox"),
+            "k4": attention_bwd_reference(q, k, v, bias, do, 0.125)}
+    for name in got:
+        w = want[name] if need_db or name in ("k1", "k2") else want[name][:3]
+        if need_db and name in ("k3", "k4"):
+            assert got[name][3].shape == bias.shape
+        for a, b in zip(got[name], w):
+            torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol,
+                                       msg=f"{name} {lq}x{lk} {kind}")

@@ -15,7 +15,7 @@ from vln_imagine_tpu.models.hamt import HamtModel as JHamtModel
 from vln_imagine_tpu.train.trainer import _init_params
 from vln_imagine_tpu_torch.ckpt.convert import (
     flax_from_state_dict,
-    flax_to_hamt_torch_key,
+    flax_to_torch_key,
     state_dict_from_flax,
     strip_reference_prefixes,
 )
@@ -84,7 +84,7 @@ def test_released_config_coverage_both_ways():
     port_shapes = {k: tuple(v.shape) for k, v in port.state_dict().items()}
     mapped = {}
     for path, s in leaves.items():
-        key = flax_to_hamt_torch_key(path)
+        key = flax_to_torch_key(path, "hamt")
         shape = tuple(s.shape)[::-1] if path.endswith("/kernel") else tuple(s.shape)
         mapped[key] = shape
     assert mapped == port_shapes

@@ -12,8 +12,11 @@ import torch
 from vln_imagine_tpu_torch.config import tiny_test_config
 from vln_imagine_tpu_torch.envx import synthetic_world
 from vln_imagine_tpu_torch.models.hamt import HamtModel
+from vln_imagine_tpu_torch.models.duet import DuetModel
+from vln_imagine_tpu_torch.train import rollout_duet
 from vln_imagine_tpu_torch.train.rollout_hamt import make_eval_fn
 from vln_imagine_tpu_torch.train.trainer import HamtTrainer
+from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
 
 torch.set_num_threads(2)
 
@@ -42,8 +45,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     # every module of the slice was imported
     for mod in ("config", "platform", "ops.attention", "ops.masks", "ops.angles",
                 "envx.tables", "envx.compiler", "envx.synthetic", "envx.env",
-                "models.bert", "models.hamt", "ckpt.convert",
-                "train.rollout_hamt", "train.trainer", "eval.metrics"):
+                "envx.gmap", "models.bert", "models.hamt", "models.duet",
+                "ckpt.convert", "train.rollout_hamt", "train.trainer",
+                "train.rollout_duet", "train.trainer_duet", "eval.metrics"):
         assert f"vln_imagine_tpu_torch.{mod}" in report["modules"], mod
 
 
@@ -59,4 +63,10 @@ def test_entry_points_raise_without_device_or_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_eval_fn(HamtModel(cfg.model), world, cfg)
     assert HamtTrainer(cfg, world, device="cpu").device.type == "cpu"
+    dcfg = tiny_test_config("duet")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DuetTrainer(dcfg, world)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rollout_duet.make_eval_fn(DuetModel(dcfg.model), world, dcfg)
+    assert DuetTrainer(dcfg, world, device="cpu").device.type == "cpu"
 

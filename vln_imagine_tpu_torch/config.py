@@ -1,9 +1,10 @@
 """Typed configuration tree, the port's own copy.
 
 Field names and defaults equal those of the JAX package's config, so a
-configuration means the same thing in both packages.  Only the HAMT presets
-this slice runs are carried: `hamt_r2r_config` (the released R2R recipe,
-VLN-HAMT/finetune_src/scripts/run_r2r.sh) and `tiny_test_config("hamt")`.
+configuration means the same thing in both packages.  Only the presets the
+port runs are carried: `hamt_r2r_config` and `duet_r2r_config` (the released
+R2R recipes, VLN-HAMT/finetune_src/scripts/run_r2r.sh and
+VLN-DUET/map_nav_src/scripts/run_r2r.sh) and `tiny_test_config` of either.
 """
 
 from __future__ import annotations
@@ -196,12 +197,31 @@ def hamt_r2r_config() -> Config:
     return cfg
 
 
+def duet_r2r_config() -> Config:
+    """Released DUET-Imagine R2R configuration
+    (VLN-DUET/map_nav_src/scripts/run_r2r.sh:1-87): DAgger training with the
+    SPL expert, a 200-token instruction, dynamic fusion of the two branches
+    and the graph's spatial-relation attention bias."""
+    cfg = Config(agent="duet")
+    cfg = _replace(
+        cfg, "model",
+        max_action_steps=100, graph_sprels=True, glocal_fuse=True,
+        fix_lang_inside_cosine_model=True, fusion="dynamic",
+    )
+    cfg = _replace(cfg, "env", max_instr_len=200)
+    cfg = _replace(cfg, "train", train_alg="dagger", gamma=0.0,
+                   eval_batch_size=64)
+    return cfg
+
+
 def tiny_test_config(agent: str = "hamt") -> Config:
     """Small shapes for unit tests."""
-    if agent != "hamt":
-        raise ValueError(f"the port carries only the HAMT presets, not {agent!r}")
+    presets = {"hamt": hamt_r2r_config, "duet": duet_r2r_config}
+    if agent not in presets:
+        raise ValueError(f"the port carries the HAMT and DUET presets, not "
+                         f"{agent!r}")
     cfg = _replace(
-        hamt_r2r_config(), "model",
+        presets[agent](), "model",
         hidden_size=64, num_attention_heads=4, intermediate_size=128,
         num_l_layers=2, num_x_layers=2, num_pano_layers=1,
         image_feat_size=32, vocab_size=128, max_position_embeddings=64,

@@ -1,4 +1,4 @@
-"""Batched HAMT environment: (tables, state) -> tensors transforms.
+"""Batched environment of both agents: (tables, state) -> tensors transforms.
 
 Everything here is shape-static tensor code on the tables' device.  These
 functions replace the per-step host work of the reference:
@@ -13,9 +13,10 @@ functions replace the per-step host work of the reference:
   the reward shaping (eval_utils.py:74-94), the latter as an incremental
   DTW row
 
-Observation token layout: slots [0..K-1] candidates, slot K = STOP, slots
-[K+1..K+V] the panorama views (views already claimed by a candidate are
-masked out).
+HAMT observation token layout: slots [0..K-1] candidates, slot K = STOP,
+slots [K+1..K+V] the panorama views (views already claimed by a candidate
+are masked out).  DUET's pano bank (`observe_duet`) has no STOP slot, and
+`rel_pos_features` gives its map and viewpoint position features.
 
 Every gather index is clipped or valid by construction: torch raises on an
 out-of-range index where JAX clamps.
@@ -193,6 +194,77 @@ def step_hamt(tables: WorldTables, ep: EpisodeBatch, state: EnvState,
 def distance_to_goal(tables: WorldTables, ep: EpisodeBatch,
                      node: torch.Tensor) -> torch.Tensor:
     return tables.dist[ep.scan.long(), node.long(), ep.goal.long()]
+
+
+class DuetObs(NamedTuple):
+    img: torch.Tensor         # [B, T_pano, Df]
+    loc: torch.Tensor         # [B, T_pano, A+3] (angle feats + [1,1,1] box)
+    nav_types: torch.Tensor   # [B, T_pano] i32 (0 pano, 1 candidate)
+    valid: torch.Tensor       # [B, T_pano] bool
+    cand_nodes: torch.Tensor  # [B, K] neighbour node id
+    cand_valid: torch.Tensor  # [B, K] bool
+
+
+def observe_duet(tables: WorldTables, ep: EpisodeBatch, state: EnvState,
+                 angle_feat_size: int = 4) -> DuetObs:
+    """DUET pano token bank (no STOP token; the local branch prepends it):
+    slots [0..K-1] candidates, [K..K+V-1] panorama views; views claimed by a
+    candidate are masked (agent.py:53-96 `_panorama_feature_variable`).
+    REVERIE/SOON object tokens are not ported yet."""
+    if tables.feat is None:
+        raise ValueError("observe_duet needs view features")
+    B = ep.batch
+    V = tables.views
+    Df = tables.feat.shape[-1]
+
+    adj, adj_valid, pointid, c_head, c_elev = candidate_info(tables, ep, state)
+    K = adj_valid.shape[1]
+    node_feat = _gather_sn(tables.feat, ep.scan, state.node)
+
+    base_h = view_heading(state.view_index, V)[:, None]
+    cand_img = torch.gather(node_feat, 1,
+                            pointid.long()[:, :, None].expand(B, K, Df))
+    cand_ang = angle_feature(c_head - base_h, c_elev, angle_feat_size)
+    cand_img = torch.where(adj_valid[:, :, None], cand_img, 0.0)
+    cand_ang = torch.where(adj_valid[:, :, None], cand_ang, 0.0)
+
+    pano_ang = pano_rel_angles(state.view_index, V, angle_feat_size)
+    onehot = F.one_hot(pointid.long(), V).bool()
+    used = torch.any(onehot & adj_valid[:, :, None], dim=1)
+
+    img = torch.cat([cand_img, node_feat], dim=1)
+    ang = torch.cat([cand_ang, pano_ang], dim=1)
+    box = torch.ones(ang.shape[:2] + (3,), dtype=ang.dtype, device=ang.device)
+    loc = torch.cat([ang, box], dim=-1)  # [1,1,1] box (agent.py:77)
+    nav = torch.cat([adj_valid.to(torch.int32),
+                     torch.zeros((B, V), dtype=torch.int32, device=img.device)],
+                    dim=1)
+    valid = torch.cat([adj_valid, ~used], dim=1)
+    loc = loc * valid[:, :, None]
+    return DuetObs(img=img, loc=loc, nav_types=nav, valid=valid,
+                   cand_nodes=adj, cand_valid=adj_valid)
+
+
+def rel_pos_features(tables: WorldTables, ep: EpisodeBatch,
+                     cur_node: torch.Tensor, cur_heading: torch.Tensor,
+                     cur_elevation: torch.Tensor, target_nodes: torch.Tensor,
+                     obs_dist: torch.Tensor, obs_hops: torch.Tensor,
+                     angle_feat_size: int = 4) -> torch.Tensor:
+    """DUET 7-d relative position features from the current pose to each
+    target node: angle feats of (heading, elevation) + [line_dist/30,
+    shortest_dist/30, path_steps/10] (graph_utils.py:127-148)."""
+    xyz = tables.node_xyz[ep.scan.long()]                  # [B, N, 3]
+    cur = _take(xyz, cur_node)                             # [B, 3]
+    M = target_nodes.shape[1]
+    tgt = torch.gather(xyz, 1, target_nodes.long()[:, :, None].expand(-1, M, 3))
+    d = tgt - cur[:, None, :]
+    xyz_dist = torch.clamp(torch.linalg.norm(d, dim=-1), min=1e-8)
+    heading = torch.atan2(d[..., 0], d[..., 1]) - cur_heading[:, None]
+    elevation = (torch.asin(torch.clamp(d[..., 2] / xyz_dist, -1, 1))
+                 - cur_elevation[:, None])
+    ang = angle_feature(heading, elevation, angle_feat_size)
+    rel = torch.stack([xyz_dist / 30.0, obs_dist / 30.0, obs_hops / 10.0], -1)
+    return torch.cat([ang, rel.to(ang.dtype)], dim=-1)
 
 
 def teacher_hamt(tables: WorldTables, ep: EpisodeBatch, state: EnvState,

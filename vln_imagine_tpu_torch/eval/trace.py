@@ -1,14 +1,16 @@
-"""Where the device time of greedy HAMT eval and of the HAMT train step
-goes, on the card.
+"""Where the device time of greedy eval and of the train step goes, on the
+card, for either agent.
 
-    python -m vln_imagine_tpu_torch.eval.trace [--batch 64 8]
-    python -m vln_imagine_tpu_torch.eval.trace --train [--batch 8]
+    python -m vln_imagine_tpu_torch.eval.trace [--agent hamt|duet] [--batch 64 8]
+    python -m vln_imagine_tpu_torch.eval.trace --train [--agent ...] [--batch 8]
 
-Eval: for each batch size, one `HamtTrainer.make_eval_step()` call at the
-released R2R config (full width, bf16, seeded random weights) on bench.py's
-synthetic world.  Train (`--train`): one `make_train_step("sample")` step
-(IL + RL, attention dropout on) on the same world and episodes.  Each call
-is traced with `torch.profiler` after warm-up calls.  Prints one JSON line
+Eval: for each batch size, one `make_eval_step()` call of `HamtTrainer` or
+`DuetTrainer` at the agent's released R2R config (full width, bf16, seeded
+random weights) on bench.py's synthetic world.  Train (`--train`): one
+step of the released recipe on the same world and episodes: HAMT's
+`make_train_step("sample")` (IL + RL), DUET's `make_train_step()` (IL +
+DAgger), attention dropout on.  Each call is traced with `torch.profiler`
+after warm-up calls.  Prints one JSON line
 per batch: the host wall time of the traced call and of the same call
 untraced (the faster of two, after a warm-up), the device busy time (the
 union of the traced kernels' and copies' intervals), the idle share (busy
@@ -31,7 +33,7 @@ from collections import defaultdict
 
 import torch
 
-from vln_imagine_tpu_torch.config import hamt_r2r_config
+from vln_imagine_tpu_torch.config import duet_r2r_config, hamt_r2r_config
 from vln_imagine_tpu_torch.envx import synthetic_episodes, synthetic_world
 
 # CUDA function name -> (the kernels it runs as, its source under csrc/)
@@ -118,42 +120,61 @@ def _trace_call(fn, top: int = 8) -> dict:
     }
 
 
+def eval_steps(trainer, ep, path_len) -> int:
+    """Steps the greedy eval loop ran.  HAMT records one node a step, so its
+    paths say it: the loop breaks after the step at which the last item
+    stopped, and an item that stops at step s has path_len s + 1.  A DUET
+    step may record several nodes (teleports, the stop-node backtrack), so
+    the rollout is run once more for its step count."""
+    if trainer.cfg.agent == "hamt":
+        return min(int(path_len.max()), trainer.cfg.env.max_action_len)
+    from vln_imagine_tpu_torch.train.rollout_duet import rollout_duet
+
+    return rollout_duet(trainer.model, trainer.tables, ep, trainer.cfg,
+                        early_exit=True).steps
+
+
 def trace_eval(trainer, ep, top: int = 8) -> dict:
     """Profile one eval call on the card; `ep` already lies there."""
     eval_step = trainer.make_eval_step()
     (_, path_len), out = _trace_call(lambda: eval_step(ep), top)
-    steps = min(int(path_len.max()), trainer.cfg.env.max_action_len)
+    steps = eval_steps(trainer, ep, path_len)
     return {"batch": ep.batch, "steps": steps, **out,
             "device_ops_per_step": out["device_ops"] / steps}
 
 
 def trace_train(trainer, ep, top: int = 8) -> dict:
-    """Profile one 'sample' train step on the card (IL rollout on `ep`, RL
-    rollout on `ep`); `ep` already lies there."""
-    train_step = trainer.make_train_step("sample")
+    """Profile one train step of the released recipe on the card (both of
+    its rollouts on `ep`); `ep` already lies there."""
+    train_step = (trainer.make_train_step("sample")
+                  if trainer.cfg.agent == "hamt" else trainer.make_train_step())
     metrics, out = _trace_call(lambda: train_step(ep, ep), top)
     return {"batch": ep.batch, "loss": float(metrics["loss"]), **out}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--agent", choices=("hamt", "duet"), default="hamt")
     ap.add_argument("--batch", type=int, nargs="+", default=None,
                     help="batch sizes (eval: 64 8; train: 8)")
     ap.add_argument("--train", action="store_true",
-                    help="trace the IL + RL train step instead of eval")
+                    help="trace the train step instead of eval")
     args = ap.parse_args()
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
+    from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = hamt_r2r_config()
+    cfg = hamt_r2r_config() if args.agent == "hamt" else duet_r2r_config()
     world = bench_world(cfg)
-    trainer = HamtTrainer(cfg, world, device="cuda")
+    trainer = (HamtTrainer if args.agent == "hamt" else DuetTrainer)(
+        cfg, world, device="cuda")
     batches = args.batch or ([cfg.train.batch_size] if args.train else [64, 8])
     for batch in batches:
         ep = bench_episodes(world, cfg, batch).to(trainer.device)
         out = trace_train(trainer, ep) if args.train else trace_eval(trainer, ep)
         print(json.dumps({"phase": "trace_train" if args.train else "trace",
+                          "agent": args.agent,
                           "card": torch.cuda.get_device_name(0), **out}),
               flush=True)
 

@@ -1,6 +1,8 @@
 """BERT / LXMERT transformer blocks in PyTorch, numerically matching the
 JAX package's flax blocks and the reference's torch blocks
-(VLN-HAMT/finetune_src/models/vilmodel_cmt.py:44-520):
+(VLN-HAMT/finetune_src/models/vilmodel_cmt.py:44-520; DUET's graph
+cross-modal layer and pre-norm pano encoder, VLN-DUET/map_nav_src/models/
+vilmodel.py:366-412 and transformer.py:135-192):
 
 - exact erf GELU (vilmodel_cmt.py:27-33)
 - LayerNorm eps 1e-12, post-LN residual blocks, computed in f32
@@ -85,18 +87,26 @@ class Embed(nn.Embedding):
         return F.embedding(ids.long(), self.weight).to(self.compute_dtype)
 
 
-class LayerNorm12(nn.Module):
-    """LayerNorm with eps 1e-12, computed in float32, output in x's dtype."""
+class LayerNormF32(nn.Module):
+    """LayerNorm computed in float32, output in x's dtype."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, eps: float):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.layer_norm(x.float(), self.weight.shape, self.weight,
-                           self.bias, eps=1e-12)
+                           self.bias, eps=self.eps)
         return out.to(x.dtype)
+
+
+class LayerNorm12(LayerNormF32):
+    """The BERT blocks' LayerNorm: eps 1e-12."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, 1e-12)
 
 
 class MHAttention(nn.Module):
@@ -161,14 +171,18 @@ class SelfOutput(nn.Module):
 
 
 class BertAttention(nn.Module):
-    """Self-attention block (BertAttention, :151-161)."""
+    """Self-attention block (BertAttention, :151-161).  An additive `bias`
+    (DUET's graph_sprels, [B, 1, L, L]) is added to the mask
+    (vilmodel.py:392-394)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.self = MHAttention(cfg)
         self.output = SelfOutput(cfg)
 
-    def forward(self, x, mask, rng=None):
+    def forward(self, x, mask, rng=None, bias=None):
+        if bias is not None:
+            mask = mask + bias
         return self.output(self.self(x, x, mask, rng), x, rng)
 
 
@@ -283,6 +297,114 @@ class LXRTXLayer(nn.Module):
         lang_o = self.lang_output(self.lang_inter(lang_s), lang_s, rng)
         visn_o = self.visn_output(self.visn_inter(visn_s), visn_s, rng)
         return lang_o, visn_o
+
+
+class GraphLXRTXLayer(nn.Module):
+    """DUET cross-modal layer (vilmodel.py:366-412): the visual stream
+    queries the language, then graph-biased self-attention + FFN.  The
+    language-side blocks of pre-training (`use_lang2visn_attn`) are not
+    ported yet."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.use_lang2visn_attn:
+            raise NotImplementedError("use_lang2visn_attn is not ported yet")
+        self.visual_attention = BertXAttention(cfg)
+        self.visn_self_att = BertAttention(cfg)
+        self.visn_inter = BertIntermediate(cfg)
+        self.visn_output = BertOutput(cfg)
+
+    def forward(self, lang, lang_mask, visn, visn_mask, graph_sprels=None,
+                rng=None):
+        visn_x = self.visual_attention(visn, lang, lang_mask, rng)
+        visn_s = self.visn_self_att(visn_x, visn_mask, rng, bias=graph_sprels)
+        return self.visn_output(self.visn_inter(visn_s), visn_s, rng)
+
+
+class PackedSelfAttention(nn.Module):
+    """Self-attention with torch nn.MultiheadAttention's parameters
+    (`in_proj_weight` [3H, H] = the query, key and value projections
+    stacked, `in_proj_bias`, `out_proj`), computed as the JAX package's
+    MHAttention + out_proj Dense: one packed QKV matmul, the attention
+    kernel, the output projection."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        H, dt = cfg.hidden_size, compute_dtype(cfg)
+        self.num_heads, self.head_dim = cfg.num_attention_heads, cfg.head_dim
+        self.compute_dtype = dt
+        self.probs_dropout = cfg.attention_probs_dropout_prob
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * H, H))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * H))
+        self.out_proj = Dense(H, H, dt)
+
+    def forward(self, x, bias, rng=None):
+        w, b = _cast_cached(self, [self.in_proj_weight, self.in_proj_bias],
+                            self.compute_dtype)
+        q, k, v = (t.unflatten(-1, (self.num_heads, self.head_dim)) for t in
+                   F.linear(x.to(self.compute_dtype), w, b).chunk(3, dim=-1))
+        rate = self.probs_dropout if rng is not None else 0.0
+        ctx = fused_attention(q, k, v, bias, 1.0 / self.head_dim ** 0.5,
+                              dropout_rate=rate,
+                              seed=rng.seed() if rate > 0.0 else None)
+        return self.out_proj(ctx.flatten(2))
+
+
+class PreNormEncoderLayer(nn.Module):
+    """DETR-style pre-norm transformer encoder layer
+    (VLN-DUET/map_nav_src/models/transformer.py:135-192, forward_pre with
+    gelu, ops.py:11-23): LayerNorm eps 1e-5 in f32, key padding as a -1e9
+    additive bias."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        H, dt = cfg.hidden_size, compute_dtype(cfg)
+        self.self_attn = PackedSelfAttention(cfg)
+        self.linear1 = Dense(H, cfg.intermediate_size, dt)
+        self.linear2 = Dense(cfg.intermediate_size, H, dt)
+        self.norm1 = LayerNormF32(H, 1e-5)
+        self.norm2 = LayerNormF32(H, 1e-5)
+        self.act = ACT2FN[cfg.hidden_act]
+        self.rate = cfg.hidden_dropout_prob
+
+    def forward(self, src, key_padding_mask, rng=None):
+        # key_padding_mask: True = valid
+        bias = torch.where(key_padding_mask[:, None, None, :], 0.0, -1e9)
+        src = src + dropout(self.self_attn(self.norm1(src), bias, rng),
+                            self.rate, rng)
+        ff = dropout(self.act(self.linear1(self.norm2(src))), self.rate, rng)
+        return src + dropout(self.linear2(ff), self.rate, rng)
+
+
+class PreNormEncoder(nn.Module):
+    """Stack of pre-norm layers and a final LayerNorm (eps 1e-12;
+    create_transformer_encoder, ops.py:11-23)."""
+
+    def __init__(self, cfg: ModelConfig, num_layers: int):
+        super().__init__()
+        self.layers = nn.ModuleList(PreNormEncoderLayer(cfg)
+                                    for _ in range(num_layers))
+        self.norm = LayerNorm12(cfg.hidden_size)
+
+    def forward(self, src, key_padding_mask, rng=None):
+        for layer in self.layers:
+            src = layer(src, key_padding_mask, rng)
+        return self.norm(src)
+
+
+class ClsPrediction(nn.Module):
+    """Linear -> ReLU -> LN -> Linear(1) (DUET vilmodel.py:1009-1020);
+    `net.{0,2,3}` are the reference's Sequential indices."""
+
+    def __init__(self, cfg: ModelConfig, input_size: int | None = None):
+        super().__init__()
+        H, dt = cfg.hidden_size, compute_dtype(cfg)
+        self.net = nn.ModuleDict({"0": Dense(input_size or H, H, dt),
+                                  "2": LayerNorm12(H),
+                                  "3": Dense(H, 1, dt)})
+
+    def forward(self, x):
+        return self.net["3"](self.net["2"](F.relu(self.net["0"](x))))
 
 
 class NextActionPrediction(nn.Module):

@@ -164,6 +164,21 @@ def contrastive_alignment_loss(proj, mean_np, valid, aux_loss_type="cosine"):
     return torch.sum((1.0 - pos_sim) * v) / torch.clamp(torch.sum(v), min=1.0)
 
 
+def align_imagination(image_proj, cfg: ModelConfig, txt_embeds, imagine_embeds,
+                      imagine_mask, np_weights, rng=None):
+    """Alignment of projected imagination embeddings to the mean noun-phrase
+    token embedding of their sub-instruction.  Returns (loss, new_imagine):
+    valid rows are overwritten with their projection, the reference's
+    in-place update (vilmodel_cmt.py:781)."""
+    proj = image_proj(imagine_embeds, rng)
+    mean_np = torch.einsum("bil,blh->bih", np_weights.to(txt_embeds.dtype),
+                           txt_embeds)
+    valid = imagine_mask & (torch.sum(np_weights, dim=-1) > 0)
+    loss = contrastive_alignment_loss(proj, mean_np, valid, cfg.aux_loss_type)
+    new_imagine = torch.where(valid[:, :, None], proj, imagine_embeds)
+    return loss, new_imagine
+
+
 class VisualOut(NamedTuple):
     act_logits: torch.Tensor   # [B, T_obs]
     txt_embeds: torch.Tensor   # [B, L, H]
@@ -244,18 +259,9 @@ class HamtModel(nn.Module):
 
     def align_with_contrastive_loss(self, txt_embeds, txt_mask, imagine_embeds,
                                     imagine_mask, np_weights, rng=None):
-        """Alignment of projected imagination embeddings to the mean
-        noun-phrase token embedding of their sub-instruction.  Returns
-        (loss, new_imagine): valid rows are overwritten with their
-        projection, the reference's in-place update (vilmodel_cmt.py:781)."""
-        proj = self.contrastive_alignment_model.image_proj(imagine_embeds, rng)
-        mean_np = torch.einsum("bil,blh->bih", np_weights.to(txt_embeds.dtype),
-                               txt_embeds)
-        valid = imagine_mask & (torch.sum(np_weights, dim=-1) > 0)
-        loss = contrastive_alignment_loss(proj, mean_np, valid,
-                                          self.config.aux_loss_type)
-        new_imagine = torch.where(valid[:, :, None], proj, imagine_embeds)
-        return loss, new_imagine
+        return align_imagination(self.contrastive_alignment_model.image_proj,
+                                 self.config, txt_embeds, imagine_embeds,
+                                 imagine_mask, np_weights, rng)
 
     def visual(self, txt_embeds, txt_mask, hist_embeds, hist_mask,
                ob_img_feats, ob_ang_feats, ob_nav_types, ob_valid,

@@ -37,8 +37,9 @@ from typing import Callable, Iterable
 import torch
 
 def label_hamt_param(name: str) -> str:
-    """Warm-up group of a HamtModel parameter by its top-level module, as
-    the JAX package's `label_hamt_params`."""
+    """Warm-up group of a HamtModel (or DuetModel: the aux keys are the
+    same) parameter by its top-level module, as the JAX package's
+    `label_hamt_params`."""
     if name.startswith("contrastive_alignment_model.image_proj."):
         return "contrastive"
     if name.startswith("imagine_embeddings."):

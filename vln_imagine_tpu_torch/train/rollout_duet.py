@@ -1,0 +1,429 @@
+"""Batched DUET episode rollout: greedy eval, and the IL / DAgger training
+half.
+
+The port of `vln_imagine_tpu/train/rollout_duet.py`, a rebuild of
+GMapNavAgent.rollout (VLN-DUET/map_nav_src/r2r/agent.py:386-625): per step
+the agent encodes the panorama, folds it into the topological map (the
+tensor GmapState of envx/gmap.py replaces the per-item python GraphMap),
+runs the dual-scale navigation forward and *teleports* to the chosen map
+node along the observed-graph shortest path.  The trajectory, multi-hop
+teleports and the final stop-node backtrack (agent.py:588-601) included, is
+recorded on the device in a fixed-capacity node buffer whose last column is
+a trash slot.
+
+Index conventions: model-level gmap sequences are [stop] + gmap slots, so
+model index j is gmap slot j-1; local vp sequences are [stop] + pano tokens,
+pano slot j-1 (candidates in pano slots [0..K)).
+
+Semantics kept from the JAX package:
+- early exit (eval only) is a check once per step whether every item has
+  ended, one host sync per step; training rollouts run all T steps and
+  keep ended items frozen
+- the teacher: the gt path under 'teacher' feedback; the SPL expert (the
+  unvisited map node minimising dist(node, goal) + dist(cur, node)) under
+  'sample'; first index on ties, as `jnp.argmax` / `jnp.argmin`
+- IL: summed CE of the fused logits with `ignoreid` skipped, then
+  * train_ml / batch (agent.py:547); training stops at the gt goal, a
+  sampled stop elsewhere ends the episode in place
+- the teleport's hop cap: when the observed path is longer than
+  MAX_TELEPORT_HOPS, the endpoint is forced into the trajectory
+
+JAX rematerialises every step of a differentiated rollout to fit a TPU's
+memory; the port keeps the activations (see PERF.md for the peak).  The
+incremental DTW row that only the nDTW expert and the RL rewards read is
+not computed.
+
+Not ported yet (raise NotImplementedError): 'expl_sample' feedback, the
+nDTW expert, `train_rl` (DUET's A2C and critic), `fusion="local"` in the
+rollout, `act_visited_nodes`, `detailed_output`, REVERIE/SOON objects.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from vln_imagine_tpu_torch.config import Config
+from vln_imagine_tpu_torch.envx import env as envx
+from vln_imagine_tpu_torch.envx import gmap as G
+from vln_imagine_tpu_torch.envx.tables import INF, EpisodeBatch, WorldTables
+from vln_imagine_tpu_torch.models.duet import DuetModel
+from vln_imagine_tpu_torch.ops.angles import view_elevation, view_heading
+from vln_imagine_tpu_torch.ops.dropout import Rng
+from vln_imagine_tpu_torch.ops.masks import LOGIT_NEG_INF
+from vln_imagine_tpu_torch.platform import resolve_device
+from vln_imagine_tpu_torch.train.rollout_hamt import sample_categorical
+
+MAX_TELEPORT_HOPS = 6
+MAX_BACKTRACK_HOPS = 8
+
+
+class DuetRolloutResult(NamedTuple):
+    loss: torch.Tensor              # scalar IL + cosine aux loss
+    ml_loss: torch.Tensor
+    aux_loss: torch.Tensor
+    path_nodes: torch.Tensor        # [B, PB+1] (last column: trash, zeroed)
+    path_len: torch.Tensor          # [B]
+    logits: torch.Tensor | None     # [T, B, G+1] (None under early exit)
+    actions: torch.Tensor | None    # [T, B]
+    entropy_sum: torch.Tensor
+    steps: int                      # steps the loop ran
+
+
+def path_buffer_len(cfg: Config) -> int:
+    return 1 + cfg.env.max_action_len * MAX_TELEPORT_HOPS + MAX_BACKTRACK_HOPS
+
+
+def _append_path(path, path_len, nodes, valid):
+    """Append `nodes` (masked by `valid`) to the per-item path buffer.  The
+    buffer's LAST column is a trash slot: masked lanes and overflow writes
+    land there, never on a content column."""
+    B, PBt = path.shape
+    cap = PBt - 1
+    offs = torch.cumsum(valid, dim=1) - 1
+    pos = torch.where(valid, torch.clamp(path_len[:, None] + offs, max=cap), cap)
+    b = torch.arange(B, device=path.device)[:, None].expand_as(pos)
+    path = path.index_put((b, pos.long()),
+                          torch.where(valid, nodes, path[:, -1:]))
+    return path, torch.clamp(path_len + valid.sum(dim=1), max=cap).to(torch.int32)
+
+
+def _edge_weights(tables, ep, src_node, dst_nodes):
+    """Straight-line distances (calc_position_distance, graph_utils.py:7-13)."""
+    xyz = tables.node_xyz[ep.scan.long()]
+    a = envx._take(xyz, src_node)
+    K = dst_nodes.shape[1]
+    bpos = torch.gather(xyz, 1, dst_nodes.long()[:, :, None].expand(-1, K, 3))
+    return torch.linalg.norm(bpos - a[:, None, :], dim=-1)
+
+
+def _obs_dist_hops(gm, b_idx, cur_slot, t_slot):
+    """Observed distance and hop count from the current slot, 0 where there
+    is no observed path."""
+    od = gm.dist[b_idx[:, None], cur_slot[:, None], t_slot]
+    oh = gm.hops[b_idx[:, None], cur_slot[:, None], t_slot]
+    od = torch.where(od >= INF / 2, 0.0, od)
+    oh = torch.where(oh >= 10 ** 5, 0, oh)
+    return od, oh.float()
+
+
+def _vp_pos7(tables, ep, cur_node, cur_heading, cur_elev, targets, gm, b_idx,
+             mcfg):
+    """7-d rel-pos features of vp targets through the observed graph."""
+    cur_slot = G._slot(gm, cur_node[:, None])[:, 0].long()
+    t_slot = G._slot(gm, targets.clamp(min=0))
+    t_slot = torch.where(t_slot >= 0, t_slot, gm.trash).long()
+    od, oh = _obs_dist_hops(gm, b_idx, cur_slot, t_slot)
+    return envx.rel_pos_features(tables, ep, cur_node, cur_heading, cur_elev,
+                                 targets, od, oh, mcfg.angle_feat_size)
+
+
+def _fix_endpoint(nodes, valid, target, do):
+    """Hop-cap guard: where `do` and the capped path missed `target`, force
+    the endpoint into the last hop (a gap mid-path beats a wrong endpoint,
+    which decides success and SPL)."""
+    reached = torch.any((nodes == target[:, None]) & valid, dim=1)
+    fix = do & ~reached
+    nodes, valid = nodes.clone(), valid.clone()
+    nodes[:, -1] = torch.where(fix, target, nodes[:, -1])
+    valid[:, -1] = valid[:, -1] | fix
+    return nodes, valid
+
+
+def _grow_map(tables, ep, gm, st, obs, active):
+    """Add the current node and its candidates, their edges, and relax
+    through the current node (agent.py:396-398, 611-620)."""
+    gm = G.add_nodes(gm, st.node[:, None], active[:, None])
+    gm = G.add_nodes(gm, obs.cand_nodes, obs.cand_valid & active[:, None])
+    w = _edge_weights(tables, ep, st.node, obs.cand_nodes)
+    gm = G.add_edges(gm, st.node, obs.cand_nodes, w,
+                     obs.cand_valid & active[:, None])
+    return G.relax(gm, st.node, active)
+
+
+def rollout_duet(model: DuetModel, tables: WorldTables, ep: EpisodeBatch,
+                 cfg: Config, rng: Rng | None = None,
+                 feedback: str = "argmax", train_ml: float | None = None,
+                 deterministic: bool = True, max_steps: int | None = None,
+                 early_exit: bool = False) -> DuetRolloutResult:
+    """Roll out a batch of episodes; tables and ep lie on the model's device.
+
+    feedback: 'argmax' (greedy), 'teacher' (gt-path teacher forcing) or
+    'sample' (actions drawn from `rng`, supervised by the SPL expert).
+    train_ml weights the IL loss.  `deterministic` turns every dropout off;
+    `rng` is needed for dropout and for 'sample'.  Autograd is on only when
+    a loss is asked for."""
+    mcfg, tcfg = cfg.model, cfg.train
+    unported = {"feedback " + feedback: feedback not in ("argmax", "teacher",
+                                                         "sample"),
+                "fusion='local'": mcfg.fusion == "local",
+                "act_visited_nodes": tcfg.act_visited_nodes,
+                "detailed_output": tcfg.detailed_output,
+                "expert_policy " + tcfg.expert_policy:
+                    feedback == "sample" and tcfg.expert_policy != "spl",
+                "dataset " + cfg.dataset: cfg.dataset != "r2r"}
+    if any(unported.values()):
+        raise NotImplementedError(
+            f"not ported yet: {[k for k, v in unported.items() if v]}")
+    training = train_ml is not None
+    if early_exit and training:
+        raise ValueError("early_exit is for inference rollouts only")
+    if feedback == "sample" and rng is None:
+        raise ValueError("'sample' feedback draws its actions from rng")
+    drop = None if deterministic else rng
+    with torch.set_grad_enabled(training):
+        return _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
+                        max_steps, early_exit)
+
+
+def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
+             max_steps, early_exit) -> DuetRolloutResult:
+    mcfg, tcfg, ecfg = cfg.model, cfg.train, cfg.env
+    B = ep.batch
+    T = max_steps or ecfg.max_action_len
+    K = tables.max_candidates
+    Gcap = ecfg.max_gmap_nodes
+    H = mcfg.hidden_size
+    ignore = tcfg.ignoreid
+    dev = ep.scan.device
+    b_idx = torch.arange(B, device=dev)
+    g_ar = torch.arange(Gcap, device=dev)
+    zero = torch.zeros((), device=dev)
+    scan = ep.scan.long()
+
+    # ---- per-episode prologue (agent.py:386-398) ---------------------------
+    txt_embeds = model.text(ep.txt_ids, ep.txt_mask, drop)
+    aux_loss = zero
+    imagine_embeds = None
+    if mcfg.imagine_enc_pano:
+        imagine_embeds = model.imagine(ep.imagine_feats, drop)
+        if mcfg.use_cosine_aux_loss:
+            aux_loss, imagine_embeds = model.align_with_contrastive_loss(
+                txt_embeds, ep.txt_mask, imagine_embeds, ep.imagine_mask,
+                ep.np_weights, drop)
+
+    st = envx.reset(tables, ep, T)
+    obs = envx.observe_duet(tables, ep, st, mcfg.angle_feat_size)
+    gm = G.gmap_init(B, Gcap, tables.max_nodes, H, dev)
+    gm = _grow_map(tables, ep, gm, st, obs,
+                   torch.ones((B,), dtype=torch.bool, device=dev))
+    path = torch.zeros((B, path_buffer_len(cfg) + 1), dtype=torch.int32,
+                       device=dev)
+    path[:, 0] = ep.start_node
+    plen = torch.ones((B,), dtype=torch.int32, device=dev)
+    goal = ep.goal  # the gt path's last node
+    dist_full = tables.dist
+
+    ml_acc = ent_acc = zero
+    logits_seq, actions = [], []
+    t = 0
+    for t in range(T):
+        active = ~st.ended
+        gm = G.set_visited(gm, st.node, t, active)
+
+        pano = model.panorama_per_step(obs.img, obs.loc, obs.nav_types,
+                                       obs.valid, drop)
+        denom = torch.clamp(obs.valid.sum(dim=1, keepdim=True), min=1)
+        avg_pano = torch.sum(pano * obs.valid[:, :, None], dim=1) / denom
+        gm = G.update_embeds(gm, st.node, avg_pano, obs.cand_nodes,
+                             pano[:, :K], obs.cand_valid, active)
+
+        # ---------------- model inputs ([stop] + gmap slots)
+        gvalid_s = gm.valid()[:, :Gcap]
+        gnodes = gm.node_ids[:, :Gcap]
+        gvisited_s = gm.visited[:, :Gcap] & gvalid_s
+        ones_b = torch.ones((B, 1), dtype=torch.bool, device=dev)
+        gmap_img = F.pad(G.node_embeds(gm)[:, :Gcap].to(pano.dtype),
+                         (0, 0, 1, 0))
+        gmap_step_ids = F.pad(gm.step_ids[:, :Gcap], (1, 0))
+        gmap_valid = torch.cat([ones_b, gvalid_s], dim=1)
+        gmap_visited = F.pad(gvisited_s, (1, 0))
+        cur_slot = G._slot(gm, st.node[:, None])[:, 0].long()
+
+        cur_heading = view_heading(st.view_index, tables.views)
+        cur_elev = view_elevation(st.view_index, tables.views)
+        obs_dist, obs_hops = _obs_dist_hops(gm, b_idx, cur_slot,
+                                            g_ar[None, :].expand(B, Gcap))
+        gpos = envx.rel_pos_features(tables, ep, st.node, cur_heading,
+                                     cur_elev, gnodes, obs_dist, obs_hops,
+                                     mcfg.angle_feat_size)
+        gmap_pos = F.pad(gpos * gvalid_s[:, :, None], (0, 0, 1, 0))
+        gmap_pair = F.pad(G.pair_dists(gm)[:, :Gcap, :Gcap], (1, 0, 1, 0))
+
+        # local vp branch: [stop] + pano tokens (agent.py:173-207)
+        Tp = pano.shape[1]
+        vp_img = F.pad(pano, (0, 0, 1, 0))
+        start7 = _vp_pos7(tables, ep, st.node, cur_heading, cur_elev,
+                          ep.start_node[:, None], gm, b_idx, mcfg)[:, 0]
+        cand7 = _vp_pos7(tables, ep, st.node, cur_heading, cur_elev,
+                         obs.cand_nodes, gm, b_idx, mcfg)
+        cand7 = F.pad(cand7 * obs.cand_valid[:, :, None], (0, 0, 1, Tp - K))
+        vp_pos = torch.cat([start7[:, None, :].expand(B, Tp + 1, 7), cand7],
+                           dim=-1)
+        vp_valid = torch.cat([ones_b, obs.valid], dim=1)
+        vp_nav_valid = torch.cat([ones_b, obs.nav_types == 1], dim=1)
+
+        # candidate (vp token j>0) <-> gmap slot matching
+        cand_slot = G._slot(gm, obs.cand_nodes.clamp(min=0))          # [B, K]
+        c2g = ((g_ar[None, :, None] == cand_slot[:, None, :])
+               & obs.cand_valid[:, None, :] & (cand_slot >= 0)[:, None, :])
+        cand_to_gmap = F.pad(c2g, (1, Tp - K, 1, 0))
+
+        out = model.navigation_per_step(
+            txt_embeds, ep.txt_mask, gmap_img, gmap_step_ids, gmap_pos,
+            gmap_valid, gmap_pair, gmap_visited, vp_img, vp_pos, vp_valid,
+            vp_nav_valid, cand_to_gmap, imagine_embeds=imagine_embeds,
+            imagine_mask=ep.imagine_mask, rng=drop)
+        nav_logits = (out.global_logits if mcfg.fusion == "global"
+                      else out.fused_logits)
+
+        # the stop score at the current node (agent.py:515-520)
+        probs = torch.softmax(nav_logits.detach().float(), dim=-1)
+        stop_tgt = torch.where(active, cur_slot, gm.trash)
+        gm = gm.replace(stop_scores=gm.stop_scores.index_put(
+            (b_idx, stop_tgt), torch.where(stop_tgt == gm.trash,
+                                           gm.stop_scores[:, -1], probs[:, 0])))
+
+        # ---------------- teacher (agent.py:241-287, _teacher_action_r4r)
+        no_vp_left = ~torch.any(gvalid_s & ~gvisited_s, dim=1)
+        teacher = None  # greedy eval reads no teacher
+        if feedback == "teacher":
+            tgt_node = ep.gt_path[:, min(t + 1, ep.gt_path.shape[1] - 1)]
+            match = (gnodes == tgt_node[:, None]) & gvalid_s
+            slot = torch.argmax(match.to(torch.int32), dim=1) + 1
+            # a missing target means the map buffer overflowed: ignore it
+            teacher = torch.where(t >= ep.gt_len - 1, 0,
+                                  torch.where(match.any(dim=1), slot, ignore))
+        elif train_ml is not None:  # the SPL expert
+            cand_ok = gvalid_s & ~gvisited_s
+            cost = (dist_full[scan[:, None], gnodes.long(), goal.long()[:, None]]
+                    + dist_full[scan[:, None], st.node.long()[:, None],
+                                gnodes.long()])
+            cost = torch.where(cand_ok, cost, INF)
+            slot = torch.argmin(cost, dim=1) + 1
+            teacher = torch.where(st.node == goal, 0,
+                                  torch.where(cand_ok.any(dim=1), slot, ignore))
+        if teacher is not None:
+            teacher = torch.where(st.ended, ignore, teacher).to(torch.int32)
+
+        if train_ml is not None:
+            logp = torch.log_softmax(nav_logits.float(), dim=-1)
+            tgt = teacher.clamp(0, logp.shape[1] - 1).long()
+            ce = -logp.gather(1, tgt[:, None])[:, 0]
+            ml_acc = ml_acc + torch.sum(torch.where(teacher == ignore, 0.0, ce))
+
+        # ---------------- action selection (agent.py:545-575)
+        valid_act = gmap_valid & ~gmap_visited
+        valid_act[:, 0] = True
+        if feedback == "teacher":
+            a_t = teacher
+        else:
+            logp = torch.log_softmax(torch.where(valid_act, nav_logits,
+                                                 LOGIT_NEG_INF).float(), dim=-1)
+            ent = -torch.sum(torch.where(valid_act, logp.exp() * logp, 0.0),
+                             dim=-1)
+            ent_acc = ent_acc + torch.sum(torch.where(st.ended, 0.0, ent))
+            if feedback == "argmax":
+                a_t = torch.argmax(logp, dim=-1).to(torch.int32)
+            else:
+                a_t = sample_categorical(logp, rng.device).to(torch.int32)
+
+        # stop rule (agent.py:570-575): training stops at the gt goal,
+        # inference on the predicted stop.  A sampled stop away from the goal
+        # ends the episode in place, with no stop-score backtrack
+        # (agent.py:584,610)
+        if feedback == "argmax":
+            a_t_stop = a_t == 0
+            end_in_place = torch.zeros_like(a_t_stop)
+        else:
+            a_t_stop = st.node == goal
+            end_in_place = ((a_t == 0) & ~a_t_stop if feedback == "sample"
+                            else torch.zeros_like(a_t_stop))
+        stop_now = (a_t_stop | st.ended | no_vp_left | (a_t == ignore)
+                    | end_in_place)
+        if t == T - 1:
+            stop_now = torch.ones_like(stop_now)
+        just_ended = stop_now & ~st.ended
+
+        move_tgt = envx._take(gnodes, torch.clamp(a_t - 1, 0, Gcap - 1))
+        tgt_node = torch.where(stop_now, st.node, move_tgt)
+
+        # ---------------- teleport along the observed path (agent.py:289-305)
+        hop_nodes, hop_valid = G.follow_path(gm, st.node, tgt_node,
+                                             MAX_TELEPORT_HOPS)
+        moving = ~stop_now & ~st.ended
+        hop_nodes, hop_valid = _fix_endpoint(
+            hop_nodes, hop_valid & moving[:, None], tgt_node, moving)
+        path, plen = _append_path(path, plen, hop_nodes, hop_valid)
+
+        n_hops = hop_valid.sum(dim=1)
+        prev_node = torch.where(
+            n_hops >= 2, envx._take(hop_nodes, torch.clamp(n_hops - 2, min=0)),
+            st.node)
+        new_node = torch.where(moving, tgt_node, st.node)
+        # adopt the discretized view of the final approach edge
+        adj_prev = tables.adj[scan, prev_node.long()]
+        pid_prev = tables.cand_pointid[scan, prev_node.long()]
+        k_match = torch.argmax((adj_prev == new_node[:, None]).to(torch.int32),
+                               dim=1)
+        new_view = torch.where(moving, envx._take(pid_prev, k_match),
+                               st.view_index)
+
+        # ---------------- stop-node backtrack for just-ended items
+        # (agent.py:588-601): jump to the visited node of highest stop score
+        scored = torch.where(gm.valid() & gm.visited, gm.stop_scores, -torch.inf)
+        best_stop_slot = torch.argmax(scored, dim=1)
+        best_stop_node = envx._take(gm.node_ids, best_stop_slot)
+        has_score = torch.any(torch.isfinite(scored), dim=1)
+        do_back = (just_ended & ~end_in_place & has_score
+                   & (best_stop_node != st.node))
+        back_nodes, back_valid = G.follow_path(gm, st.node, best_stop_node,
+                                               MAX_BACKTRACK_HOPS)
+        back_nodes, back_valid = _fix_endpoint(
+            back_nodes, back_valid & do_back[:, None], best_stop_node, do_back)
+        path, plen = _append_path(path, plen, back_nodes, back_valid)
+
+        st = st.replace(node=new_node, view_index=new_view,
+                        ended=st.ended | stop_now, step=st.step + 1)
+
+        # ---------------- observe the new node, grow the graph
+        obs = envx.observe_duet(tables, ep, st, mcfg.angle_feat_size)
+        gm = _grow_map(tables, ep, gm, st, obs, ~st.ended)
+
+        if not early_exit:
+            logits_seq.append(nav_logits)
+            actions.append(a_t)
+        elif bool(st.ended.all()):  # one host sync per step
+            break
+
+    path = path.clone()
+    path[:, -1] = 0  # the trash column: a deterministic output
+    ml_loss = zero
+    loss = mcfg.cosine_weight * aux_loss if mcfg.use_cosine_aux_loss else zero
+    if train_ml is not None:
+        ml_loss = ml_acc * train_ml / B
+        loss = loss + ml_loss
+    return DuetRolloutResult(
+        loss=loss, ml_loss=ml_loss, aux_loss=aux_loss, path_nodes=path,
+        path_len=plen,
+        logits=torch.stack(logits_seq) if logits_seq else None,
+        actions=torch.stack(actions) if actions else None,
+        entropy_sum=ent_acc, steps=t + 1)
+
+
+def make_eval_fn(model: DuetModel, tables: WorldTables, cfg: Config,
+                 device=None):
+    """Greedy-eval rollout on `device` (the card unless the caller names
+    one): episodes -> (path_nodes, path_len).  Moves the model and the
+    tables there once."""
+    dev = resolve_device(device)
+    model.to(dev).eval()
+    tables = tables.to(dev)
+
+    def eval_fn(ep: EpisodeBatch):
+        res = rollout_duet(model, tables, ep.to(dev), cfg, early_exit=True)
+        return res.path_nodes, res.path_len
+
+    return eval_fn

@@ -22,7 +22,11 @@ from torch import nn
 
 from vln_imagine_tpu_torch.config import Config
 from vln_imagine_tpu_torch.envx.tables import EpisodeBatch, WorldTables
-from vln_imagine_tpu_torch.models.bert import Critic, LayerNorm12
+from vln_imagine_tpu_torch.models.bert import (
+    Critic,
+    LayerNormF32,
+    PackedSelfAttention,
+)
 from vln_imagine_tpu_torch.models.hamt import HamtModel
 from vln_imagine_tpu_torch.ops.dropout import Rng
 from vln_imagine_tpu_torch.platform import resolve_device
@@ -39,24 +43,47 @@ _TRUNC_STD = 0.87962566103423978
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """flax's default initializers, drawn from `generator` in module order:
-    Dense kernels lecun_normal, biases 0, embeddings N(0, 1/dim), LayerNorm
-    1 and 0, the history [CLS] token 0."""
+    Dense kernels lecun_normal (the packed q/k/v projection of DUET's pano
+    encoder too), biases 0, embeddings N(0, 1/dim), LayerNorm 1 and 0, the
+    history [CLS] token 0."""
+    def lecun_normal(weight):
+        std = 1.0 / math.sqrt(weight.shape[1]) / _TRUNC_STD
+        nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+
     for mod in model.modules():
         if isinstance(mod, nn.Linear):
-            std = 1.0 / math.sqrt(mod.in_features) / _TRUNC_STD
-            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
+            lecun_normal(mod.weight)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, PackedSelfAttention):
+            lecun_normal(mod.in_proj_weight)
+            mod.in_proj_bias.zero_()
         elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.embedding_dim),
                                generator=generator)
-        elif isinstance(mod, LayerNorm12):
+        elif isinstance(mod, LayerNormF32):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
     for name, p in model.named_parameters():
         if name.endswith("cls_token"):
             p.zero_()
+
+
+def model_optimizer(cfg: Config, model: nn.Module):
+    """The navigator's optimizer: the 3-stage imagination warm-up when the
+    recipe asks for it (variant4 with the cosine alignment on), else plain
+    Adam; both clip at `max_grad_norm`."""
+    tcfg, mcfg = cfg.train, cfg.model
+    if (tcfg.experimental_warmup and tcfg.experimental_warmup_type == "variant4"
+            and mcfg.imagine_enc_pano and mcfg.use_cosine_aux_loss):
+        return warmup_variant4_optimizer(
+            model.named_parameters(), tcfg.lr, tcfg.iters, tcfg.optim,
+            tcfg.max_grad_norm, stage1_iters=tcfg.warmup_stage1_iters,
+            stage2_iters=tcfg.warmup_stage2_iters,
+            weight_decay=tcfg.weight_decay)
+    return plain_optimizer(model.parameters(), tcfg.lr, tcfg.optim,
+                           tcfg.max_grad_norm, weight_decay=tcfg.weight_decay)
 
 
 class HamtTrainer:
@@ -79,20 +106,10 @@ class HamtTrainer:
         self.critic = critic.to(self.device)
         self.tables = tables.to(self.device)
         self.rng = Rng(seed, self.device)
-        tcfg, mcfg = cfg.train, cfg.model
-        if (tcfg.experimental_warmup and tcfg.experimental_warmup_type == "variant4"
-                and mcfg.imagine_enc_pano and mcfg.use_cosine_aux_loss):
-            self.optimizer = warmup_variant4_optimizer(
-                self.model.named_parameters(), tcfg.lr, tcfg.iters, tcfg.optim,
-                tcfg.max_grad_norm, stage1_iters=tcfg.warmup_stage1_iters,
-                stage2_iters=tcfg.warmup_stage2_iters,
-                weight_decay=tcfg.weight_decay)
-        else:
-            self.optimizer = plain_optimizer(
-                self.model.parameters(), tcfg.lr, tcfg.optim,
-                tcfg.max_grad_norm, weight_decay=tcfg.weight_decay)
+        self.optimizer = model_optimizer(cfg, self.model)
         self.critic_optimizer = plain_optimizer(
-            self.critic.parameters(), tcfg.lr, tcfg.optim, max_grad_norm=None)
+            self.critic.parameters(), cfg.train.lr, cfg.train.optim,
+            max_grad_norm=None)
 
     def make_eval_step(self):
         """episodes -> (path_nodes, path_len), greedy with early exit."""
