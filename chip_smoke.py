@@ -52,7 +52,28 @@ JSON line; any failed check exits non-zero:
                 forward and K4 backward (dBias into `sprel_linear`) on the
                 card against the CPU: loss, grad_norm and the sprel_linear
                 gradient within TRAIN_TOL, updates under UPDATE_TOL.
-10. kernels     every kernel against its plain PyTorch version on the card:
+10. driver_hamt / driver_duet: the host side of a run at the released
+                config, full width, bf16.  The bench world is written as a
+                user's files (connectivity JSON, `R2R_{train,val_unseen}
+                _enc.json`, generated-flag and sub-instruction JSON; view and
+                imagination features in an `InMemoryFeaturesDB`), read back
+                through `construct_instrs` -> `episodes_from_annotations`
+                (32 train and 100 val items), and
+                `FinetuneDriver.run(iters=4, log_every=2)` trains batch 8
+                and validates in batches of 64 (the last wraps).  Gates: logs
+                and checkpoints written, finite metrics, K1 launches = sum of
+                9 + 18 x steps over the eval batches (the loop's own step
+                counts), K2 / K3 = 4 x the train phases' per-step counts, K4
+                none; a fresh driver's `load_checkpoint` equals the file
+                bitwise; a NaN loss in the first interval rolls back to a
+                state bitwise equal to `latest_dict`.  Interval seconds, ms
+                per train step, validate episodes/s, checkpoint save / load
+                seconds and bytes, peak memory.
+11. train_cli   `python -m vln_imagine_tpu_torch.scripts.train --synthetic
+                --iters 2 --log-every 1` with no `--device`, in process: it
+                runs on the card at the released HAMT preset, writes its
+                logs and checkpoints, and launches K1-K3.
+12. kernels     every kernel against its plain PyTorch version on the card:
                 K1 at every (Lq, Lk) of the eval path, B 8 and 64, and of
                 the teacher step, B 8; K2 (both bit sources), K3 (both) and
                 K4 at every training shape, B 8; every kernel also at the
@@ -86,6 +107,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -787,6 +809,313 @@ def duet_train_parity_phase(torch, cfg, world):
     return launches
 
 
+# --------------------------------------------------------------- the driver
+DRIVER_TRAIN_PATHS, DRIVER_VAL_PATHS = 16, 100  # 32 train, 100 val items
+DRIVER_ITERS, DRIVER_LOG_EVERY = 4, 2
+
+
+def eval_calls(cfg) -> tuple[int, int]:
+    """Attention calls of one greedy-eval rollout: once per episode, and
+    per step (9 and 18 at either released config)."""
+    if cfg.agent == "duet":
+        return duet_calls(cfg)
+    m = cfg.model
+    return m.num_l_layers, 4 * m.num_x_layers + m.num_pano_layers
+
+
+def write_run_files(cfg, graphs, ep, root: Path) -> dict:
+    """The world as a user's run would find it on disk: MP3D connectivity
+    JSON, `R2R_{train,val_unseen}_enc.json` (two instructions a train path,
+    one a val path), the generated-flag and sub-instruction JSON.  Returns
+    the imagination features by instruction id, for an in-memory store."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    conn, anno = root / "connectivity", root / "annotations"
+    conn.mkdir(parents=True)
+    anno.mkdir()
+    for g in graphs:
+        n = g.num_nodes
+        unob = [[False] * n for _ in range(n)]
+        for a, b in g.edges:
+            unob[a][b] = unob[b][a] = True
+        items = []
+        for i, vid in enumerate(g.node_ids):
+            pose = [1.0 if k in (0, 5, 10, 15) else 0.0 for k in range(16)]
+            pose[3], pose[7], pose[11] = map(float, g.xyz[i])
+            items.append({"image_id": vid, "pose": pose, "included": True,
+                          "unobstructed": unob[i]})
+        (conn / f"{g.scan_id}_connectivity.json").write_text(json.dumps(items))
+    flags, subs, imagine = {}, [], {}
+    splits = {"train": (range(DRIVER_TRAIN_PATHS), 2),
+              "val_unseen": (range(DRIVER_TRAIN_PATHS, DRIVER_TRAIN_PATHS
+                                   + DRIVER_VAL_PATHS), 1)}
+    for split, (rows, n_instr) in splits.items():
+        items = []
+        for b in rows:
+            g = graphs[int(ep.scan[b])]
+            enc = [int(t) for t in ep.txt_ids[b][ep.txt_mask[b]]]
+            items.append({
+                "scan": g.scan_id, "path_id": b, "heading":
+                    float(ep.start_heading[b]),
+                "path": [g.node_ids[int(v)]
+                         for v in ep.gt_path[b, :int(ep.gt_len[b])]],
+                "instructions": ["walk past the sofa and stop."] * n_instr,
+                "instr_encodings": [enc, enc[:len(enc) // 2 + 1]][:n_instr]})
+            for j in range(n_instr):
+                iid = f"{b}_{j}"
+                n = int(rng.integers(1, 4))
+                flags[iid] = ["True" if rng.random() < 0.8 else "False"
+                              for _ in range(n)]
+                imagine[iid] = (0.4 * rng.standard_normal(
+                    (flags[iid].count("True"), cfg.model.hidden_size))
+                    ).astype(np.float32)
+                subs.append({"instruction_id": iid,
+                             "instr_segmentation_indices": [[1, 4]] * n,
+                             "noun_phrase_indices": [[[2, 3]]] * n})
+        (anno / f"R2R_{split}_enc.json").write_text(json.dumps(items))
+    (root / "generated_flags.json").write_text(json.dumps(flags))
+    (root / "sub_instr.json").write_text(json.dumps(subs))
+    return imagine
+
+
+def build_run_data(cfg, world, root: Path, imagine: dict):
+    """What the train CLI's `build_real` does, with the features in memory
+    (`InMemoryFeaturesDB`): the world compiled from the connectivity JSON,
+    the splits built by `construct_instrs` -> `episodes_from_annotations`."""
+    from vln_imagine_tpu_torch.data.annotations import (
+        AuxMetadata,
+        construct_instrs,
+        episodes_from_annotations,
+    )
+    from vln_imagine_tpu_torch.data.features import (
+        InMemoryFeaturesDB,
+        build_feature_table,
+        build_imagination_arrays,
+    )
+    from vln_imagine_tpu_torch.driver import SplitData
+    from vln_imagine_tpu_torch.envx.compiler import (
+        compile_world,
+        load_connectivity,
+    )
+
+    graphs = load_connectivity(str(root / "connectivity"), ["scan0", "scan1"])
+    views = InMemoryFeaturesDB({
+        f"{g.scan_id}_{vp}": world.feat[s, i]
+        for s, g in enumerate(graphs) for i, vp in enumerate(g.node_ids)})
+    tables = compile_world(
+        graphs, max_candidates=cfg.env.max_candidates, views=cfg.env.views,
+        feat=build_feature_table(views, graphs, cfg.env.views,
+                                 cfg.model.image_feat_size))
+    meta = AuxMetadata.load(str(root / "sub_instr.json"),
+                            str(root / "generated_flags.json"))
+    splits = []
+    for name in ("train", "val_unseen"):
+        items = construct_instrs(str(root / "annotations"), "r2r", [name])
+        feats, _ = build_imagination_arrays(
+            InMemoryFeaturesDB(imagine), [it["instr_id"] for it in items],
+            meta.generated_flags, cfg.model.max_imagination_len,
+            cfg.model.hidden_size)
+        ep, ids = episodes_from_annotations(
+            items, graphs, meta, cfg.env.max_instr_len,
+            cfg.env.max_gt_path_len, cfg.model.max_imagination_len, feats,
+            imagine_feat_dim=cfg.model.hidden_size)
+        splits.append(SplitData(name, ep, ids))
+    return tables, graphs, splits
+
+
+def scratch_dir():
+    """A directory under build/ for one phase's files, checkpoints of
+    gigabytes among them; it goes when the phase ends."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=ROOT / "build",
+                                       prefix="chip_smoke_")
+
+
+def states_equal(torch, a, b) -> bool:
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(states_equal(torch, a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(states_equal(torch, x, y) for x, y in zip(a, b)))
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.shape == b.shape and torch.equal(a, b)
+    return a == b
+
+
+def driver_phase(torch, cfg, scratch: Path):
+    """`FinetuneDriver.run(iters=4, log_every=2)` of the agent's released
+    recipe on files written from the bench world; then a fresh driver's
+    `load_checkpoint`, and a NaN injected into its first interval."""
+    import numpy as np
+
+    from vln_imagine_tpu_torch.driver import FinetuneDriver
+    from vln_imagine_tpu_torch.envx import synthetic_episodes, synthetic_world
+    from vln_imagine_tpu_torch.ops import attention
+
+    agent = cfg.agent
+    root = scratch / f"driver_{agent}"
+    t_phase = t0 = time.perf_counter()
+    # bench_world's arguments: the same world, with its graphs
+    world, graphs = synthetic_world(
+        num_scans=2, num_nodes=96, max_candidates=cfg.env.max_candidates,
+        views=36, feat_dim=cfg.model.image_feat_size, seed=0)
+    ep = synthetic_episodes(
+        world, batch=DRIVER_TRAIN_PATHS + DRIVER_VAL_PATHS,
+        max_gt_path_len=cfg.env.max_gt_path_len,
+        max_instr_len=cfg.env.max_instr_len,
+        max_imaginations=cfg.model.max_imagination_len,
+        vocab_size=cfg.model.vocab_size, feat_dim=cfg.model.hidden_size,
+        seed=1)
+    imagine = write_run_files(cfg, graphs, ep, root)
+    tables, graphs, (train, val) = build_run_data(cfg, world, root, imagine)
+    check(np.array_equal(tables.adj, world.adj)
+          and np.array_equal(tables.feat, world.feat),
+          f"{agent}: the tables compiled from the files differ from the world")
+    data_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    d = FinetuneDriver(cfg, tables, train, [val], str(root / "run"),
+                       graphs=graphs, device="cuda")
+    d.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # the counted run: every count set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    t0 = time.perf_counter()
+    d.run(iters=DRIVER_ITERS, log_every=DRIVER_LOG_EVERY)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = attention.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    per_episode, per_step = eval_calls(cfg)
+    k2, k3 = (train_launches_per_step(cfg) if agent == "hamt"
+              else duet_train_launches_per_step(cfg))
+    want = {"attention_fwd": sum(per_episode + per_step * s
+                                 for s in d.eval_step_counts),
+            "attention_dropout_fwd": DRIVER_ITERS * k2,
+            "attention_dropout_bwd": DRIVER_ITERS * k3, "attention_bwd": 0}
+    check(launches == want, f"{agent} driver launches {launches}, expected "
+          f"{want} ({len(d.eval_step_counts)} eval batches, steps "
+          f"{d.eval_step_counts})")
+    log = root / "run"
+    for name in ("train.txt", "metrics.jsonl", "training_args.json",
+                 "ckpts/latest_dict", "ckpts/best_val_unseen",
+                 "ckpts/best_val_unseen.json"):
+        check((log / name).is_file(), f"{agent} driver wrote no {name}")
+    records = [json.loads(x) for x in
+               (log / "metrics.jsonl").read_text().splitlines()]
+    check(len(records) > 0 and all(math.isfinite(r["value"])
+                                   for r in records),
+          f"{agent} driver: non-finite metrics")
+    saves = [e for e in d.ckpt.events if e["op"] == "save"]
+    train_t, val_t = d.timings["train"], d.timings["validate"]
+    eval_steps = list(d.eval_step_counts)
+    del d
+    torch.cuda.empty_cache()
+
+    # a fresh driver restores the saved state bitwise
+    d2 = FinetuneDriver(cfg, tables, train, [val], str(root / "fresh"),
+                        graphs=graphs, device="cuda")
+    d2.setup()
+    latest = str(log / "ckpts" / "latest_dict")
+    d2.load_checkpoint(latest)
+    torch.cuda.synchronize()
+    load = d2.ckpt.events[-1]
+    saved = torch.load(latest, map_location="cuda", weights_only=True)
+    check(states_equal(torch, d2.state_dict(), saved),
+          f"{agent}: a fresh driver's load_checkpoint differs from the file")
+    del saved
+
+    # a NaN loss in the first interval rolls back to latest_dict
+    orig, trained = d2.train_interval, {}
+
+    def poisoned(n_iters):
+        out = dict(orig(n_iters))
+        trained["steps"] = d2.trainer.optimizer.steps
+        out["loss"] = float("nan")
+        return out
+
+    d2.train_interval = poisoned
+    d2.run(iters=DRIVER_LOG_EVERY, log_every=DRIVER_LOG_EVERY, max_failures=1)
+    rolled = (root / "fresh" / "train.txt").read_text()
+    saved = torch.load(str(root / "fresh" / "ckpts" / "latest_dict"),
+                       map_location="cuda", weights_only=True)
+    check(trained.get("steps", 0) > saved["vln_bert"]["optimizer"]["steps"]
+          and "rolled back to latest_dict" in rolled
+          and states_equal(torch, d2.state_dict(), saved),
+          f"{agent}: the NaN interval did not roll back to latest_dict")
+    del d2, saved
+    torch.cuda.empty_cache()
+
+    emit({"phase": f"driver_{agent}", "config": f"{agent}_r2r_config",
+          "phase_s": time.perf_counter() - t_phase,
+          "compute_dtype": cfg.model.compute_dtype,
+          "train_items": int(train.episodes.scan.shape[0]),
+          "val_items": int(val.episodes.scan.shape[0]),
+          "batch": cfg.train.batch_size,
+          "eval_batch": cfg.train.eval_batch_size, "iters": DRIVER_ITERS,
+          "log_every": DRIVER_LOG_EVERY, "data_s": data_s,
+          "setup_s": setup_s, "run_s": run_s,
+          "interval_s": [t["seconds"] for t in train_t],
+          "train_step_ms": [t["seconds"] / t["iters"] * 1e3 for t in train_t],
+          "validate_s": [t["seconds"] for t in val_t],
+          "validate_episodes_per_s": [t["items"] / t["seconds"]
+                                      for t in val_t],
+          "eval_steps": eval_steps,
+          "checkpoint_saves": saves, "checkpoint_load": load,
+          "peak_mem_bytes": peak, "launches": launches, "expected": want,
+          "rollback": "held", "fresh_load": "bitwise"})
+    return launches
+
+
+def cli_phase(torch, scratch: Path):
+    """The train CLI on the card, as a user runs it, with no --device:
+    `--synthetic --iters 2 --log-every 1` (HAMT's released preset)."""
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.scripts import train as cli
+
+    t_phase = time.perf_counter()
+    log = scratch / "cli"
+    attention.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    d = cli.main(["--synthetic", "--iters", "2",
+                  "--log-every", "1", "--log-dir", str(log)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = attention.launch_counts()
+    check(d.device.type == "cuda", f"the CLI ran on {d.device}")
+    for name in ("train.txt", "metrics.jsonl", "ckpts/latest_dict",
+                 "ckpts/best_val_unseen"):
+        check((log / name).is_file(), f"the CLI wrote no {name}")
+    per_episode, per_step = eval_calls(d.cfg)
+    k2, k3 = train_launches_per_step(d.cfg)
+    iters = len(d.timings["train"])
+    want = {"attention_fwd": sum(per_episode + per_step * s
+                                 for s in d.eval_step_counts),
+            "attention_dropout_fwd": iters * k2,
+            "attention_dropout_bwd": iters * k3, "attention_bwd": 0}
+    check(iters == 2 and launches == want,
+          f"CLI launches {launches}, expected {want}")
+    emit({"phase": "train_cli", "argv": "--synthetic --iters 2 --log-every 1",
+          "config": "hamt_r2r_config", "seconds": seconds,
+          "phase_s": time.perf_counter() - t_phase,
+          "eval_steps": d.eval_step_counts, "expected": want,
+          "interval_s": [t["seconds"] for t in d.timings["train"]],
+          "validate_s": [t["seconds"] for t in d.timings["validate"]],
+          "checkpoint_saves": d.ckpt.events,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches})
+    del d
+    torch.cuda.empty_cache()
+    return launches
+
+
 # --------------------------------------------------------------- phase 6
 def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen, D=HEAD_DIM):
     from vln_imagine_tpu_torch.ops.masks import extend_neg_mask
@@ -1146,6 +1475,12 @@ def main() -> None:
     path_launches["duet_train"] = duet_train_phase(torch, dcfg, world)
     path_launches["duet_train_parity"] = duet_train_parity_phase(torch, dcfg,
                                                                  world)
+    with scratch_dir() as tmp:
+        path_launches["driver_hamt"] = driver_phase(torch, cfg, Path(tmp))
+    with scratch_dir() as tmp:
+        path_launches["driver_duet"] = driver_phase(torch, dcfg, Path(tmp))
+    with scratch_dir() as tmp:
+        path_launches["train_cli"] = cli_phase(torch, Path(tmp))
     # after the paths, so that their peak memory is their own
     cases = kernels_phase(torch, parent)
 

@@ -1,0 +1,235 @@
+"""The port's FinetuneDriver on the CPU at the tiny config:
+
+- against the JAX package's FinetuneDriver: the JAX init carried into the
+  port by the bridge, `validate` on the same split (4-item batches, so the
+  last one wraps and bucketing reorders) gives the same metrics, exactly,
+  and the same `submit_*.json` and `individual_metrics_*.json`, byte for
+  byte (f32; the greedy paths are equal, and the metrics are host numpy
+  over them).  No JAX train step is compiled;
+- the port alone: `run` writes its logs and checkpoints; an injected fault
+  and an injected NaN loss each roll back, after which the state equals
+  `latest_dict` bitwise; bucketed validation equals sequential and
+  pipelined equals synchronous, item for item; the augmented-split
+  alternation trains; VLN_PROFILE_DIR writes a trace; unported branches
+  raise, naming their ROADMAP item.
+"""
+
+import dataclasses
+import json
+import math
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vln_imagine_tpu.config import tiny_test_config as j_tiny_test_config
+from vln_imagine_tpu.driver import FinetuneDriver as JFinetuneDriver
+from vln_imagine_tpu.driver import SplitData as JSplitData
+from vln_imagine_tpu.envx import synthetic_episodes as j_episodes
+from vln_imagine_tpu.envx import synthetic_world as j_world
+from vln_imagine_tpu_torch.ckpt.convert import state_dict_from_flax
+from vln_imagine_tpu_torch.config import _replace, tiny_test_config
+from vln_imagine_tpu_torch.driver import FinetuneDriver, SplitData
+from vln_imagine_tpu_torch.envx import synthetic_episodes, synthetic_world
+
+torch.set_num_threads(2)
+
+
+def _splits(world_fn, episodes_fn, split_cls, cfg, n_train=6, n_val=6):
+    world, graphs = world_fn(
+        num_scans=2, num_nodes=16, max_candidates=cfg.env.max_candidates,
+        views=cfg.env.views, feat_dim=cfg.model.image_feat_size, seed=0)
+
+    def split(name, n, seed):
+        ep = episodes_fn(
+            world, batch=n, max_gt_path_len=cfg.env.max_gt_path_len,
+            max_instr_len=cfg.env.max_instr_len,
+            max_imaginations=cfg.model.max_imagination_len,
+            vocab_size=cfg.model.vocab_size, feat_dim=cfg.model.hidden_size,
+            seed=seed)
+        return split_cls(name, ep, [f"{name}_{i}" for i in range(n)])
+
+    return world, graphs, split("train", n_train, 1), split("val_unseen",
+                                                             n_val, 2)
+
+
+def _driver(log_dir, agent="hamt", **train):
+    cfg = _replace(tiny_test_config(agent), "train", **train)
+    world, graphs, train_split, val = _splits(synthetic_world,
+                                              synthetic_episodes, SplitData,
+                                              cfg)
+    d = FinetuneDriver(cfg, world, train_split, [val], str(log_dir),
+                       graphs=graphs, device="cpu")
+    d.setup()
+    return d
+
+
+def _read(path):
+    with open(path) as f:
+        return f.read()
+
+
+# ------------------------------------------------------- against the JAX one
+@pytest.mark.parametrize("agent", ["hamt", "duet"])
+def test_validate_equals_the_jax_driver(tmp_path, agent):
+    jcfg = j_tiny_test_config(agent)
+    jworld, jgraphs, jtrain, jval = _splits(j_world, j_episodes, JSplitData,
+                                            jcfg, n_val=7)
+    jd = JFinetuneDriver(jcfg, jax.tree.map(jnp.asarray, jworld), jtrain,
+                         [jval], str(tmp_path / "jax"), graphs=jgraphs)
+    jd.setup()
+    want = jd.validate(jval, batch_size=4, write_outputs=True)
+
+    cfg = tiny_test_config(agent)
+    world, graphs, train, val = _splits(synthetic_world, synthetic_episodes,
+                                        SplitData, cfg, n_val=7)
+    d = FinetuneDriver(cfg, world, train, [val], str(tmp_path / "port"),
+                       graphs=graphs, device="cpu")
+    d.setup(init_state_dict=state_dict_from_flax(
+        jax.tree.map(np.asarray, jd.state.params), agent))
+    got = d.validate(val, batch_size=4, write_outputs=True)
+    assert got == want
+    assert len(d.eval_step_counts) == 2  # 7 items in batches of 4
+    for name in ("submit_val_unseen.json",
+                 "individual_metrics_val_unseen.json"):
+        assert _read(tmp_path / "port" / name) == _read(tmp_path / "jax" / name)
+    assert len(json.loads(_read(tmp_path / "port" /
+                                "submit_val_unseen.json"))) == 7
+
+
+# ----------------------------------------------------------- the port alone
+def test_run_writes_logs_and_checkpoints(tmp_path):
+    d = _driver(tmp_path)
+    d.run(iters=4, log_every=2)
+    for name in ("train.txt", "metrics.jsonl", "training_args.json",
+                 "ckpts/latest_dict", "ckpts/best_val_unseen",
+                 "ckpts/best_val_unseen.json"):
+        assert os.path.isfile(tmp_path / name), name
+    records = [json.loads(x) for x in _read(tmp_path / "metrics.jsonl")
+               .splitlines()]
+    assert {r["step"] for r in records} == {2, 4}
+    assert all(math.isfinite(r["value"]) for r in records
+               if r["tag"].startswith("loss/"))
+    assert [t["iters"] for t in d.timings["train"]] == [2, 2]
+    assert len(d.eval_step_counts) == 2  # one eval batch per interval
+    assert d.trainer.optimizer.steps == 4
+    saves = [e["name"] for e in d.ckpt.events if e["op"] == "save"]
+    assert saves.count("latest_dict") == 3  # seeded before the first interval
+
+
+def _assert_equals_latest(d):
+    saved = torch.load(os.path.join(d.ckpt.dir, "latest_dict"),
+                       weights_only=True)
+    now = d.state_dict()
+    for part in saved:
+        for k, v in saved[part]["state_dict"].items():
+            assert torch.equal(now[part]["state_dict"][k], v), (part, k)
+        opt, sopt = now[part]["optimizer"], saved[part]["optimizer"]
+        assert opt["steps"] == sopt["steps"]
+        for g, sg in zip(opt["groups"], sopt["groups"], strict=True):
+            assert g["count"] == sg["count"]
+            for m in ("mu", "nu"):
+                assert g[m].keys() == sg[m].keys()
+                assert all(torch.equal(g[m][i], t) for i, t in sg[m].items())
+
+
+@pytest.mark.parametrize("fault", ["exception", "nan"])
+def test_failed_interval_rolls_back_to_latest_dict(tmp_path, monkeypatch,
+                                                   fault):
+    d = _driver(tmp_path)
+    orig = d.train_interval
+    moved = {}
+
+    def poisoned(n_iters):
+        out = dict(orig(n_iters))  # the interval trains, then fails
+        moved["steps"] = d.trainer.optimizer.steps
+        if fault == "exception":
+            raise RuntimeError("injected fault")
+        out["loss"] = float("nan")
+        return out
+
+    monkeypatch.setattr(d, "train_interval", poisoned)
+    d.run(iters=2, log_every=2, max_failures=2)
+    assert moved["steps"] == 2 and d.trainer.optimizer.steps == 0
+    log = _read(tmp_path / "train.txt")
+    assert ("injected fault" if fault == "exception"
+            else "non-finite training metrics") in log
+    assert "rolled back to latest_dict" in log
+    _assert_equals_latest(d)
+    # a fault that persists past max_failures is raised
+    monkeypatch.setattr(d, "train_interval", lambda n: 1 / 0)
+    with pytest.raises(ZeroDivisionError):
+        d.run(iters=6, log_every=2, max_failures=1)
+
+
+def _per_item(d, monkeypatch, **env):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    d.validate(d.val_splits[0], batch_size=4, write_outputs=True)
+    m = json.loads(_read(os.path.join(d.log_dir,
+                                      "individual_metrics_val_unseen.json")))
+    return {iid: {k: v[i] for k, v in m.items() if k != "instr_id"}
+            for i, iid in enumerate(m["instr_id"])}
+
+
+def test_bucketed_validation_equals_sequential(tmp_path, monkeypatch):
+    d = _driver(tmp_path)
+    seq = _per_item(d, monkeypatch, VLN_EVAL_BUCKET="0")
+    buck = _per_item(d, monkeypatch, VLN_EVAL_BUCKET="1")
+    assert len(seq) == 6 and seq == buck
+
+
+def test_pipelined_validation_equals_synchronous(tmp_path, monkeypatch):
+    d = _driver(tmp_path, "duet")
+    sync = _per_item(d, monkeypatch, VLN_EVAL_PIPELINE="1")
+    pipe = _per_item(d, monkeypatch, VLN_EVAL_PIPELINE="16")
+    assert len(sync) == 6 and sync == pipe
+
+
+def test_aug_alternation_trains(tmp_path):
+    d = _driver(tmp_path)
+    ep = d.train_split.episodes
+    aug = SplitData("aug", dataclasses.replace(
+        ep, imagine_mask=np.zeros_like(ep.imagine_mask)),
+        d.train_split.instr_ids)
+    d2 = FinetuneDriver(d.cfg, d.tables, d.train_split, d.val_splits,
+                        str(tmp_path / "aug"), aug_split=aug, device="cpu")
+    d2.setup()
+    logs = d2.train_interval(2)  # iter 0 GT, iter 1 aug
+    assert all(math.isfinite(v) for v in logs.values()), logs
+    assert d2.aug_sampler.ix == 2 * d2.cfg.train.batch_size
+
+
+def test_profile_dir_traces_the_first_interval(tmp_path, monkeypatch):
+    monkeypatch.setenv("VLN_PROFILE_DIR", str(tmp_path / "trace"))
+    _driver(tmp_path / "run").run(iters=1, log_every=1)
+    assert any(n.endswith(".json") for n in os.listdir(tmp_path / "trace"))
+
+
+@pytest.mark.parametrize("part, over, item", [
+    ("mesh", {"data_parallelism": 2}, 7),
+    ("train", {"detailed_output": True}, 3),
+    ("dataset", "r2r_back", 4),
+    ("model", {"e2e_imagination": "frozen"}, 5),
+])
+def test_unported_branches_raise(tmp_path, part, over, item):
+    d = _driver(tmp_path)
+    cfg = (d.cfg.replace(dataset=over) if part == "dataset"
+           else _replace(d.cfg, part, **over))
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+        FinetuneDriver(cfg, d.tables, d.train_split, d.val_splits,
+                       str(tmp_path / "x"), device="cpu")
+    if part == "dataset":  # episodes of a variant, under the r2r config
+        ep = dataclasses.replace(d.train_split.episodes,
+                                 midstop=d.train_split.episodes.gt_len)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+            FinetuneDriver(d.cfg, d.tables, SplitData("train", ep),
+                           d.val_splits, str(tmp_path / "y"), device="cpu")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+            d._train_step(ep, ep)
+    if part == "mesh":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            d.init_from_pretrain(str(tmp_path / "model_step_10"))

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from vln_imagine_tpu_torch.config import tiny_test_config
-from vln_imagine_tpu_torch.envx import synthetic_world
+from vln_imagine_tpu_torch.driver import FinetuneDriver, SplitData
+from vln_imagine_tpu_torch.envx import synthetic_episodes, synthetic_world
 from vln_imagine_tpu_torch.models.hamt import HamtModel
 from vln_imagine_tpu_torch.models.duet import DuetModel
 from vln_imagine_tpu_torch.train import rollout_duet
@@ -29,8 +30,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "optax", "vln_imagine_tpu")
-             or m.startswith(("jax.", "flax.", "optax.", "vln_imagine_tpu.")))
+             if m in ("jax", "flax", "optax", "orbax", "vln_imagine_tpu")
+             or m.startswith(("jax.", "flax.", "optax.", "orbax.",
+                              "vln_imagine_tpu.")))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -47,11 +49,15 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "envx.tables", "envx.compiler", "envx.synthetic", "envx.env",
                 "envx.gmap", "models.bert", "models.hamt", "models.duet",
                 "ckpt.convert", "train.rollout_hamt", "train.trainer",
-                "train.rollout_duet", "train.trainer_duet", "eval.metrics"):
+                "train.rollout_duet", "train.trainer_duet", "eval.metrics",
+                "utils.logger", "data.annotations", "data.features",
+                "data.tokenizer", "data.nlp_tools", "eval.submission",
+                "train.optim", "ckpt.manager", "ckpt.transfer", "driver",
+                "scripts.train"):
         assert f"vln_imagine_tpu_torch.{mod}" in report["modules"], mod
 
 
-def test_entry_points_raise_without_device_or_cuda(monkeypatch):
+def test_entry_points_raise_without_device_or_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_test_config("hamt")
     world, _ = synthetic_world(num_scans=1, num_nodes=6,
@@ -69,4 +75,9 @@ def test_entry_points_raise_without_device_or_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rollout_duet.make_eval_fn(DuetModel(dcfg.model), world, dcfg)
     assert DuetTrainer(dcfg, world, device="cpu").device.type == "cpu"
+    split = SplitData("train", synthetic_episodes(world, batch=2, seed=0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FinetuneDriver(cfg, world, split, [], str(tmp_path))
+    assert FinetuneDriver(cfg, world, split, [], str(tmp_path),
+                          device="cpu").device.type == "cpu"
 

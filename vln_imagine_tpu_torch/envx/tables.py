@@ -90,6 +90,10 @@ class EpisodeBatch(_Arrays):
     imagine_feats: Any  # [B, I, Df] f32
     imagine_mask: Any   # [B, I] bool (generated-flag per sub-instruction)
     np_weights: Any     # [B, I, L] f32 noun-phrase mean weights
+    # the annotation builder fills these for r2r_back / REVERIE / SOON items;
+    # the rollouts refuse a batch that carries either (not ported yet)
+    midstop: Optional[Any] = None    # [B] i32 r2r_back turn-around node
+    gt_obj_id: Optional[Any] = None  # [B] i32 REVERIE/SOON target object
 
     @property
     def batch(self) -> int:
@@ -101,6 +105,16 @@ class EpisodeBatch(_Arrays):
         if torch.is_tensor(self.gt_path):
             return self.gt_path.gather(1, idx.long()[:, None])[:, 0]
         return self.gt_path[np.arange(self.batch), idx]
+
+
+def require_r2r_episodes(ep: EpisodeBatch) -> None:
+    """Raise for a batch that carries r2r_back's midstop or a REVERIE/SOON
+    target object: neither is ported yet."""
+    for name in ("midstop", "gt_obj_id"):
+        if getattr(ep, name) is not None:
+            raise NotImplementedError(
+                f"episodes with {name} (r2r_back, REVERIE, SOON) are not "
+                "ported yet: ROADMAP Queue 1 item 4")
 
 
 @dataclass(frozen=True)

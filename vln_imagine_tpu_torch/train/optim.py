@@ -63,7 +63,8 @@ class AdamGroup:
     over a list of parameters, active from `unfreeze_step` on (optax
     `freeze_until`).  Moments are created at a parameter's first gradient:
     a parameter that never had one has zero moments, for which Adam's update
-    is exactly zero, so it is skipped."""
+    is exactly zero, so it is skipped.  `state` keys the moments by the
+    parameter's index in `params`, so that they can be saved."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8  # optax defaults; the JAX package sets eps
 
@@ -74,7 +75,7 @@ class AdamGroup:
         self.lr, self.weight_decay = lr, weight_decay
         self.unfreeze_step = unfreeze_step
         self.count = 0  # the inner Adam / schedule count
-        self.state: dict[torch.nn.Parameter, tuple[torch.Tensor, torch.Tensor]] = {}
+        self.state: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
     @torch.no_grad()
     def step(self, outer_step: int,
@@ -88,24 +89,57 @@ class AdamGroup:
         bc1 = (1.0 - torch.tensor(self.b1) ** count).to(dev)  # f32, as optax
         bc2 = (1.0 - torch.tensor(self.b2) ** count).to(dev)
         step_size = -self.lr(self.count)
-        for p in self.params:
+        for i, p in enumerate(self.params):
             g = p.grad
-            if g is None and p not in self.state:
+            if g is None and i not in self.state:
                 continue
             if g is None:
                 g = torch.zeros_like(p)
             elif scale is not None:
                 g = scale(g)
-            mu, nu = self.state.get(p) or (torch.zeros_like(p),
+            mu, nu = self.state.get(i) or (torch.zeros_like(p),
                                            torch.zeros_like(p))
             mu = (1 - self.b1) * g + self.b1 * mu
             nu = (1 - self.b2) * (g * g) + self.b2 * nu
-            self.state[p] = (mu, nu)
+            self.state[i] = (mu, nu)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             if self.weight_decay:
                 u = u + self.weight_decay * p
             p.add_(u * step_size)
         self.count = count
+
+    def state_dict(self) -> dict:
+        """The count and the moments by parameter index; a parameter that
+        never had a gradient has no entry."""
+        return {"count": self.count,
+                "mu": {i: mu for i, (mu, _) in self.state.items()},
+                "nu": {i: nu for i, (_, nu) in self.state.items()}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore `state_dict()`'s output: moments present here are
+        overwritten in place, moments absent from `state` are dropped (so
+        the parameter stays without one), and the rest are created on the
+        parameter's device."""
+        if set(state["mu"]) != set(state["nu"]) or not all(
+                0 <= i < len(self.params) for i in state["mu"]):
+            raise ValueError("optimizer state does not match this group's "
+                             f"{len(self.params)} parameters")
+        for i in list(self.state):
+            if i not in state["mu"]:
+                del self.state[i]
+        for i, mu in state["mu"].items():
+            p, nu = self.params[i], state["nu"][i]
+            if mu.shape != p.shape or nu.shape != p.shape:
+                raise ValueError(f"moment {i} has shape {tuple(mu.shape)}, "
+                                 f"its parameter {tuple(p.shape)}")
+            if i in self.state:
+                self.state[i][0].copy_(mu)
+                self.state[i][1].copy_(nu)
+            else:
+                self.state[i] = (mu.to(p.device, torch.float32, copy=True),
+                                 nu.to(p.device, torch.float32, copy=True))
+        self.count = int(state["count"])
 
 
 def global_norm(params: list[torch.nn.Parameter]) -> torch.Tensor:
@@ -131,6 +165,20 @@ class GroupedOptimizer:
 
     def params(self):
         return [p for g in self.groups for p in g.params]
+
+    def state_dict(self) -> dict:
+        return {"steps": self.steps,
+                "groups": [g.state_dict() for g in self.groups]}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore `state_dict()`'s output in place (the groups keep their
+        parameters)."""
+        if len(state["groups"]) != len(self.groups):
+            raise ValueError(f"optimizer state has {len(state['groups'])} "
+                             f"groups, this optimizer {len(self.groups)}")
+        for group, g_state in zip(self.groups, state["groups"]):
+            group.load_state_dict(g_state)
+        self.steps = int(state["steps"])
 
     def zero_grad(self) -> None:
         for p in self.params():

@@ -48,7 +48,12 @@ import torch.nn.functional as F
 from vln_imagine_tpu_torch.config import Config
 from vln_imagine_tpu_torch.envx import env as envx
 from vln_imagine_tpu_torch.envx import gmap as G
-from vln_imagine_tpu_torch.envx.tables import INF, EpisodeBatch, WorldTables
+from vln_imagine_tpu_torch.envx.tables import (
+    INF,
+    EpisodeBatch,
+    WorldTables,
+    require_r2r_episodes,
+)
 from vln_imagine_tpu_torch.models.duet import DuetModel
 from vln_imagine_tpu_torch.ops.angles import view_elevation, view_heading
 from vln_imagine_tpu_torch.ops.dropout import Rng
@@ -167,6 +172,7 @@ def rollout_duet(model: DuetModel, tables: WorldTables, ep: EpisodeBatch,
     if any(unported.values()):
         raise NotImplementedError(
             f"not ported yet: {[k for k, v in unported.items() if v]}")
+    require_r2r_episodes(ep)
     training = train_ml is not None
     if early_exit and training:
         raise ValueError("early_exit is for inference rollouts only")
@@ -417,13 +423,15 @@ def make_eval_fn(model: DuetModel, tables: WorldTables, cfg: Config,
                  device=None):
     """Greedy-eval rollout on `device` (the card unless the caller names
     one): episodes -> (path_nodes, path_len).  Moves the model and the
-    tables there once."""
+    tables there once.  `eval_fn.steps` is the number of steps the last
+    call's loop ran."""
     dev = resolve_device(device)
     model.to(dev).eval()
     tables = tables.to(dev)
 
     def eval_fn(ep: EpisodeBatch):
         res = rollout_duet(model, tables, ep.to(dev), cfg, early_exit=True)
+        eval_fn.steps = res.steps
         return res.path_nodes, res.path_len
 
     return eval_fn

@@ -37,7 +37,11 @@ import torch
 
 from vln_imagine_tpu_torch.config import Config
 from vln_imagine_tpu_torch.envx import env as envx
-from vln_imagine_tpu_torch.envx.tables import EpisodeBatch, WorldTables
+from vln_imagine_tpu_torch.envx.tables import (
+    EpisodeBatch,
+    WorldTables,
+    require_r2r_episodes,
+)
 from vln_imagine_tpu_torch.models.bert import Critic
 from vln_imagine_tpu_torch.models.hamt import HamtModel
 from vln_imagine_tpu_torch.ops.dropout import Rng
@@ -104,6 +108,7 @@ def rollout_hamt(model: HamtModel, tables: WorldTables, ep: EpisodeBatch,
         raise ValueError("early_exit is for inference rollouts only")
     if cfg.dataset != "r2r":
         raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported yet")
+    require_r2r_episodes(ep)
     if train_rl and critic is None:
         raise ValueError("train_rl needs the critic")
     drop = None if deterministic else rng
@@ -292,13 +297,15 @@ def make_eval_fn(model: HamtModel, tables: WorldTables, cfg: Config,
                  device=None):
     """Greedy-eval rollout on `device` (the card unless the caller names
     one): episodes -> (path_nodes, path_len).  Moves the model and the
-    tables there once."""
+    tables there once.  `eval_fn.steps` is the number of steps the last
+    call's loop ran."""
     dev = resolve_device(device)
     model.to(dev).eval()
     tables = tables.to(dev)
 
     def eval_fn(ep: EpisodeBatch):
         res = rollout_hamt(model, tables, ep.to(dev), cfg, early_exit=True)
+        eval_fn.steps = res.steps
         return res.path_nodes, res.path_len
 
     return eval_fn
