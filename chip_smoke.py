@@ -73,7 +73,30 @@ JSON line; any failed check exits non-zero:
                 --iters 2 --log-every 1` with no `--device`, in process: it
                 runs on the card at the released HAMT preset, writes its
                 logs and checkpoints, and launches K1-K3.
-12. kernels     every kernel against its plain PyTorch version on the card:
+12. hamt_train_variants  the HAMT training branches past the released
+                recipe (`HAMT_VARIANTS`, after the released recipe itself
+                for a baseline in the same phase), each at the released
+                config with one change, full width, bf16, batch 8, every
+                dropout on: the fused IL + RL rollout at 8 + 8, the InfoNCE
+                and margin alignment losses, the full imagination encoder,
+                and rangerlars for 6 steps (the critic's Lookahead syncs at
+                the sixth).  Gates as
+                `train` (K2 / K3 per step from `train_launches_per_step`),
+                ms per step, peak memory; then one f32 fused step, dropout
+                off, card vs CPU with the same draws (`same_draws`).
+13. duet_train_variants  after the released DAgger recipe, DUET's
+                `train_alg="rl"` (A2C, the critic moves), DAgger with the
+                nDTW expert, with `expl_sample` and with `act_visited_nodes`
+                (`DUET_VARIANTS`), gates as `duet_train`;
+                then one f32 'rl' step card vs CPU with the same draws.
+14. duet_eval_variants  greedy eval under `fusion="local"` and with the
+                detailed stop table at batch 64: valid walks, K1 9 + 18 a
+                step, each item's stop table, episodes/s.
+15. train_cli_duet  `--agent duet --synthetic --detailed-output
+                --expl-sample --iters 2 --log-every 1` with no `--device`,
+                then the driver's validation with outputs: it writes
+                `detail_val_unseen.json` on the card.
+16. kernels     every kernel against its plain PyTorch version on the card:
                 K1 at every (Lq, Lk) of the eval path, B 8 and 64, and of
                 the teacher step, B 8; K2 (both bit sources), K3 (both) and
                 K4 at every training shape, B 8; every kernel also at the
@@ -84,7 +107,9 @@ JSON line; any failed check exits non-zero:
                 packed projection; and at DUET's shapes and bias forms
                 (`DUET_SHAPES`: the graph bias [B,1,97,97] with dBias, the
                 -1e9 pano key padding), with launch-weighted times per DUET
-                step (`duet_weighted`).  Kernel, plain and library times
+                step (`duet_weighted`); and at the imagination encoder's
+                20/20 with one item's keys all masked (`IMAGINE_SHAPE`).
+                Kernel, plain and library times
                 (CUDA-graph replays between CUDA events) beside the least
                 time the card could take.  Two K2 calls, and two K3 calls,
                 give the same bits.
@@ -102,6 +127,8 @@ checkout of the repository, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import statistics
@@ -173,6 +200,10 @@ FWD_EDGE_CASES = [(80, 129, 64), (67, 80, 32), (67, 80, 128)]
 # 220 = 200 text + 20 imagination tokens)
 DUET_SHAPES = [(200, 200, "mask"), (50, 50, "pad"), (97, 220, "mask"),
                (97, 97, "graph"), (51, 220, "mask"), (51, 51, "mask")]
+# HAMT's full imagination encoder (`bypass_imag_encoder=False`): a
+# self-attention over max_imagination_len tokens with the -10000 key mask;
+# an item without imaginations has every key of its rows masked
+IMAGINE_SHAPE = (20, 20, "imagine")
 DUET_TEXT_CALLS = 9
 DUET_STEP_CALLS = {(50, 50): 2, (97, 220): 4, (97, 97): 4, (51, 220): 4,
                    (51, 51): 4}
@@ -393,15 +424,23 @@ def train_launches_per_step(cfg) -> tuple[int, int]:
     dropout on (K2).  IL rollout: the language stack once, then per step 4
     per cross-modal layer and 1 per pano layer; the RL rollout the same over
     max_action_len steps plus the final-state visual call (4 per x-layer).
-    Backward (K3): only the x-layer calls, since fix_lang_embedding and
-    fix_hist_embedding keep the language stack and the pano encoder out of
-    autograd and the final-state value is under stop-gradient."""
+    With `fused_sample_rollout` one rollout of max_action_len steps does
+    both.  The full imagination encoder (`bypass_imag_encoder=False`) adds
+    its `num_pano_layers` self-attentions once a rollout.  Backward (K3):
+    the x-layer calls and the imagination encoder's, since
+    fix_lang_embedding and fix_hist_embedding keep the language stack and
+    the pano encoder out of autograd and the final-state value is under
+    stop-gradient."""
     m, e = cfg.model, cfg.env
     t_il, t_rl = min(e.max_gt_path_len, e.max_action_len), e.max_action_len
     per_step = 4 * m.num_x_layers + m.num_pano_layers
-    k2 = (m.num_l_layers + t_il * per_step) + (m.num_l_layers + t_rl * per_step
-                                               + 4 * m.num_x_layers)
-    k3 = 4 * m.num_x_layers * (t_il + t_rl)
+    imagine = (m.num_pano_layers if m.imagine_enc_pano
+               and not m.bypass_imag_encoder else 0)
+    rollouts = [t_rl] if cfg.train.fused_sample_rollout else [t_il, t_rl]
+    k2 = sum(m.num_l_layers + imagine + t * per_step for t in rollouts) \
+        + 4 * m.num_x_layers
+    k3 = sum(4 * m.num_x_layers * t
+             + (0 if m.fix_imagine_embeds else imagine) for t in rollouts)
     return k2, k3
 
 
@@ -479,38 +518,80 @@ def train_phase(torch, cfg, world):
 
 
 # --------------------------------------------------------------- phase 5
-def train_parity_phase(torch, cfg, world):
-    from vln_imagine_tpu_torch.config import _replace
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops import attention
-    from vln_imagine_tpu_torch.train.trainer import HamtTrainer
+PARITY_DRAW_SEED = 7
 
-    cfg32 = _replace(cfg, "model", compute_dtype="float32",
-                     hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
-                     pred_head_dropout_prob=0.0)
-    cfg32 = _replace(cfg32, "train", feat_dropout=0.0)
-    ep = bench_episodes(world, cfg32, 2)
+
+@contextlib.contextmanager
+def same_draws(torch, module):
+    """Within the block, `module.sample_categorical` takes its Gumbel noise
+    from one CPU generator seeded PARITY_DRAW_SEED, so that the card and the
+    CPU draw the same actions from (nearly) the same log-probabilities."""
+    gen = torch.Generator().manual_seed(PARITY_DRAW_SEED)
+
+    def draw(logp, generator):
+        u = torch.rand(logp.shape, generator=gen).to(logp.device)
+        g = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+        return torch.argmax(logp + g, dim=-1)
+
+    orig, module.sample_categorical = module.sample_categorical, draw
+    try:
+        yield
+    finally:
+        module.sample_categorical = orig
+
+
+def cfg_f32(cfg, **train):
+    """`cfg` in f32 with every dropout of the config off."""
+    from vln_imagine_tpu_torch.config import _replace
+
+    cfg = _replace(cfg, "model", compute_dtype="float32",
+                   hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                   pred_head_dropout_prob=0.0)
+    return _replace(cfg, "train", feat_dropout=0.0, **train)
+
+
+def f32_parity(torch, phase, make_trainer, make_step, keys, lr, draws=None,
+               grads=None, **fields):
+    """One f32 train step, every dropout off, on the card and on the CPU:
+    `make_trainer(device)` gives (trainer, episodes), `make_step(trainer)`
+    the step; with `draws` (a rollout module) both sides draw the same
+    actions (`same_draws`).  Emits `phase` (with `fields`), then gates: K1
+    and K4 only on the card; the metrics `keys` and the gradients that
+    `grads(trainer)` names within TRAIN_TOL relative; every updated element
+    within 2 * lr * 10 and all but UPDATE_FRACTION of the moved ones within
+    UPDATE_TOL.  Returns the card's launches."""
+    from vln_imagine_tpu_torch.ops import attention
+
     out, launches = {}, None
     for dev in ("cuda", "cpu"):
-        trainer = HamtTrainer(cfg32, world, device=dev)
-        # the alignment head's fixed 0.15 dropout, off on both sides
+        trainer, ep = make_trainer(dev)
+        # the alignment head's fixed 0.15 dropout and the critic's 0.5, off
+        # on both sides
         trainer.model.contrastive_alignment_model.image_proj.rate = 0.0
+        if trainer.critic is not None:
+            trainer.critic.rate = 0.0
         before = {k: v.detach().cpu().clone()
                   for k, v in trainer.model.named_parameters()}
-        if dev == "cuda":
-            attention.reset_launch_counts()
-        m = trainer.make_train_step("teacher")(ep, ep)
+        step = make_step(trainer)
+        attention.reset_launch_counts()
+        with (contextlib.nullcontext() if draws is None
+              else same_draws(torch, draws)):
+            m = step(ep, ep)
         if dev == "cuda":
             torch.cuda.synchronize()
             launches = attention.launch_counts()
         out[dev] = ({k: float(v) for k, v in m.items()},
                     {k: v.detach().cpu() - before[k]
-                     for k, v in trainer.model.named_parameters()})
+                     for k, v in trainer.model.named_parameters()},
+                    {k: g.detach().cpu()
+                     for k, g in ({} if grads is None
+                                  else grads(trainer)).items()})
         del trainer
     torch.cuda.empty_cache()
-    (gm, gu), (cm, cu) = out["cuda"], out["cpu"]
-    rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-30)
-           for k in ("loss", "grad_norm", "ml_loss", "aux_loss")}
+    (gm, gu, gg), (cm, cu, cg) = out["cuda"], out["cpu"]
+    rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-30) for k in keys}
+    for k, c in cg.items():
+        rel[k] = float((gg[k] - c).abs().max() / c.abs().max().clamp_min(1e-30))
     worst, n_off, n_all = 0.0, 0, 0
     for name in cu:
         d = (gu[name] - cu[name]).abs()
@@ -518,23 +599,38 @@ def train_parity_phase(torch, cfg, world):
         n_off += int((d > UPDATE_TOL).sum())
         n_all += d.numel()
     moved = sum(int((u != 0).sum()) for u in cu.values())
-    emit({"phase": "train_parity", "compute_dtype": "float32", "batch": 2,
-          "feedback": "teacher", "card": gm, "cpu": cm, "rel_err": rel,
-          "tol": TRAIN_TOL, "launches": launches,
+    emit({"phase": phase, "compute_dtype": "float32", **fields, "card": gm,
+          "cpu": cm, "rel_err": rel, "tol": TRAIN_TOL, "launches": launches,
           "update_max_abs_err": worst, "update_elements_off": n_off,
           "update_elements": n_all, "elements_moved": moved,
           "update_tol": UPDATE_TOL, "update_fraction": UPDATE_FRACTION})
     check(launches["attention_fwd"] > 0 and launches["attention_bwd"] > 0
           and launches["attention_dropout_fwd"] == 0
           and launches["attention_dropout_bwd"] == 0,
-          f"train_parity launches {launches}")
-    check(all(r <= TRAIN_TOL for r in rel.values()), f"card vs CPU {rel}")
-    check(moved > 0, "no parameter moved")
-    check(worst <= 2.0 * cfg.train.lr * 10.0 + 1e-6
-          and n_off <= UPDATE_FRACTION * moved,
-          f"updates differ: max {worst}, {n_off} of {moved} moved elements "
-          f"beyond {UPDATE_TOL}")
+          f"{phase} launches {launches}")
+    for k, c in cg.items():
+        check(float(c.abs().max()) > 0, f"{phase}: no gradient reached {k}")
+    check(all(r <= TRAIN_TOL for r in rel.values()), f"{phase}: card vs CPU {rel}")
+    check(moved > 0, f"{phase}: no parameter moved")
+    check(worst <= 2.0 * lr * 10.0 + 1e-6 and n_off <= UPDATE_FRACTION * moved,
+          f"{phase}: updates differ: max {worst}, {n_off} of {moved} moved "
+          f"elements beyond {UPDATE_TOL}")
     return launches
+
+
+def train_parity_phase(torch, cfg, world):
+    """One HAMT teacher step, f32, batch 2, card vs CPU (`f32_parity`)."""
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.train.trainer import HamtTrainer
+
+    cfg32 = cfg_f32(cfg)
+    return f32_parity(
+        torch, "train_parity",
+        lambda dev: (HamtTrainer(cfg32, world, device=dev),
+                     bench_episodes(world, cfg32, 2)),
+        lambda tr: tr.make_train_step("teacher"),
+        ("loss", "grad_norm", "ml_loss", "aux_loss"), cfg.train.lr,
+        batch=2, feedback="teacher")
 
 
 # --------------------------------------------------------------- DUET
@@ -746,67 +842,25 @@ def duet_train_phase(torch, cfg, world):
 
 
 def duet_train_parity_phase(torch, cfg, world):
-    from vln_imagine_tpu_torch.config import _replace
+    """One DUET 'imitation' step, f32, batch 2, card vs CPU (`f32_parity`),
+    with the gradient that K4's dBias carries into `sprel_linear`."""
     from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops import attention
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
 
-    cfg32 = _replace(cfg, "model", compute_dtype="float32",
-                     hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
-                     pred_head_dropout_prob=0.0)
-    cfg32 = _replace(cfg32, "train", feat_dropout=0.0, train_alg="imitation")
-    ep = bench_episodes(world, cfg32, 2)
-    out, launches = {}, None
-    for dev in ("cuda", "cpu"):
-        trainer = DuetTrainer(cfg32, world, device=dev)
-        trainer.model.contrastive_alignment_model.image_proj.rate = 0.0
-        before = {k: v.detach().cpu().clone()
-                  for k, v in trainer.model.named_parameters()}
-        if dev == "cuda":
-            attention.reset_launch_counts()
-        m = trainer.make_train_step()(ep, ep)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            launches = attention.launch_counts()
-        sprel = trainer.model.global_encoder.sprel_linear
-        out[dev] = ({k: float(v) for k, v in m.items()},
-                    {k: v.detach().cpu() - before[k]
-                     for k, v in trainer.model.named_parameters()},
-                    torch.cat([sprel.weight.grad.flatten(),
-                               sprel.bias.grad.flatten()]).cpu())
-        del trainer
-    torch.cuda.empty_cache()
-    (gm, gu, gs), (cm, cu, cs) = out["cuda"], out["cpu"]
-    rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-30)
-           for k in ("loss", "grad_norm", "ml_loss", "aux_loss")}
-    rel["sprel_linear_grad"] = float(
-        (gs - cs).abs().max() / cs.abs().max().clamp_min(1e-30))
-    worst, n_off, n_all = 0.0, 0, 0
-    for name in cu:
-        d = (gu[name] - cu[name]).abs()
-        worst = max(worst, float(d.max()))
-        n_off += int((d > UPDATE_TOL).sum())
-        n_all += d.numel()
-    moved = sum(int((u != 0).sum()) for u in cu.values())
-    emit({"phase": "duet_train_parity", "compute_dtype": "float32", "batch": 2,
-          "train_alg": "imitation", "card": gm, "cpu": cm, "rel_err": rel,
-          "sprel_linear_grad_cpu": cs.tolist(), "tol": TRAIN_TOL,
-          "launches": launches, "update_max_abs_err": worst,
-          "update_elements_off": n_off, "update_elements": n_all,
-          "elements_moved": moved, "update_tol": UPDATE_TOL,
-          "update_fraction": UPDATE_FRACTION})
-    check(launches["attention_fwd"] > 0 and launches["attention_bwd"] > 0
-          and launches["attention_dropout_fwd"] == 0
-          and launches["attention_dropout_bwd"] == 0,
-          f"duet_train_parity launches {launches}")
-    check(float(cs.abs().max()) > 0, "no gradient reached sprel_linear")
-    check(all(r <= TRAIN_TOL for r in rel.values()), f"duet card vs CPU {rel}")
-    check(moved > 0, "no parameter moved")
-    check(worst <= 2.0 * cfg.train.lr * 10.0 + 1e-6
-          and n_off <= UPDATE_FRACTION * moved,
-          f"duet updates differ: max {worst}, {n_off} of {moved} moved "
-          f"elements beyond {UPDATE_TOL}")
-    return launches
+    cfg32 = cfg_f32(cfg, train_alg="imitation")
+
+    def sprel_grad(tr):
+        sprel = tr.model.global_encoder.sprel_linear
+        return {"sprel_linear_grad": torch.cat([sprel.weight.grad.flatten(),
+                                                sprel.bias.grad.flatten()])}
+
+    return f32_parity(
+        torch, "duet_train_parity",
+        lambda dev: (DuetTrainer(cfg32, world, device=dev),
+                     bench_episodes(world, cfg32, 2)),
+        lambda tr: tr.make_train_step(),
+        ("loss", "grad_norm", "ml_loss", "aux_loss"), cfg.train.lr,
+        grads=sprel_grad, batch=2, train_alg="imitation")
 
 
 # --------------------------------------------------------------- the driver
@@ -1073,47 +1127,334 @@ def driver_phase(torch, cfg, scratch: Path):
     return launches
 
 
-def cli_phase(torch, scratch: Path):
+CLI_FILES = ("train.txt", "metrics.jsonl", "ckpts/latest_dict",
+             "ckpts/best_val_unseen")
+
+
+def cli_phase(torch, scratch: Path, phase, argv, files=CLI_FILES,
+              after=None):
     """The train CLI on the card, as a user runs it, with no --device:
-    `--synthetic --iters 2 --log-every 1` (HAMT's released preset)."""
+    `argv` in process, then `after(driver, log_dir)` (more work and checks,
+    giving more fields to emit).  Gates: it ran on the card, wrote
+    `files`, and launched K1 = 9 + 18 a step over its eval steps and K2 /
+    K3 = iters x the agent's per-step counts, K4 none."""
     from vln_imagine_tpu_torch.ops import attention
     from vln_imagine_tpu_torch.scripts import train as cli
 
     t_phase = time.perf_counter()
-    log = scratch / "cli"
+    log = scratch / phase
     attention.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    d = cli.main(["--synthetic", "--iters", "2",
-                  "--log-every", "1", "--log-dir", str(log)])
+    d = cli.main(argv + ["--log-dir", str(log)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    extra = {} if after is None else after(d, log)
+    torch.cuda.synchronize()
     launches = attention.launch_counts()
     check(d.device.type == "cuda", f"the CLI ran on {d.device}")
-    for name in ("train.txt", "metrics.jsonl", "ckpts/latest_dict",
-                 "ckpts/best_val_unseen"):
+    for name in files:
         check((log / name).is_file(), f"the CLI wrote no {name}")
     per_episode, per_step = eval_calls(d.cfg)
-    k2, k3 = train_launches_per_step(d.cfg)
+    k2, k3 = (duet_train_launches_per_step if d.cfg.agent == "duet"
+              else train_launches_per_step)(d.cfg)
     iters = len(d.timings["train"])
     want = {"attention_fwd": sum(per_episode + per_step * s
                                  for s in d.eval_step_counts),
             "attention_dropout_fwd": iters * k2,
             "attention_dropout_bwd": iters * k3, "attention_bwd": 0}
     check(iters == 2 and launches == want,
-          f"CLI launches {launches}, expected {want}")
-    emit({"phase": "train_cli", "argv": "--synthetic --iters 2 --log-every 1",
-          "config": "hamt_r2r_config", "seconds": seconds,
+          f"{phase} launches {launches}, expected {want}")
+    emit({"phase": phase, "argv": " ".join(argv),
+          "config": f"{d.cfg.agent}_r2r_config", "seconds": seconds,
           "phase_s": time.perf_counter() - t_phase,
           "eval_steps": d.eval_step_counts, "expected": want,
           "interval_s": [t["seconds"] for t in d.timings["train"]],
           "validate_s": [t["seconds"] for t in d.timings["validate"]],
           "checkpoint_saves": d.ckpt.events,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches})
+          "launches": launches, **extra})
     del d
     torch.cuda.empty_cache()
     return launches
+
+
+def duet_details(d, log: Path) -> dict:
+    """After the DUET CLI: the driver's validation with its outputs writes
+    `detail_val_unseen.json`, one entry per item whose stop table covers
+    the item's start and end, only nodes of its path, probabilities in
+    [0, 1]."""
+    check(d.cfg.train.expl_sample and d.cfg.train.detailed_output,
+          "the flags did not reach the config")
+    val = next(s for s in d.val_splits if s.name == "val_unseen")
+    d.validate(val, write_outputs=True)
+    preds = json.loads((log / "detail_val_unseen.json").read_text())
+    check(len(preds) == val.episodes.scan.shape[0], "detail_val_unseen.json "
+          f"holds {len(preds)} items")
+    for p in preds:
+        vps = [vp for vp, *_ in p["trajectory"]]
+        check({vps[0], vps[-1]} <= p["details"].keys() <= set(vps)
+              and all(0.0 <= v["stop_prob"] <= 1.0
+                      for v in p["details"].values()),
+              f"{p['instr_id']}: details {p['details']}")
+    return {"detail_items": len(preds)}
+
+
+# ------------------------------------------------- the deferred branches
+# (name, config part, overrides, steps) of the HAMT and DUET train phases:
+# each runs one warm-up step and times the rest.  The first entry is the
+# released recipe, timed in the same phase as the variants
+HAMT_VARIANTS = (
+    ("released", "train", {}, 4),
+    ("fused_sample_rollout", "train", {"fused_sample_rollout": True}, 4),
+    ("aux_infonce", "model", {"aux_loss_type": "infonce"}, 4),
+    ("aux_margin", "model", {"aux_loss_type": "margin"}, 4),
+    ("imagine_encoder", "model", {"bypass_imag_encoder": False}, 4),
+    # the critic's optimizer is the plain one: Lookahead syncs at step 6
+    ("optim_rangerlars", "train", {"optim": "rangerlars"}, 6),
+)
+DUET_VARIANTS = (
+    ("released", "train", {}, 4),
+    ("rl", "train", {"train_alg": "rl", "gamma": 0.9}, 4),
+    ("expert_ndtw", "train", {"expert_policy": "ndtw"}, 4),
+    ("expl_sample", "train", {"expl_sample": True}, 4),
+    ("act_visited_nodes", "train", {"act_visited_nodes": True}, 4),
+)
+DUET_EVAL_BATCH = 64
+
+
+def stage1_split(label, model, before) -> tuple[list, list]:
+    """Parameters that moved and that stayed bitwise; in stage 1 only the
+    aux groups may move and all of them must."""
+    moved, still = [], []
+    for name, v in model.state_dict().items():
+        (still if v.equal(before[name]) else moved).append(name)
+    check(all(label(n) == "rest" for n in still)
+          and all(label(n) != "rest" for n in moved),
+          f"stage 1: moved {[n for n in moved if label(n) == 'rest'][:5]}, "
+          f"still {[n for n in still if label(n) != 'rest'][:5]}")
+    return moved, still
+
+
+def variant_steps(torch, make_trainer, ep, steps, want):
+    """Build a trainer on the card, run `steps` train steps (the first a
+    warm-up) and gate each: finite metrics, grad_norm > 0, K2 / K3 launches
+    = `want` (K1, K4 none), stage-1 semantics, the critic moved (when there
+    is one).  Returns (trainer, record)."""
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.train.optim import label_hamt_param
+
+    gc.collect()  # what an earlier trainer left in reference cycles
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trainer = make_trainer()
+    model0 = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    critic0 = (None if trainer.critic is None else
+               {k: v.clone() for k, v in trainer.critic.state_dict().items()})
+    step = (trainer.make_train_step("sample") if trainer.cfg.agent == "hamt"
+            else trainer.make_train_step())
+    step(ep, ep)  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics, counts = [], [], []
+    for _ in range(steps - 1):
+        # the counted run of one step: every count to 0 just before
+        attention.reset_launch_counts()
+        t = time.perf_counter()
+        m = step(ep, ep)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        counts.append(attention.launch_counts())
+        metrics.append({k: float(v) for k, v in m.items()})
+    for m in metrics:
+        check(all(math.isfinite(v) for v in m.values()), f"metrics {m}")
+        check(m["grad_norm"] > 0, f"grad_norm {m['grad_norm']}")
+    k2, k3 = want
+    for c in counts:
+        check(c == {"attention_fwd": 0, "attention_dropout_fwd": k2,
+                    "attention_dropout_bwd": k3, "attention_bwd": 0},
+              f"launches per step {c}, expected K2 {k2} and K3 {k3} only")
+    moved, still = stage1_split(label_hamt_param, trainer.model, model0)
+    if critic0 is not None:
+        check(all(not v.equal(critic0[k])
+                  for k, v in trainer.critic.state_dict().items()),
+              "the critic did not move")
+    return trainer, {
+        "setup_s": setup_s, "step_ms": statistics.median(times),
+        "step_ms_all": times, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "metrics": metrics[-1], "launches_per_step": counts[-1],
+        "expected_per_step": {"attention_dropout_fwd": k2,
+                              "attention_dropout_bwd": k3},
+        "params_moved": len(moved), "params_unchanged": len(still)}
+
+
+def most_launches(runs: dict, key: str) -> dict:
+    """Per kernel, the most launches of any run of a phase."""
+    return {k: max(r[key][k] for r in runs.values())
+            for k in next(iter(runs.values()))[key]}
+
+
+RL_KEYS = ("loss", "grad_norm", "ml_loss", "rl_loss", "aux_loss", "entropy")
+
+
+def hamt_train_variants_phase(torch, cfg, world):
+    """The HAMT training branches beyond the released recipe, each at the
+    released config with one change (HAMT_VARIANTS), full width, bf16,
+    every dropout on, batch 8 (+ 8 in the fused rollout); then one f32
+    fused step card vs CPU with the same draws, at batch 1 (+ 1)."""
+    from vln_imagine_tpu_torch.config import _replace
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.train import rollout_hamt as RH
+    from vln_imagine_tpu_torch.train.trainer import HamtTrainer
+
+    t_phase = time.perf_counter()
+    ep = bench_episodes(world, cfg, TRAIN_BATCH).to("cuda")
+    runs = {}
+    for name, part, over, steps in HAMT_VARIANTS:
+        vcfg = _replace(cfg, part, **over)
+        trainer, rec = variant_steps(
+            torch, lambda: HamtTrainer(vcfg, world, device="cuda"), ep, steps,
+            train_launches_per_step(vcfg))
+        if name == "optim_rangerlars":
+            # variant4 keeps the navigator's Ralamb without Lookahead; the
+            # critic's plain optimizer synced at its sixth step, which left
+            # each critic weight at its (new) slow weight
+            c_opt = trainer.critic_optimizer
+            check(trainer.optimizer.slow is None
+                  and c_opt.lookahead_count == steps
+                  and all(torch.allclose(w, p, rtol=1e-6, atol=1e-6)
+                          for w, p in zip(c_opt.slow, c_opt.params())),
+                  "rangerlars: no Lookahead sync of the critic at step "
+                  f"{steps}")
+            rec["critic_lookahead_count"] = c_opt.lookahead_count
+        runs[name] = rec
+        del trainer
+        torch.cuda.empty_cache()
+    emit({"phase": "hamt_train_variants", "config": "hamt_r2r_config",
+          "compute_dtype": cfg.model.compute_dtype, "batch": TRAIN_BATCH,
+          "baseline": "the train phase (released recipe)", "runs": runs,
+          "phase_s": time.perf_counter() - t_phase})
+
+    pcfg = cfg_f32(cfg, fused_sample_rollout=True)
+    f32_parity(torch, "hamt_fused_f32_parity",
+               lambda dev: (HamtTrainer(pcfg, world, device=dev),
+                            bench_episodes(world, pcfg, 1)),
+               lambda tr: tr.make_train_step("sample"), RL_KEYS,
+               cfg.train.lr, draws=RH, batch=1, fused_sample_rollout=True)
+    return most_launches(runs, "launches_per_step")
+
+
+def duet_train_variants_phase(torch, cfg, world):
+    """DUET's training branches beyond DAgger with the SPL expert, each at
+    the released config with one change (DUET_VARIANTS), full width, bf16,
+    every dropout on, batch 8; then one f32 'rl' step card vs CPU with the
+    same draws, at batch 2."""
+    from vln_imagine_tpu_torch.config import _replace
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.train import rollout_duet as RD
+    from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
+
+    t_phase = time.perf_counter()
+    ep = bench_episodes(world, cfg, TRAIN_BATCH).to("cuda")
+    runs = {}
+    for name, part, over, steps in DUET_VARIANTS:
+        vcfg = _replace(cfg, part, **over)
+        trainer, rec = variant_steps(
+            torch, lambda: DuetTrainer(vcfg, world, device="cuda"), ep, steps,
+            duet_train_launches_per_step(vcfg))
+        check((trainer.critic is not None) == (name == "rl"),
+              f"{name}: a critic only under train_alg 'rl'")
+        runs[name] = rec
+        del trainer
+        torch.cuda.empty_cache()
+    emit({"phase": "duet_train_variants", "config": "duet_r2r_config",
+          "compute_dtype": cfg.model.compute_dtype, "batch": TRAIN_BATCH,
+          "baseline": "the duet_train phase (DAgger, SPL expert)",
+          "runs": runs, "phase_s": time.perf_counter() - t_phase})
+
+    pcfg = cfg_f32(cfg, train_alg="rl", gamma=0.9)
+    f32_parity(torch, "duet_rl_f32_parity",
+               lambda dev: (DuetTrainer(pcfg, world, device=dev),
+                            bench_episodes(world, pcfg, 2)),
+               lambda tr: tr.make_train_step(), RL_KEYS, cfg.train.lr,
+               draws=RD, batch=2, train_alg="rl")
+    return most_launches(runs, "launches_per_step")
+
+
+def check_stop_tables(paths, lens, table) -> int:
+    """Each item's stop table holds the nodes it stood at: its start and end
+    among them, and only nodes of its path.  Returns the table entries."""
+    nodes, _, valid = (x.cpu().numpy() for x in table)
+    total = 0
+    for b in range(len(lens)):
+        path = paths[b, :int(lens[b])].tolist()
+        mine = set(nodes[b][valid[b]].tolist())
+        check({path[0], path[-1]} <= mine <= set(path),
+              f"item {b}: stop table {sorted(mine)} against path {path}")
+        total += len(mine)
+    return total
+
+
+def duet_eval_variants_phase(torch, cfg, world):
+    """Greedy eval under `fusion="local"` and with `detailed_output` (the
+    final stop table) at the released config, full width, bf16, batch 64:
+    valid walks, K1 launches 9 + 18 a step, episodes/s, and each item's
+    stop table."""
+    import numpy as np
+
+    from vln_imagine_tpu_torch.config import _replace
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.train.rollout_duet import path_buffer_len
+    from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
+
+    per_episode, per_step = duet_calls(cfg)
+    ep_np = bench_episodes(world, cfg, DUET_EVAL_BATCH)
+    ep = ep_np.to("cuda")
+    runs = {}
+    for name, vcfg, detailed in (
+            ("fusion_local", _replace(cfg, "model", fusion="local"), False),
+            ("detailed_output", _replace(cfg, "train", detailed_output=True),
+             True)):
+        trainer = DuetTrainer(vcfg, world, device="cuda")
+        eval_step = trainer.make_eval_step(detailed=detailed)
+        eval_step(ep)  # warm-up
+        attention.reset_launch_counts()
+        out = eval_step(ep)
+        torch.cuda.synchronize()
+        launches = attention.launch_counts()
+        steps = eval_step.steps
+        nodes, lens = out[0].cpu().numpy(), out[1].cpu().numpy()
+        want = per_episode + per_step * steps
+        check(launches == {"attention_fwd": want, "attention_dropout_fwd": 0,
+                           "attention_dropout_bwd": 0, "attention_bwd": 0},
+              f"{name}: launches {launches} for {steps} steps, expected "
+              f"K1 {want}")
+        jumps = check_walks(world, ep_np, nodes, lens, path_buffer_len(vcfg),
+                            jumps_allowed=True)
+        entries = (check_stop_tables(nodes, lens, out[2]) if detailed
+                   else None)
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            again = eval_step(ep)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            check(np.array_equal(again[0].cpu().numpy(), nodes),
+                  f"{name}: greedy paths differ between runs")
+        dt = statistics.median(times)
+        runs[name] = {"steps": steps, "attention_launches": launches,
+                      "episodes_per_s": DUET_EVAL_BATCH / dt,
+                      "episode_batch_ms": dt * 1e3,
+                      "episode_batch_ms_all": [x * 1e3 for x in times],
+                      "path_len_max": int(lens.max()),
+                      "non_edge_moves": jumps, "stop_table_entries": entries}
+        del trainer
+    emit({"phase": "duet_eval_variants", "config": "duet_r2r_config",
+          "compute_dtype": cfg.model.compute_dtype, "batch": DUET_EVAL_BATCH,
+          "baseline": "the duet_eval phase", "runs": runs})
+    return most_launches(runs, "attention_launches")
 
 
 # --------------------------------------------------------------- phase 6
@@ -1138,6 +1479,9 @@ def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen, D=HEAD_DIM):
             bias = bias + torch.randn(B, 1, lq, lk, device=dev, generator=gen)
         elif bias_kind == "pad":  # DUET's pano key padding
             bias = torch.where(keep, 0.0, -1e9)[:, None, None, :]
+        elif bias_kind == "imagine":  # item 0 has no imagination at all
+            keep[0] = False
+            bias = extend_neg_mask(keep)
     return q, k, v, do, bias
 
 
@@ -1345,6 +1689,16 @@ def kernels_phase(torch, parent=None):
                 cases.append(kernel_case(torch, kernel, TRAIN_BATCH, lq, lk,
                                          dt, bk, gen, bits=bits,
                                          timed=dt == "bfloat16"))
+    lq, lk, bk = IMAGINE_SHAPE  # every kernel, a fully masked item
+    for dt in ("bfloat16", "float32"):
+        for B in BATCHES:
+            cases.append(kernel_case(torch, "attention_fwd", B, lq, lk, dt, bk,
+                                     gen))
+        for kernel, bits in (("attention_dropout_fwd", "philox"),
+                             ("attention_dropout_bwd", "philox"),
+                             ("attention_bwd", None)):
+            cases.append(kernel_case(torch, kernel, TRAIN_BATCH, lq, lk, dt,
+                                     bk, gen, bits=bits))
     emit({"phase": "kernels", "cases": cases,
           "duet_weighted": duet_weighted(cases),
           "fwd_deterministic": determinism(torch, gen, "attention_dropout_fwd"),
@@ -1480,7 +1834,21 @@ def main() -> None:
     with scratch_dir() as tmp:
         path_launches["driver_duet"] = driver_phase(torch, dcfg, Path(tmp))
     with scratch_dir() as tmp:
-        path_launches["train_cli"] = cli_phase(torch, Path(tmp))
+        path_launches["train_cli"] = cli_phase(
+            torch, Path(tmp), "train_cli",
+            ["--synthetic", "--iters", "2", "--log-every", "1"])
+    path_launches["hamt_train_variants"] = hamt_train_variants_phase(
+        torch, cfg, world)
+    path_launches["duet_train_variants"] = duet_train_variants_phase(
+        torch, dcfg, world)
+    path_launches["duet_eval_variants"] = duet_eval_variants_phase(
+        torch, dcfg, world)
+    with scratch_dir() as tmp:
+        path_launches["train_cli_duet"] = cli_phase(
+            torch, Path(tmp), "train_cli_duet",
+            ["--agent", "duet", "--synthetic", "--detailed-output",
+             "--expl-sample", "--iters", "2", "--log-every", "1"],
+            CLI_FILES + ("detail_val_unseen.json",), after=duet_details)
     # after the paths, so that their peak memory is their own
     cases = kernels_phase(torch, parent)
 

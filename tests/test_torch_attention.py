@@ -340,9 +340,9 @@ def test_fused_attention_backward_matches_autograd(case, bits):
 # ------------------------------------- the backward kernels' arithmetic
 # csrc/attention_bwd.cu in bf16, emulated on the CPU: the first kernel
 # sweeps the keys in sub-tiles of 16 with an online row max, keeping the row
-# sum of exp(S - max) and of exp(S - max) * dP, and stores LSE and delta =
-# rowsum(dP * P); both kernels rebuild P = exp(S - LSE) and dS = P (dP -
-# delta) in f32, round dS and P * M to bf16 for the tensor-core products dQ,
+# sum of exp(S - max) and of exp(S - max) * dP, and stores the max, 1 / the
+# sum and delta = rowsum(dP * P); both kernels rebuild P = exp(S - max) *
+# (1 / sum) and dS = P (dP - delta) in f32, round dS and P * M to bf16 for the tensor-core products dQ,
 # dK and dV (f32 accumulation), and round the outputs to bf16.  The
 # emulation is held against the plain version and the interpret-mode Pallas
 # K3 (hash bits) at every training shape within BF16_TOL: the rounding of
@@ -375,8 +375,8 @@ def _emulate_bwd_kernels(q, k, v, bias, do, scale, mask, sub=16):
         total = total * corr + e.sum(-1)
         dot = dot * corr + (e * dpj).sum(-1)
         mx = m
-    lse, delta = mx + torch.log(total), dot / total
-    p = torch.exp(s - lse[..., None])
+    delta = dot / total
+    p = torch.exp(s - mx[..., None]) * (1.0 / total)[..., None]
     ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", _bf16(ds), k) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", _bf16(ds), q) * scale
@@ -878,3 +878,40 @@ def test_kernels_at_duet_shapes_on_card(cuda, lq, lk, kind, dtype):
         for a, b in zip(got[name], w):
             torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol,
                                        msg=f"{name} {lq}x{lk} {kind}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_the_imagination_encoder_shape_on_card(cuda, dtype):
+    """K1-K4 at the full imagination encoder's self-attention (Lq = Lk =
+    max_imagination_len 20, the -10000 key mask), where one item has no
+    imagination and every key of its rows is masked: finite, and what the
+    plain version gives there."""
+    q, k, v, _, do = _card_case(cuda, 20, 20, False, dtype, 2020)
+    g = torch.Generator(device="cuda").manual_seed(20)
+    keep = torch.rand(q.shape[0], 20, device=cuda, generator=g) < 0.8
+    keep[0] = False
+    bias = (1.0 - keep.float())[:, None, None, :] * -10000.0
+    seed, tol = 2 ** 39 + 1, (CARD_F32_TOL if dtype == torch.float32
+                              else BF16_TOL)
+    before = launch_counts()
+    got = {"k1": (attention_fwd(q, k, v, bias, 0.125),),
+           "k2": (attention_dropout_fwd(q, k, v, bias, 0.125, 0.1, seed,
+                                        "philox"),),
+           "k3": attention_dropout_bwd(q, k, v, bias, do, 0.125, 0.1, seed,
+                                       "philox")[:3],
+           "k4": attention_bwd(q, k, v, bias, do, 0.125)[:3]}
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert all(after[n] == before[n] + 1 for n in after)
+    want = {"k1": (attention_reference(q, k, v, bias, 0.125),),
+            "k2": (attention_dropout_reference(q, k, v, bias, 0.125, 0.1,
+                                               seed, "philox"),),
+            "k3": attention_bwd_reference(q, k, v, bias, do, 0.125, 0.1, seed,
+                                          "philox")[:3],
+            "k4": attention_bwd_reference(q, k, v, bias, do, 0.125)[:3]}
+    for name in got:
+        for a, b in zip(got[name], want[name]):
+            assert torch.isfinite(a).all(), name
+            torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol,
+                                       msg=f"{name} fully masked item")

@@ -5,7 +5,9 @@
   last one wraps and bucketing reorders) gives the same metrics, exactly,
   and the same `submit_*.json` and `individual_metrics_*.json`, byte for
   byte (f32; the greedy paths are equal, and the metrics are host numpy
-  over them).  No JAX train step is compiled;
+  over them); under DUET's `detailed_output` the same `detail_*.json`
+  (trajectories and visited nodes equal, stop probabilities within 1e-5).
+  No JAX train step is compiled;
 - the port alone: `run` writes its logs and checkpoints; an injected fault
   and an injected NaN loss each roll back, after which the state equals
   `latest_dict` bitwise; bucketed validation equals sequential and
@@ -25,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from vln_imagine_tpu.config import _replace as j_replace
 from vln_imagine_tpu.config import tiny_test_config as j_tiny_test_config
 from vln_imagine_tpu.driver import FinetuneDriver as JFinetuneDriver
 from vln_imagine_tpu.driver import SplitData as JSplitData
@@ -73,9 +76,14 @@ def _read(path):
 
 
 # ------------------------------------------------------- against the JAX one
-@pytest.mark.parametrize("agent", ["hamt", "duet"])
-def test_validate_equals_the_jax_driver(tmp_path, agent):
-    jcfg = j_tiny_test_config(agent)
+@pytest.mark.parametrize("agent, detailed", [
+    pytest.param("hamt", False, id="hamt"),
+    pytest.param("duet", False, id="duet"),
+    pytest.param("duet", True, id="duet-detailed_output"),
+])
+def test_validate_equals_the_jax_driver(tmp_path, agent, detailed):
+    jcfg = j_replace(j_tiny_test_config(agent), "train",
+                     detailed_output=detailed)
     jworld, jgraphs, jtrain, jval = _splits(j_world, j_episodes, JSplitData,
                                             jcfg, n_val=7)
     jd = JFinetuneDriver(jcfg, jax.tree.map(jnp.asarray, jworld), jtrain,
@@ -83,7 +91,7 @@ def test_validate_equals_the_jax_driver(tmp_path, agent):
     jd.setup()
     want = jd.validate(jval, batch_size=4, write_outputs=True)
 
-    cfg = tiny_test_config(agent)
+    cfg = _replace(tiny_test_config(agent), "train", detailed_output=detailed)
     world, graphs, train, val = _splits(synthetic_world, synthetic_episodes,
                                         SplitData, cfg, n_val=7)
     d = FinetuneDriver(cfg, world, train, [val], str(tmp_path / "port"),
@@ -93,11 +101,26 @@ def test_validate_equals_the_jax_driver(tmp_path, agent):
     got = d.validate(val, batch_size=4, write_outputs=True)
     assert got == want
     assert len(d.eval_step_counts) == 2  # 7 items in batches of 4
-    for name in ("submit_val_unseen.json",
-                 "individual_metrics_val_unseen.json"):
+    assert _read(tmp_path / "port" / "individual_metrics_val_unseen.json") \
+        == _read(tmp_path / "jax" / "individual_metrics_val_unseen.json")
+    name = "detail_val_unseen.json" if detailed else "submit_val_unseen.json"
+    assert not os.path.exists(tmp_path / "port" / (
+        "submit_val_unseen.json" if detailed else "detail_val_unseen.json"))
+    port = json.loads(_read(tmp_path / "port" / name))
+    assert len(port) == 7
+    if not detailed:
         assert _read(tmp_path / "port" / name) == _read(tmp_path / "jax" / name)
-    assert len(json.loads(_read(tmp_path / "port" /
-                                "submit_val_unseen.json"))) == 7
+        return
+    for p, j in zip(port, json.loads(_read(tmp_path / "jax" / name)),
+                    strict=True):
+        assert p["instr_id"] == j["instr_id"]
+        assert p["trajectory"] == j["trajectory"]
+        assert p["details"].keys() == j["details"].keys()
+        vps = [vp for vp, *_ in p["trajectory"]]
+        assert {vps[0], vps[-1]} <= p["details"].keys() <= set(vps)
+        for vp, v in j["details"].items():
+            assert math.isclose(p["details"][vp]["stop_prob"], v["stop_prob"],
+                                rel_tol=1e-5, abs_tol=1e-5), vp
 
 
 # ----------------------------------------------------------- the port alone
@@ -211,7 +234,6 @@ def test_profile_dir_traces_the_first_interval(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("part, over, item", [
     ("mesh", {"data_parallelism": 2}, 7),
-    ("train", {"detailed_output": True}, 3),
     ("dataset", "r2r_back", 4),
     ("model", {"e2e_imagination": "frozen"}, 5),
 ])

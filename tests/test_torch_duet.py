@@ -314,3 +314,17 @@ def test_key_map_and_bert_remap_match_jax():
     assert bert_remap_for_duet(hf) == j_bert_remap_for_duet(hf) == {
         "lang_encoder.layer.3.output.dense.weight": 1,
         "embeddings.word_embeddings.weight": 2, "pooler.dense.bias": 3}
+
+
+def test_full_imagination_encoder_refused_as_in_jax():
+    """DUET has only the bypass imagination embeddings, in the reference and
+    in the JAX package: both packages refuse `bypass_imag_encoder=False`
+    with a ValueError (HAMT has the full encoder)."""
+    jcfg = dataclasses.replace(j_tiny_test_config("duet").model,
+                               bypass_imag_encoder=False)
+    with pytest.raises(ValueError, match="bypass_imag_encoder"):
+        JDuetModel(jcfg).bind({}).embeddings  # flax runs setup on first use
+    cfg = dataclasses.replace(tiny_test_config("duet").model,
+                              bypass_imag_encoder=False)
+    with pytest.raises(ValueError, match="bypass_imag_encoder"):
+        DuetModel(cfg)

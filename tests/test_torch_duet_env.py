@@ -4,12 +4,15 @@
   items, with inactive lanes, masked candidates and a map capacity small
   enough to overflow: integer and boolean fields equal, floats within 1e-6;
 - `observe_duet` and `rel_pos_features` field by field along a walk;
+- `dtw_push_multi` / `dtw_ndtw_multi` (the nDTW expert's rows, one per map
+  node, extended along random node sequences), and against `dtw_push`;
 - `fused_logit_merge` against a literal transcription of the reference's
   per-item loop (tests/test_duet.py:33).
 """
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -254,3 +257,39 @@ def test_start_edges_of_items_past_the_first_take_item_0s_next_hops():
         assert int(np.asarray(alone.nxt)[0, 0, 3]) == 3
         np.testing.assert_array_equal(np.asarray(both.dist)[1],
                                       np.asarray(alone.dist)[0])
+
+
+def test_dtw_multi_matches_jax(worlds):
+    """Rows [B, M, P+1] pushed through random node sequences, M = 4 walks
+    per item with some lanes frozen: rows equal to the JAX package's bit for
+    bit (min and add of the same f32 values), nDTW within 1e-6 (the two
+    `exp`s may differ in the last bit), and each lane equal to `dtw_push`
+    on that lane alone."""
+    cfg, jw, jep, pw, pep = worlds
+    jw, jep = (jax.tree.map(jnp.asarray, x) for x in (jw, jep))
+    M = 4
+    rng = np.random.default_rng(3)
+    jrows = jnp.broadcast_to(jenv.dtw_init(jw, jep)[:, None, :],
+                             (B, M, jep.gt_path.shape[1] + 1))
+    prows = penv.dtw_init(pw, pep)[:, None, :].expand(-1, M, -1)
+    for t in range(5):
+        nodes = rng.integers(0, 20, (B, M)).astype(np.int32)  # 20-node scans
+        keep = rng.random((B, M)) < 0.8
+        jnew = jenv.dtw_push_multi(jw, jep, jrows, jnp.asarray(nodes))
+        pnew = penv.dtw_push_multi(pw, pep, prows, torch.from_numpy(nodes))
+        jrows = jnp.where(jnp.asarray(keep)[..., None], jnew, jrows)
+        prows = torch.where(torch.from_numpy(keep)[..., None], pnew, prows)
+        np.testing.assert_array_equal(prows.numpy(), np.asarray(jrows),
+                                      err_msg=f"step {t}")
+        np.testing.assert_allclose(
+            penv.dtw_ndtw_multi(prows, pep, cfg.env.error_margin).numpy(),
+            np.asarray(jenv.dtw_ndtw_multi(jrows, jep, cfg.env.error_margin)),
+            rtol=FLOAT_TOL, atol=FLOAT_TOL, err_msg=f"step {t} ndtw")
+        for m in range(M):
+            one = penv.dtw_push(pw, pep, prows[:, m].contiguous(),
+                                torch.from_numpy(nodes[:, m]))
+            np.testing.assert_array_equal(one.numpy(),
+                                          penv.dtw_push_multi(
+                                              pw, pep, prows,
+                                              torch.from_numpy(nodes))[:, m]
+                                          .numpy())

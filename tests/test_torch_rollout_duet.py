@@ -320,11 +320,49 @@ def test_dagger_train_step_with_dropout():
 
 @pytest.mark.parametrize("part,kw,call", [
     ("train", {"expl_sample": True}, "train"),
-    ("train", {"train_alg": "rl"}, "train"),
+    ("train", {"train_alg": "rl", "gamma": 0.9}, "train"),
     ("train", {"expert_policy": "ndtw"}, "train"),
     ("train", {"act_visited_nodes": True}, "eval"),
     ("train", {"detailed_output": True}, "eval"),
     ("model", {"fusion": "local"}, "eval"),
+])
+def test_deferred_branches_run(part, kw, call):
+    """The branches a later slice ported, through the same entry points:
+    finite train metrics that move the weights, or greedy paths that start
+    at the start node and move along edges (with `detailed_output`, a stop
+    table of the nodes the item stood at: its start and end among them, and
+    only nodes of its path).  Held against the JAX package in
+    tests/test_torch_rollout_duet_variants.py."""
+    cfg = _with(tiny_test_config("duet"), part, **kw)
+    world, ep = _world_ep(synthetic_world, synthetic_episodes, cfg,
+                          golden=False)
+    tr = DuetTrainer(cfg, world, device="cpu")
+    if call == "train":
+        before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        m = tr.make_train_step()(ep, ep)
+        assert all(torch.isfinite(v) for v in m.values()), m
+        assert m["grad_norm"] > 0
+        assert ("rl_loss" in m) == (kw.get("train_alg") == "rl")
+        assert any(not torch.equal(v, before[k])
+                   for k, v in tr.model.state_dict().items())
+        return
+    detailed = cfg.train.detailed_output
+    out = tr.make_eval_step(detailed=detailed)(ep)
+    paths, lens = out[0].numpy(), out[1].numpy()
+    adj = np.asarray(world.adj)
+    for b in range(ep.batch):
+        p = paths[b, :lens[b]]
+        assert p[0] == ep.start_node[b]
+        scan = int(ep.scan[b])
+        assert all(n in adj[scan, a] for a, n in zip(p[:-1], p[1:])), p
+        if detailed:  # the nodes it stood at: the start, the end, no other
+            nodes, _, valid = (x[b].numpy() for x in out[2])
+            table = set(nodes[valid].tolist())
+            assert {p[0], p[-1]} <= table <= set(p.tolist())
+    assert (lens > 1).any()
+
+
+@pytest.mark.parametrize("part,kw,call", [
     ("model", {"obj_feat_size": 768}, "init"),
     ("model", {"e2e_imagination": "frozen"}, "init"),
     ("model", {"use_lang2visn_attn": True}, "init"),

@@ -5,7 +5,11 @@ the CPU:
 - every flag whose branch is not ported exits naming its ROADMAP item, and
   a run with no CUDA and no `--device` exits; `--synthetic` takes the tiny
   preset off the card and the released one on it;
-- a `--synthetic --iters 2 --log-every 1 --device cpu` run of each agent;
+- a `--synthetic --iters 2 --log-every 1 --device cpu` run of each agent,
+  and a one-step run (or an `--eval-only --submit` pass) under each flag of
+  the deferred training branches: `--detailed-output` writes
+  `detail_<split>.json`, `--expl-sample`, `--act-visited-nodes` and
+  `--aux-loss-type infonce` / `margin` reach the config and train;
 - `build_real` on a schema-exact artefact set written here (MP3D
   connectivity JSON, `R2R_<split>_enc.json`, HDF5 view and imagination
   features, generated-flag and sub-instruction JSON) gives the same
@@ -75,17 +79,41 @@ def test_no_lang_ca_guards():
     (["--mesh-data", "2"], 7),
     (["--e2e-imagination", "frozen"], 5),
     (["--init-from-pretrain", "model_step_10"], 6),
-    (["--detailed-output"], 3),
-    (["--expl-sample"], 3),
-    (["--act-visited-nodes"], 3),
     (["--obj-features", "obj.hdf5"], 4),
     (["--dataset", "cvdn"], 4),
-    (["--aux-loss-type", "infonce"], 3),
-    (["--aux-loss-type", "margin"], 3),
 ])
 def test_unported_flags_exit_naming_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 item {item}$"):
         cli.main(["--synthetic", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags, part, key, value", [
+    (["--agent", "duet", "--detailed-output", "--eval-only", "--submit"],
+     "train", "detailed_output", True),
+    (["--agent", "duet", "--expl-sample"], "train", "expl_sample", True),
+    (["--agent", "duet", "--act-visited-nodes"], "train", "act_visited_nodes",
+     True),
+    (["--aux-loss-type", "infonce"], "model", "aux_loss_type", "infonce"),
+    (["--aux-loss-type", "margin"], "model", "aux_loss_type", "margin"),
+])
+def test_deferred_branch_flags_run(tmp_path, flags, part, key, value):
+    d = cli.main(["--synthetic", "--iters", "1", "--log-every", "1",
+                  "--device", "cpu", "--log-dir", str(tmp_path)] + flags)
+    assert getattr(getattr(d.cfg, part), key) == value
+    if "--eval-only" in flags:  # the stop table of every validated item
+        for split in d.val_splits:
+            preds = json.loads((tmp_path / f"detail_{split.name}.json")
+                               .read_text())
+            assert len(preds) == split.episodes.scan.shape[0]
+            for p in preds:
+                vps = [vp for vp, *_ in p["trajectory"]]
+                assert {vps[0], vps[-1]} <= p["details"].keys() <= set(vps)
+                assert all(0.0 <= v["stop_prob"] <= 1.0
+                           for v in p["details"].values())
+        return
+    assert d.trainer.optimizer.steps == 1
+    lines = (tmp_path / "train.txt").read_text()
+    assert "iter 1" in lines and "nan" not in lines.lower()
 
 
 def test_no_cuda_and_no_device_exits(monkeypatch):

@@ -44,19 +44,28 @@
 //       staged at most 128 keys (64 at D 128) at a time.  Sweep 0: S and
 //       dO V^T, each warp's online row max and sum and rowsum(dP * P)
 //       rescaled as the max moves, merged across the warps in warp order
-//       into LSE and delta = rowsum(dP * P) (f32 [B, H, Lq], written for the
-//       second kernel) and, with dropout, the keep bits (one bit an element,
-//       [B, H, Lq, ceil(Lk / 16)] words of 16 bits in 32).  Sweep 1: P from
-//       the LSE, dS, the warp's partial dQ += dS K in registers; dS to device
+//       into the row max m, 1 / the row sum and delta = rowsum(dP * P) (f32
+//       [B, H, Lq] each, written for the second kernel) and, with dropout,
+//       the keep bits (one bit an element, [B, H, Lq, ceil(Lk / 16)] words of
+//       16 bits in 32).  Sweep 1: P = exp(S - m) / sum, as the forward forms
+//       it, dS, the warp's partial dQ += dS K in registers; dS to device
 //       memory only for dBias.  When all keys fit one staged chunk, sweep 1
 //       reads S and dP back from shared memory instead of recomputing them.
 //       The partials are added in warp order through shared memory and
 //       written once.
 //   attention_bwd_dkdv_kernel  one block per (16 keys, head, batch item).
 //       Its warps take the query sub-tiles in turn, recompute S^T = K Q^T
-//       and (dO V^T)^T, P from the LSE, dS from delta and the mask from the
-//       keep bits, and sum partial dK and dV in registers, added in warp
+//       and (dO V^T)^T, P from m and 1 / sum, dS from delta and the mask from
+//       the keep bits, and sum partial dK and dV in registers, added in warp
 //       order at the end.
+//
+// Why m and 1 / sum and not the one LSE = m + log(sum) of FlashAttention:
+// where every key of a row is masked (an item without imaginations under
+// the -10000 key mask), the scores and m are near -1e4, where an f32 holds
+// steps of 2^-10; m + log(sum) rounded to that step puts an error of up to
+// 5e-4 into every P of the row (on an H100: 9.3e-4 in f32 dK / dV against
+// the plain version).  S - m and exp(S - m) / sum keep P as exact as the
+// forward's.
 //
 // The split over warps shortens each warp's chain of dependent steps (at
 // 80 x 80: two sub-tiles a sweep in place of five) and puts 480 blocks of
@@ -65,12 +74,13 @@
 // memory per block is bounded by the tiles, not by L, so Lq and Lk run to
 // the forward's limit; past one chunk (L > 128) the dq kernel stages K and V
 // again for sweep 1, which is why long calls cost more per element.  The
-// scratch (LSE, delta, keep bits) is allocated by the wrapper.  Philox runs
-// once per element, in sweep 0, among the products of the same sub-tile;
-// sweep 1 and the dkdv kernel read the packed bits (on an H100 at B 8 and L
-// 36 to 270, a dkdv kernel that drew the bits again was 7 to 11 % slower a
-// call).  The dkdv kernel is launched as a programmatic dependent of the dq
-// kernel, so its launch and its K, V staging overlap the dq kernel's tail.
+// scratch (row max and 1 / sum, delta, keep bits) is allocated by the
+// wrapper.  Philox runs once per element, in sweep 0, among the products of
+// the same sub-tile; sweep 1 and the dkdv kernel read the packed bits (on an
+// H100 at B 8 and L 36 to 270, a dkdv kernel that drew the bits again was 7
+// to 11 % slower a call).  The dkdv kernel is launched as a programmatic
+// dependent of the dq kernel, so its launch and its K, V staging overlap the
+// dq kernel's tail.
 // The tiles fix each block's shared memory; static_asserts in launch()
 // hold the largest (a full chunk) under the card's 227 KB.
 //
@@ -119,7 +129,7 @@ struct Params {
   void* dk;
   void* dv;
   float* ds;          // nullptr: dS not wanted
-  float* lse;         // [B, H, Lq] scratch
+  float* lse;         // [2, B, H, Lq] scratch: the row max m, 1 / the row sum
   float* delta;       // [B, H, Lq] scratch
   uint32_t* keep;     // [B, H, Lq, ceil(Lk / 16)] scratch, 16 bits a word;
                       // nullptr without dropout
@@ -183,15 +193,15 @@ __host__ __device__ constexpr size_t dq_smem(int kc, bool keep_sd) {
 // Shared memory of the dkdv kernel: K and V [kRows, LD]; Q and dO [qc, LD],
 // whose room takes each warp's partial dK, then dV (f32 [kWarps, kRows, D]),
 // once the queries are done; two [kRows, LDS] buffers per warp ((P*M)^T and
-// dS^T); LSE and delta of the staged queries (f32 [2, qc]), their keep
-// words for the block's keys ([qc], as 32 bits) and the bias (f32
+// dS^T); m, 1 / sum and delta of the staged queries (f32 [3, qc]), their
+// keep words for the block's keys ([qc], as 32 bits) and the bias (f32
 // [qc, kRows]).
 template <typename T, int D>
 __host__ __device__ constexpr size_t dkdv_smem(int qc) {
   return 2 * static_cast<size_t>(kRows) * (D + pad<T>()) * sizeof(T) +
          chunk_bytes<T, D>(qc) +
          2 * static_cast<size_t>(kWarps) * kRows * (kSub + pad<T>()) * sizeof(T) +
-         (3 + kRows) * static_cast<size_t>(qc) * sizeof(float);
+         (4 + kRows) * static_cast<size_t>(qc) * sizeof(float);
 }
 
 // Each warp's partial [kRows, D] sums (in `part`, f32 [kWarps, kRows, D]),
@@ -257,7 +267,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
   const int rows[2] = {row0 + g, row0 + g + 8};
 
   float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, dot[2] = {0.f, 0.f};
-  float lse[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  float rmax[2] = {0.f, 0.f}, rinv[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
   float dq[ND][4] = {};
   const int nchunks = (Lk + kc - 1) / kc;
   // one chunk: sweep 1 reads S and dP back from sweep 0 instead of
@@ -359,13 +369,13 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
             mx[r] = m;
           }
         } else {
-          // P from the LSE, dS = P * (dP - delta), dQ += dS K
+          // P = exp(S - m) / sum, dS = P * (dP - delta), dQ += dS K
 #pragma unroll
           for (int n = 0; n < kNT; ++n) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int r = e >> 1;
-              const float pv = expf(s[n][e] - lse[r]);
+              const float pv = expf(s[n][e] - rmax[r]) * rinv[r];
               s[n][e] = pv * (dp[n][e] - delta[r]);
             }
           }
@@ -388,7 +398,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
     }
     if (sweep == 0) {
       // merge the warps' statistics, in warp order: every warp gets the same
-      // LSE and delta
+      // m, 1 / sum and delta
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const float l = quad_sum(sum[r]), d = quad_sum(dot[r]);
@@ -411,10 +421,13 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
           l = fmaf(stat[(kWarps + w) * kRows + row], f, l);
           d = fmaf(stat[(2 * kWarps + w) * kRows + row], f, d);
         }
-        lse[r] = m + logf(l);
+        rmax[r] = m;
+        rinv[r] = 1.f / l;
         delta[r] = d / l;
         if (warp == 0 && t == 0 && rows[r] < Lq) {
-          p.lse[bh * Lq + rows[r]] = lse[r];
+          const long long nrows = static_cast<long long>(p.B) * p.H * Lq;
+          p.lse[bh * Lq + rows[r]] = m;
+          p.lse[nrows + bh * Lq + rows[r]] = rinv[r];
           p.delta[bh * Lq + rows[r]] = delta[r];
         }
       }
@@ -444,8 +457,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
   float* part = reinterpret_cast<float*>(qs);  // after the queries
   T* scr = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(qs) +
                                 chunk_bytes<T, D>(qc));  // [kWarps][2][kRows][LDS]
-  float* lse_s = reinterpret_cast<float*>(scr + 2 * kWarps * kRows * LDS);  // [qc]
-  float* delta_s = lse_s + qc;                                               // [qc]
+  float* max_s = reinterpret_cast<float*>(scr + 2 * kWarps * kRows * LDS);  // [qc]
+  float* inv_s = max_s + qc;                                                 // [qc]
+  float* delta_s = inv_s + qc;                                               // [qc]
   unsigned* kw_s = reinterpret_cast<unsigned*>(delta_s + qc);                // [qc]
   float* bs = reinterpret_cast<float*>(kw_s + qc);                           // [qc][kRows]
 
@@ -455,6 +469,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
   const int Lq = p.Lq, Lk = p.Lk, nw = (Lk + 15) / 16;
   const long long bh = static_cast<long long>(b) * p.H + h;
   const bool dropout = p.drop.bits != vln::kBitsNone;
+  const long long nrows = static_cast<long long>(p.B) * p.H * Lq;
   const T* qg = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
   const T* dog = static_cast<const T*>(p.dout) + b * p.sob + h * p.soh;
   const T* kg = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
@@ -474,11 +489,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
     __syncthreads();  // every warp is done with the previous chunk
     stage<T, D>(qs, qg, p.sql, c0, Lq, nq_pad);
     stage<T, D>(dos, dog, p.sol, c0, Lq, nq_pad);
-    if (c0 == 0) wait_for_primary();  // LSE, delta and keep bits come from the dq kernel
+    if (c0 == 0) wait_for_primary();  // m, 1 / sum, delta and keep bits: the dq kernel's
     for (int x = threadIdx.x; x < nq_pad; x += kThreads) {
       const int i = c0 + x;
       const bool valid = i < Lq, bits = valid && dropout;
-      cp_async4(lse_s + x, p.lse + bh * Lq + (valid ? i : 0), valid);
+      cp_async4(max_s + x, p.lse + bh * Lq + (valid ? i : 0), valid);
+      cp_async4(inv_s + x, p.lse + nrows + bh * Lq + (valid ? i : 0), valid);
       cp_async4(delta_s + x, p.delta + bh * Lq + (valid ? i : 0), valid);
       cp_async4(kw_s + x,
                 bits ? static_cast<const void*>(p.keep + (bh * Lq + i) * nw + key0 / 16)
@@ -507,7 +523,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
           const int j = keys[e >> 1];
           float pv = 0.f, mv = 1.f;
           if (i < Lq && j < Lk) {
-            pv = expf(s[n][e] * p.scale + bs[col * kRows + j - key0] - lse_s[col]);
+            pv = expf(s[n][e] * p.scale + bs[col * kRows + j - key0] - max_s[col]) *
+                 inv_s[col];
             if (dropout) mv = (kw_s[col] >> (j - key0)) & 1u ? p.drop.keep_scale : 0.f;
           }
           s[n][e] = pv * (dp[n][e] * mv - delta_s[col]);  // dS^T
@@ -585,7 +602,8 @@ cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, dq, dk, dv alike).
 // Strides are in elements; dq/dk/dv are written contiguous [B, L, H, D].
-// bias and ds may be null.  lse and delta: f32 [B, H, Lq] scratch; keep:
+// bias and ds may be null.  lse: f32 [2, B, H, Lq] scratch (each row's max,
+// then 1 / its sum), delta: f32 [B, H, Lq] scratch; keep:
 // [B, H, Lq, ceil(Lk / 16)] 32-bit scratch (16 keep bits a word), needed
 // with dropout only.
 // bits: 0 = no dropout (K4), 1 = hash, 2 = Philox (K3), with the forward's

@@ -16,10 +16,11 @@ agent_cmt.py:837-852; DUET's DAgger recipe has no critic).  The trainer's
 `Rng` is not saved, as the JAX driver's key is not.  Everything runs on the
 card unless the caller names a device.
 
-Not ported yet, and refused with NotImplementedError: a device mesh
-(ROADMAP Queue 1 item 7), DUET's detailed output (item 3), any dataset but
-r2r and episodes that carry a midstop or a target object (item 4),
-`e2e_imagination` (item 5) and the JAX pre-trainer's snapshots
+DUET's `detailed_output` evaluates with the final stop table and writes it
+into `detail_<split>.json` (main_nav.py:384).  Not ported yet, and refused
+with NotImplementedError: a device mesh (ROADMAP Queue 1 item 7), any
+dataset but r2r and episodes that carry a midstop or a target object (item
+4), `e2e_imagination` (item 5) and the JAX pre-trainer's snapshots
 (`init_from_pretrain`, item 6).
 """
 
@@ -72,7 +73,6 @@ def refuse_unported(cfg: Config) -> None:
     unported = [
         (cfg.mesh.data_parallelism != 0, "a device mesh (data parallelism)",
          7),
-        (cfg.train.detailed_output, "detailed_output", 3),
         (cfg.dataset != "r2r", f"dataset {cfg.dataset!r}", 4),
         (cfg.model.e2e_imagination != "off", "e2e_imagination", 5),
     ]
@@ -137,6 +137,7 @@ class FinetuneDriver:
             cfg.train.seed + 1) if aug_split is not None else None)
         self._train_step: Callable | None = None
         self._eval_step: Callable | None = None
+        self._eval_detailed = False
         # host seconds of each train interval and validation pass, and the
         # step count of every eval batch's loop (what its kernel launches
         # follow)
@@ -153,7 +154,13 @@ class FinetuneDriver:
             self._train_step = self.trainer.make_train_step(self._feedback)
         else:
             self._train_step = self.trainer.make_train_step()
-        self._eval_step = self.trainer.make_eval_step()
+        # DUET --detailed_output: the eval step also returns the final
+        # per-map-node stop table for the 'details' submission field
+        self._eval_detailed = (self.cfg.agent == "duet"
+                               and self.cfg.train.detailed_output)
+        self._eval_step = (self.trainer.make_eval_step(detailed=True)
+                           if self._eval_detailed
+                           else self.trainer.make_eval_step())
 
     def state_dict(self) -> dict:
         """The training state in the reference's agent-save layout.  The
@@ -282,6 +289,7 @@ class FinetuneDriver:
         # a batch bigger than the split only pads compute (EvalSampler wraps)
         bs = max(min(bs, n), 1)
         paths, gts, scans, kept_ids, kept_idx = [], [], [], [], []
+        details = []  # per item {node: stop probability} (detailed_output)
         # a window of eval calls in flight (VLN_EVAL_PIPELINE, default 4;
         # 1 is fully synchronous).  The port's eval step waits for the
         # device once a step for its early exit, so a call returns with its
@@ -320,6 +328,9 @@ class FinetuneDriver:
                 break
             idxs, fresh, out = inflight.popleft()
             pn, pl = out[0].cpu().numpy(), out[1].cpu().numpy()
+            if self._eval_detailed:
+                det_nodes, det_scores, det_valid = (x.cpu().numpy()
+                                                    for x in out[2])
             for j, keep in enumerate(fresh):
                 if not keep:
                     continue
@@ -329,6 +340,9 @@ class FinetuneDriver:
                 scans.append(int(scan[b]))
                 kept_ids.append(split.instr_ids[b] if split.instr_ids else b)
                 kept_idx.append(b)
+                if self._eval_detailed:
+                    details.append({int(n): float(s) for n, s, v in zip(
+                        det_nodes[j], det_scores[j], det_valid[j]) if v})
         avg, per = eval_batch(self._dist, np.asarray(scans),
                               paths, gts, kept_ids)
         if write_outputs:
@@ -344,9 +358,11 @@ class FinetuneDriver:
                              f"individual_metrics_{split.name}.json"), per)
             if self.graphs is not None:
                 headings = np.asarray(split.episodes.start_heading)[kept_idx]
+                prefix = "detail" if details else "submit"  # main_nav.py:384
                 write_submission(
-                    os.path.join(self.log_dir, f"submit_{split.name}.json"),
-                    self.graphs, np.asarray(scans), paths, kept_ids, headings)
+                    os.path.join(self.log_dir, f"{prefix}_{split.name}.json"),
+                    self.graphs, np.asarray(scans), paths, kept_ids, headings,
+                    details=details or None)
         self.timings["validate"].append(
             {"seconds": time.perf_counter() - t0, "items": n,
              "split": split.name})

@@ -300,19 +300,35 @@ def dtw_init(tables: WorldTables, ep: EpisodeBatch) -> torch.Tensor:
 def dtw_push(tables: WorldTables, ep: EpisodeBatch, row: torch.Tensor,
              new_node: torch.Tensor) -> torch.Tensor:
     """Append one prediction node: row_i -> row_{i+1}."""
-    P = ep.gt_path.shape[1]
-    cost = tables.dist[ep.scan.long()[:, None], new_node.long()[:, None],
-                       ep.gt_path.long()]                              # [B, P]
-    cols = [torch.full_like(row[:, 0], INF)]
-    for j in range(1, P + 1):
-        best_prev = torch.minimum(torch.minimum(row[:, j], row[:, j - 1]),
-                                  cols[j - 1])
-        cols.append(cost[:, j - 1] + best_prev)
-    return torch.stack(cols, dim=1)
+    return dtw_push_multi(tables, ep, row[:, None], new_node[:, None])[:, 0]
 
 
 def dtw_ndtw(row: torch.Tensor, ep: EpisodeBatch,
              threshold: float = 3.0) -> torch.Tensor:
     """nDTW of the current prediction against the (masked) reference."""
-    dtw = row.gather(1, ep.gt_len.long()[:, None])[:, 0]
-    return torch.exp(-dtw / (threshold * ep.gt_len.float()))
+    return dtw_ndtw_multi(row[:, None], ep, threshold)[:, 0]
+
+
+def dtw_push_multi(tables: WorldTables, ep: EpisodeBatch, rows: torch.Tensor,
+                   new_nodes: torch.Tensor) -> torch.Tensor:
+    """dtw_push over M hypothetical extensions per item: rows [B, M, P+1],
+    new_nodes [B, M] -> the updated rows.  The DUET nDTW expert
+    (agent.py:270-277) scores every map node's path extension with it."""
+    P = ep.gt_path.shape[1]
+    cost = tables.dist[ep.scan.long()[:, None, None],
+                       new_nodes.long()[:, :, None],
+                       ep.gt_path.long()[:, None, :]]                 # [B, M, P]
+    cols = [torch.full_like(rows[..., 0], INF)]
+    for j in range(1, P + 1):
+        best_prev = torch.minimum(torch.minimum(rows[..., j], rows[..., j - 1]),
+                                  cols[j - 1])
+        cols.append(cost[..., j - 1] + best_prev)
+    return torch.stack(cols, dim=-1)
+
+
+def dtw_ndtw_multi(rows: torch.Tensor, ep: EpisodeBatch,
+                   threshold: float = 3.0) -> torch.Tensor:
+    """[B, M, P+1] rows -> [B, M] nDTW values."""
+    B, M, _ = rows.shape
+    dtw = rows.gather(2, ep.gt_len.long()[:, None, None].expand(B, M, 1))[..., 0]
+    return torch.exp(-dtw / (threshold * ep.gt_len.float()[:, None]))

@@ -275,12 +275,13 @@ class BertEmbeddings(nn.Module):
 class LXRTXLayer(nn.Module):
     """HAMT bidirectional cross-modal layer (vilmodel_cmt.py:366-445):
     shared cross-attention applied both ways, then per-stream self-attention
-    and FFN."""
+    and FFN.  Under no_lang_ca the language stream passes through unchanged;
+    its blocks then run only in `lang_self_att_branch`, which the language
+    mode calls (vilmodel_cmt.py:1024-1028)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.no_lang_ca:
-            raise NotImplementedError("no_lang_ca is not ported yet")
+        self.no_lang_ca = cfg.no_lang_ca
         self.visual_attention = BertXAttention(cfg)
         self.lang_self_att = BertAttention(cfg)
         self.lang_inter = BertIntermediate(cfg)
@@ -290,6 +291,10 @@ class LXRTXLayer(nn.Module):
         self.visn_output = BertOutput(cfg)
 
     def forward(self, lang, lang_mask, visn, visn_mask, rng=None):
+        if self.no_lang_ca:
+            visn_x = self.visual_attention(visn, lang, lang_mask, rng)
+            visn_s = self.visn_self_att(visn_x, visn_mask, rng)
+            return lang, self.visn_output(self.visn_inter(visn_s), visn_s, rng)
         lang_x = self.visual_attention(lang, visn, visn_mask, rng)
         visn_x = self.visual_attention(visn, lang, lang_mask, rng)
         lang_s = self.lang_self_att(lang_x, lang_mask, rng)
@@ -297,6 +302,11 @@ class LXRTXLayer(nn.Module):
         lang_o = self.lang_output(self.lang_inter(lang_s), lang_s, rng)
         visn_o = self.visn_output(self.visn_inter(visn_s), visn_s, rng)
         return lang_o, visn_o
+
+    def lang_self_att_branch(self, lang, lang_mask, rng=None):
+        """The language self-attention + FFN alone (no_lang_ca)."""
+        s = self.lang_self_att(lang, lang_mask, rng)
+        return self.lang_output(self.lang_inter(s), s, rng)
 
 
 class GraphLXRTXLayer(nn.Module):

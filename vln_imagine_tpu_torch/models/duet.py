@@ -133,12 +133,17 @@ class DuetModel(nn.Module):
     def __init__(self, cfg: ModelConfig, feat_dropout: float = 0.4):
         super().__init__()
         unported = {"obj_feat_size": cfg.obj_feat_size > 0,
-                    "e2e_imagination": cfg.e2e_imagination != "off",
-                    "bypass_imag_encoder=False": (cfg.imagine_enc_pano
-                                                  and not cfg.bypass_imag_encoder)}
+                    "e2e_imagination": cfg.e2e_imagination != "off"}
         if any(unported.values()):
             raise NotImplementedError(
                 f"not ported yet: {[k for k, v in unported.items() if v]}")
+        if cfg.imagine_enc_pano and not cfg.bypass_imag_encoder:
+            # the DUET reference ships only the bypass embeddings
+            # (vilmodel.py:562), and so does the JAX package
+            raise ValueError(
+                "DuetModel supports bypass_imag_encoder=True only (the "
+                "non-bypass pano imagination encoder exists in the HAMT "
+                "stack alone)")
         self.config = cfg
         self.feat_dropout = feat_dropout
         self.embeddings = BertEmbeddings(cfg)

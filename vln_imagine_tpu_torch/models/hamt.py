@@ -6,10 +6,14 @@ wrapper, models/model_HAMT.py:13-97).  Each reference mode is a method:
 
 - language  (vilmodel_cmt.py:1008-1030)
 - history_initial / history_step (:1033-1038 + HistoryEmbeddings :546-618)
-- imagine   (bypass variant :620-631, used by the released configs)
+- imagine   (the bypass variant :620-631 of the released configs, or the
+  full imagination encoder :634-703 under bypass_imag_encoder=False)
 - align_with_contrastive_loss (:1050-1053 / AlignWithContrastiveLoss
-  :730-790) as one masked segment-mean matmul
-- visual    (:1056-1205), cross-modal streams [txt; imagine] x [hist; obs]
+  :730-790) as one masked segment-mean matmul, with the cosine, InfoNCE or
+  margin loss (:777-856)
+- visual    (:1056-1205), cross-modal streams [txt; imagine] x [hist; obs];
+  under no_lang_ca the text is not updated by the cross-modal layers and
+  the language mode returns one static text per layer (:1022-1029)
 
 Every mode takes `rng` (ops/dropout.py): with it the flax blocks' dropouts
 and the wrapper's env-feature dropout (`drop_env`, `feat_dropout`) are
@@ -18,8 +22,8 @@ gradients (`fix_lang_embedding`, `fix_hist_embedding`, and
 `fix_imagine_embeds` / `fix_obs_embedding`) run their branch under
 `torch.no_grad()`, so no residuals are kept for layers that get no gradient.
 
-Not ported yet: the ViT, REVERIE objects, `no_lang_ca`, the full
-ImagineEmbeddings, and the infonce / margin alignment losses.
+Not ported yet: the ViT (ROADMAP Queue 1 item 5) and REVERIE objects
+(item 4).
 """
 
 from __future__ import annotations
@@ -139,6 +143,34 @@ class BypassImagineEmbeddings(nn.Module):
         return imagine_feat + self.type_embedding(ids)
 
 
+class ImagineEmbeddings(nn.Module):
+    """The full imagination encoder (vilmodel_cmt.py:634-703): features +
+    position + type embedding, linear + LN, dropout, a `num_pano_layers`
+    BERT encoder over the imagination tokens with their padding mask, LN,
+    dropout.  An item without imaginations has every key masked."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        H, dt = cfg.hidden_size, compute_dtype(cfg)
+        self.position_embeddings = Embed(cfg.max_imagination_len, H, dt)
+        self.type_embedding = Embed(1, H, dt)
+        self.pano_img_linear = Dense(H, H, dt)
+        self.pano_img_layer_norm = LayerNorm12(H)
+        self.pano_encoder = BertEncoder(cfg, cfg.num_pano_layers)
+        self.layer_norm = LayerNorm12(H)
+        self.rate = cfg.hidden_dropout_prob
+
+    def forward(self, feats, imagine_mask, rng=None):
+        B, I, _ = feats.shape
+        ids = torch.arange(I, device=feats.device)[None, :].expand(B, I)
+        x = (feats + self.position_embeddings(ids)
+             + self.type_embedding(torch.zeros_like(ids)))
+        x = dropout(self.pano_img_layer_norm(self.pano_img_linear(x)),
+                    self.rate, rng)
+        x = self.pano_encoder(x, extend_neg_mask(imagine_mask), rng)
+        return dropout(self.layer_norm(x), self.rate, rng)
+
+
 class ContrastiveAlignment(nn.Module):
     """Holds the projection head under the reference's key names
     (`contrastive_alignment_model.image_proj.*`)."""
@@ -148,24 +180,69 @@ class ContrastiveAlignment(nn.Module):
         self.image_proj = MLPProjectionHead(cfg)
 
 
-def contrastive_alignment_loss(proj, mean_np, valid, aux_loss_type="cosine"):
-    """Cosine alignment: mean over valid rows of 1 - cos(proj, mean_np)
-    (AlignWithContrastiveLoss, vilmodel_cmt.py:777-788)."""
-    if aux_loss_type != "cosine":
-        raise NotImplementedError(f"aux_loss_type {aux_loss_type!r} is not ported yet")
+def contrastive_alignment_loss(proj, mean_np, valid, aux_loss_type="cosine",
+                               temperature=0.3, margin=1.0, groups=None):
+    """Imagination-text alignment losses over [B, I, H] projections:
+
+    - 'cosine': mean over valid rows of 1 - cos(proj, mean_np)
+      (AlignWithContrastiveLoss, vilmodel_cmt.py:777-788)
+    - 'infonce': CE of the positive against the other batch items' valid
+      noun-phrase means at `temperature` (:793-823), as a logsumexp over the
+      negatives that are there (masked ones drop out, so an item without
+      negatives has loss 0 and a finite gradient)
+    - 'margin': 1 - cos + the mean hinge(margin + neg_sim - pos_sim)
+      (:825-856)
+
+    groups: optional [B] labels 0 / 1 of a fused batch (the IL and RL halves
+    of one train step).  The loss is then the SUM of each group's separately
+    normalised mean, and negatives come only from the same group: what two
+    separate rollouts give (agent_cmt.py:437-462)."""
+    B, I, _ = proj.shape
 
     def unit(x):
         x = x.float()
         return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True),
                                min=1e-8)
 
-    pos_sim = torch.sum(unit(proj) * unit(mean_np), dim=-1)   # [B, I]
-    v = valid.float()
-    return torch.sum((1.0 - pos_sim) * v) / torch.clamp(torch.sum(v), min=1.0)
+    pn, mn = unit(proj), unit(mean_np)
+    pos_sim = torch.sum(pn * mn, dim=-1)                      # [B, I]
+
+    def grouped_mean(per_row):                                # [B, I] -> ()
+        if groups is None:
+            v = valid.float()
+            return torch.sum(per_row * v) / torch.clamp(torch.sum(v), min=1.0)
+        total = torch.zeros((), device=per_row.device)
+        for g in (0, 1):
+            in_g = (groups == g)[:, None] & valid
+            total = total + (torch.sum(torch.where(in_g, per_row, 0.0))
+                             / torch.clamp(torch.sum(in_g), min=1))
+        return total
+
+    if aux_loss_type == "cosine":
+        return grouped_mean(1.0 - pos_sim)
+    if aux_loss_type not in ("infonce", "margin"):
+        raise ValueError(aux_loss_type)
+    sim = torch.einsum("bih,cjh->bicj", pn, mn)               # [B, I, B, I]
+    items = torch.arange(B, device=proj.device)
+    other = items[:, None] != items[None, :]                  # [B, C]
+    if groups is not None:
+        other = other & (groups[:, None] == groups[None, :])
+    neg_mask = (other[:, None, :, None] & valid[None, None, :, :]
+                ).expand(sim.shape)
+    if aux_loss_type == "infonce":
+        logits_pos = pos_sim / temperature
+        logits_neg = torch.where(neg_mask, sim / temperature, -torch.inf)
+        all_logits = torch.cat([logits_pos[..., None],
+                                logits_neg.reshape(B, I, -1)], dim=-1)
+        return grouped_mean(torch.logsumexp(all_logits, dim=-1) - logits_pos)
+    hinge = torch.clamp(margin + sim - pos_sim[:, :, None, None], min=0.0)
+    n_neg = torch.clamp(torch.sum(neg_mask, dim=(2, 3)), min=1)
+    neg_loss = torch.sum(torch.where(neg_mask, hinge, 0.0), dim=(2, 3)) / n_neg
+    return grouped_mean((1.0 - pos_sim) + neg_loss)
 
 
 def align_imagination(image_proj, cfg: ModelConfig, txt_embeds, imagine_embeds,
-                      imagine_mask, np_weights, rng=None):
+                      imagine_mask, np_weights, rng=None, groups=None):
     """Alignment of projected imagination embeddings to the mean noun-phrase
     token embedding of their sub-instruction.  Returns (loss, new_imagine):
     valid rows are overwritten with their projection, the reference's
@@ -174,7 +251,9 @@ def align_imagination(image_proj, cfg: ModelConfig, txt_embeds, imagine_embeds,
     mean_np = torch.einsum("bil,blh->bih", np_weights.to(txt_embeds.dtype),
                            txt_embeds)
     valid = imagine_mask & (torch.sum(np_weights, dim=-1) > 0)
-    loss = contrastive_alignment_loss(proj, mean_np, valid, cfg.aux_loss_type)
+    loss = contrastive_alignment_loss(
+        proj, mean_np, valid, cfg.aux_loss_type, cfg.infonce_temperature,
+        cfg.contrastive_margin_value, groups)
     new_imagine = torch.where(valid[:, :, None], proj, imagine_embeds)
     return loss, new_imagine
 
@@ -184,7 +263,7 @@ class VisualOut(NamedTuple):
     txt_embeds: torch.Tensor   # [B, L, H]
     hist_embeds: torch.Tensor  # [B, T, H]
     ob_embeds: torch.Tensor    # [B, T_obs, H]
-    state: torch.Tensor        # [B, H] critic state txt[CLS] * hist[CLS]
+    state: torch.Tensor        # [B, H] critic state
 
 
 class HamtEncoder(nn.Module):
@@ -203,11 +282,8 @@ class HamtModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, feat_dropout: float = 0.4):
         super().__init__()
-        unported = {"no_lang_ca": cfg.no_lang_ca,
-                    "obj_feat_size": cfg.obj_feat_size > 0,
-                    "e2e_imagination": cfg.e2e_imagination != "off",
-                    "bypass_imag_encoder=False": (cfg.imagine_enc_pano
-                                                  and not cfg.bypass_imag_encoder)}
+        unported = {"obj_feat_size": cfg.obj_feat_size > 0,
+                    "e2e_imagination": cfg.e2e_imagination != "off"}
         if any(unported.values()):
             raise NotImplementedError(
                 f"not ported yet: {[k for k, v in unported.items() if v]}")
@@ -217,7 +293,9 @@ class HamtModel(nn.Module):
         self.img_embeddings = ImageEmbeddings(cfg)
         self.hist_embeddings = HistoryEmbeddings(cfg)
         if cfg.imagine_enc_pano:
-            self.imagine_embeddings = BypassImagineEmbeddings(cfg)
+            self.imagine_embeddings = (BypassImagineEmbeddings(cfg)
+                                       if cfg.bypass_imag_encoder
+                                       else ImagineEmbeddings(cfg))
             if cfg.use_cosine_aux_loss or cfg.no_loss_test:
                 self.contrastive_alignment_model = ContrastiveAlignment(cfg)
         self.encoder = HamtEncoder(cfg)
@@ -229,12 +307,19 @@ class HamtModel(nn.Module):
 
     # ------------------------------------------------------------------ modes
     def language(self, txt_ids, txt_mask, rng=None):
+        """The text embeddings [B, L, H]; under no_lang_ca the stack
+        [1 + X, B, L, H] of the base text and each x-layer's language
+        self-attention branch over the BASE text (vilmodel_cmt.py:1022-1029:
+        the reference does not chain them)."""
+        ext = extend_neg_mask(txt_mask)
         with _stop_gradient(self.config.fix_lang_embedding):
-            ext = extend_neg_mask(txt_mask)
             x = self.embeddings(txt_ids, rng)
             for layer in self.encoder.layer:
                 x = layer(x, ext, rng)
-        return x
+        if not self.config.no_lang_ca:
+            return x
+        return torch.stack([x] + [layer.lang_self_att_branch(x, ext, rng)
+                                  for layer in self.encoder.x_layers])
 
     def history_initial(self, batch_size: int, rng=None):
         with _stop_gradient(self.config.fix_hist_embedding):
@@ -255,13 +340,17 @@ class HamtModel(nn.Module):
 
     def imagine(self, imagine_feats, imagine_mask=None, rng=None):
         with _stop_gradient(self.config.fix_imagine_embeds):
-            return self.imagine_embeddings(self.drop_env(imagine_feats, rng))
+            feats = self.drop_env(imagine_feats, rng)
+            if self.config.bypass_imag_encoder:
+                return self.imagine_embeddings(feats)
+            return self.imagine_embeddings(feats, imagine_mask, rng)
 
     def align_with_contrastive_loss(self, txt_embeds, txt_mask, imagine_embeds,
-                                    imagine_mask, np_weights, rng=None):
+                                    imagine_mask, np_weights, rng=None,
+                                    groups=None):
         return align_imagination(self.contrastive_alignment_model.image_proj,
                                  self.config, txt_embeds, imagine_embeds,
-                                 imagine_mask, np_weights, rng)
+                                 imagine_mask, np_weights, rng, groups)
 
     def visual(self, txt_embeds, txt_mask, hist_embeds, hist_mask,
                ob_img_feats, ob_ang_feats, ob_nav_types, ob_valid,
@@ -269,6 +358,13 @@ class HamtModel(nn.Module):
         """Per-step cross-modal encoding + action logits
         (vilmodel_cmt.py:1056-1205)."""
         cfg = self.config
+        no_ca = cfg.no_lang_ca
+        if no_ca:
+            if cfg.imagine_enc_pano and cfg.concat_imagine_with == "language":
+                raise ValueError(
+                    "no_lang_ca + language-concat imagination is unsupported "
+                    "(the reference path is inconsistent for this combo)")
+            txt_stack, txt_embeds = txt_embeds, txt_embeds[0]
         ext_txt = extend_neg_mask(txt_mask)
         B, T_obs = ob_nav_types.shape
         with _stop_gradient(cfg.fix_obs_embedding):
@@ -292,13 +388,17 @@ class HamtModel(nn.Module):
             visn_mask = torch.cat([visn_mask, extend_neg_mask(imagine_mask)],
                                   dim=-1)
 
-        for layer in self.encoder.x_layers:
+        for li, layer in enumerate(self.encoder.x_layers):
+            if no_ca:
+                lang = txt_stack[li]  # per-layer static text (:1119-1121)
             lang, visn = layer(lang, lang_mask, visn, visn_mask, rng)
 
         hist_out = visn[:, :hist_len]
         ob_out = visn[:, hist_len:hist_len + T_obs]
         txt_out = lang[:, :txt_embeds.shape[1]]
-        if cfg.act_pred_token == "ob_txt":
+        if no_ca:
+            head_in = ob_out  # (:1187-1188)
+        elif cfg.act_pred_token == "ob_txt":
             head_in = ob_out * txt_out[:, :1]
         elif cfg.act_pred_token == "ob":
             head_in = ob_out
@@ -311,5 +411,7 @@ class HamtModel(nn.Module):
 
         logits = self.next_action(head_in, rng)[..., 0]
         logits = mask_logits(logits, (ob_nav_types != 0) & ob_valid)
-        state = txt_out[:, 0] * hist_out[:, 0]
+        # critic state: txt[CLS] * hist[CLS], or hist[CLS] under no_lang_ca
+        # (model_HAMT.py:83-86)
+        state = hist_out[:, 0] if no_ca else txt_out[:, 0] * hist_out[:, 0]
         return VisualOut(logits, txt_out, hist_out, ob_out, state)

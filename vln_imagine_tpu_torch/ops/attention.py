@@ -21,8 +21,8 @@ dropout) under `torch.no_grad`, else `FusedAttention`, whose backward is K4
 (or K3).  The backward recomputes P from q, k and the bias, as the TPU
 kernels do: no [Lq, Lk] tensor is stored between the passes.  One backward
 call (one count of K3 or K4) launches two CUDA kernels, the dQ kernel and
-the dK/dV kernel, with the rows' LSE and delta and the packed keep bits as
-scratch between them.
+the dK/dV kernel, with the rows' max, 1 / sum and delta and the packed keep
+bits as scratch between them.
 
 Dropout bits.  An element of P is kept when its 32 random bits are
 >= round(rate * 2^32) and kept values are scaled by 1 / (1 - rate), as the
@@ -404,9 +404,9 @@ def bwd_tile_plan(Lq: int, Lk: int, D: int, dtype: torch.dtype) -> dict:
                         + 3 * BWD_WARPS * BWD_ROWS * 4 + BWD_ROWS * kc * 4
                         + BWD_ROWS * (MAX_LK // 16) * 2
                         + (2 * BWD_ROWS * kc * 4 if Lk <= chunk else 0)),
-            # + LSE, delta and keep word per query, bias [qc, 16]
+            # + max, 1 / sum, delta and keep word per query, bias [qc, 16]
             "smem_dkdv": (rows + max(2 * qc * ld * elt, partials) + 2 * buf
-                          + (3 + BWD_ROWS) * qc * 4)}
+                          + (4 + BWD_ROWS) * qc * 4)}
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -443,8 +443,9 @@ def _launch_bwd(q, k, v, bias, do, scale, need_dbias, rate=0.0, seed=0,
     # dS per (batch, head); summed over the bias's broadcast dims below
     ds = (torch.empty((B, H, Lq, Lk), dtype=torch.float32, device=q.device)
           if need_dbias and bias is not None else None)
-    # the dq kernel's LSE and delta rows and keep bits, read by the dkdv kernel
-    stats = torch.empty((2, B, H, Lq), dtype=torch.float32, device=q.device)
+    # the dq kernel's row max, 1 / row sum and delta, and keep bits, read by
+    # the dkdv kernel
+    stats = torch.empty((3, B, H, Lq), dtype=torch.float32, device=q.device)
     keep = (torch.empty((B, H, Lq, -(-Lk // 16)), dtype=torch.int32,
                         device=q.device) if rate > 0.0 else None)
     lib = load_kernels()["attention_bwd.cu"]
@@ -452,7 +453,7 @@ def _launch_bwd(q, k, v, bias, do, scale, need_dbias, rate=0.0, seed=0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if ds is None else ds.data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(),
+        stats[0].data_ptr(), stats[2].data_ptr(),
         None if keep is None else keep.data_ptr(),
         _DTYPE_CODE[q.dtype], B, H, Lq, Lk, D,
         q.stride(0), q.stride(1), q.stride(2),

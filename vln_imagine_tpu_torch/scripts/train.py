@@ -160,13 +160,8 @@ def refuse_unported(args) -> None:
         (args.mesh_data, "--mesh-data", 7),
         (args.e2e_imagination != "off", "--e2e-imagination", 5),
         (args.init_from_pretrain, "--init-from-pretrain", 6),
-        (args.detailed_output, "--detailed-output", 3),
-        (args.expl_sample, "--expl-sample", 3),
-        (args.act_visited_nodes, "--act-visited-nodes", 3),
         (args.obj_features, "--obj-features", 4),
         (args.dataset != "r2r", f"--dataset {args.dataset}", 4),
-        (args.aux_loss_type in ("infonce", "margin"),
-         f"--aux-loss-type {args.aux_loss_type}", 3),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -373,8 +368,14 @@ def main(argv=None):
         if v is not None:
             overrides[k] = v
     overrides["seed"] = args.seed
+    if args.expl_sample:
+        overrides["expl_sample"] = True
     if args.no_cand_backtrack:
         overrides["no_cand_backtrack"] = True
+    if args.act_visited_nodes:
+        overrides["act_visited_nodes"] = True
+    if args.detailed_output:
+        overrides["detailed_output"] = True
     if args.ob_type is not None:
         cfg = _replace(cfg, "env", ob_type=args.ob_type)
     # the reference maps train_alg='sample' to the HAMT IL+RL feedback

@@ -19,23 +19,39 @@ Semantics kept from the JAX package:
 - early exit (eval only) is a check once per step whether every item has
   ended, one host sync per step; training rollouts run all T steps and
   keep ended items frozen
-- the teacher: the gt path under 'teacher' feedback; the SPL expert (the
-  unvisited map node minimising dist(node, goal) + dist(cur, node)) under
-  'sample'; first index on ties, as `jnp.argmax` / `jnp.argmin`
+- the teacher: the gt path under 'teacher' feedback; otherwise the
+  `expert_policy` over the unvisited map nodes: 'spl' minimises
+  dist(node, goal) + dist(cur, node), 'ndtw' maximises the nDTW of the
+  trajectory extended along the full-graph shortest path to the node (up
+  to MAX_EXPERT_HOPS hops, agent.py:270-277); first index on ties, as
+  `jnp.argmax` / `jnp.argmin`
 - IL: summed CE of the fused logits with `ignoreid` skipped, then
   * train_ml / batch (agent.py:547); training stops at the gt goal, a
   sampled stop elsewhere ends the episode in place
+- 'expl_sample' (agent.py:555-565): the greedy action, replaced with
+  probability 1 - expl_max_ratio by a uniform draw over the valid actions;
+  its stop is honoured
+- `fusion="local"`: the action space is [stop] + the current node's
+  candidates (agent.py:521-529), for the teacher, the expert and the move
+- `act_visited_nodes` (agent.py:107-122): only the current node counts as
+  visited, for the model's mask, the expert and the forced stop alike
+- `train_rl`, A2C (the reference declares it and ignores it; the JAX
+  package makes it work): the critic reads gmap[CLS] * vp[CLS], rewards are
+  HAMT's distance + nDTW shaping on the node after the teleport (and the
+  backtrack), a sampled stop is honoured, one batched critic call over T*B
+  states, returns bootstrapped from 0 (every item ends by T-1)
 - the teleport's hop cap: when the observed path is longer than
   MAX_TELEPORT_HOPS, the endpoint is forced into the trajectory
+- the final stop table (`stop_nodes`, `stop_scores`, `stop_valid`): each
+  visited map node's last stop probability, for `detailed_output`
 
 JAX rematerialises every step of a differentiated rollout to fit a TPU's
 memory; the port keeps the activations (see PERF.md for the peak).  The
-incremental DTW row that only the nDTW expert and the RL rewards read is
-not computed.
+incremental DTW row (the trajectory's, through every teleport and
+backtrack hop) is computed only where it is read: by the nDTW expert and
+the RL rewards.
 
-Not ported yet (raise NotImplementedError): 'expl_sample' feedback, the
-nDTW expert, `train_rl` (DUET's A2C and critic), `fusion="local"` in the
-rollout, `act_visited_nodes`, `detailed_output`, REVERIE/SOON objects.
+Not ported yet: REVERIE/SOON objects (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -54,19 +70,27 @@ from vln_imagine_tpu_torch.envx.tables import (
     WorldTables,
     require_r2r_episodes,
 )
+from vln_imagine_tpu_torch.models.bert import Critic
 from vln_imagine_tpu_torch.models.duet import DuetModel
 from vln_imagine_tpu_torch.ops.angles import view_elevation, view_heading
 from vln_imagine_tpu_torch.ops.dropout import Rng
 from vln_imagine_tpu_torch.ops.masks import LOGIT_NEG_INF
 from vln_imagine_tpu_torch.platform import resolve_device
-from vln_imagine_tpu_torch.train.rollout_hamt import sample_categorical
+from vln_imagine_tpu_torch.train.rollout_hamt import (
+    a2c_loss,
+    sample_categorical,
+    sample_uniform,
+    shaped_reward,
+    uniform_coin,
+)
 
 MAX_TELEPORT_HOPS = 6
 MAX_BACKTRACK_HOPS = 8
+MAX_EXPERT_HOPS = 8  # nDTW expert path-extension horizon
 
 
 class DuetRolloutResult(NamedTuple):
-    loss: torch.Tensor              # scalar IL + cosine aux loss
+    loss: torch.Tensor              # scalar IL + RL + cosine aux loss
     ml_loss: torch.Tensor
     aux_loss: torch.Tensor
     path_nodes: torch.Tensor        # [B, PB+1] (last column: trash, zeroed)
@@ -75,6 +99,11 @@ class DuetRolloutResult(NamedTuple):
     actions: torch.Tensor | None    # [T, B]
     entropy_sum: torch.Tensor
     steps: int                      # steps the loop ran
+    rl_loss: torch.Tensor           # scalar A2C loss (train_rl only)
+    # the final stop table (--detailed_output, agent.py:597-601)
+    stop_nodes: torch.Tensor        # [B, Gcap] node id per map slot
+    stop_scores: torch.Tensor       # [B, Gcap] last stop probability there
+    stop_valid: torch.Tensor        # [B, Gcap] slot valid and visited
 
 
 def path_buffer_len(cfg: Config) -> int:
@@ -152,40 +181,40 @@ def rollout_duet(model: DuetModel, tables: WorldTables, ep: EpisodeBatch,
                  cfg: Config, rng: Rng | None = None,
                  feedback: str = "argmax", train_ml: float | None = None,
                  deterministic: bool = True, max_steps: int | None = None,
-                 early_exit: bool = False) -> DuetRolloutResult:
+                 early_exit: bool = False, critic: Critic | None = None,
+                 train_rl: bool = False) -> DuetRolloutResult:
     """Roll out a batch of episodes; tables and ep lie on the model's device.
 
-    feedback: 'argmax' (greedy), 'teacher' (gt-path teacher forcing) or
-    'sample' (actions drawn from `rng`, supervised by the SPL expert).
-    train_ml weights the IL loss.  `deterministic` turns every dropout off;
-    `rng` is needed for dropout and for 'sample'.  Autograd is on only when
+    feedback: 'argmax' (greedy), 'teacher' (gt-path teacher forcing),
+    'sample' (actions drawn from `rng`) or 'expl_sample' (greedy, or a
+    uniform draw from `rng`); the last two are supervised by
+    `cfg.train.expert_policy`.  train_ml weights the IL loss; train_rl adds
+    the A2C loss (needs `critic`).  `deterministic` turns every dropout off;
+    `rng` is needed for dropout and for the draws.  Autograd is on only when
     a loss is asked for."""
-    mcfg, tcfg = cfg.model, cfg.train
-    unported = {"feedback " + feedback: feedback not in ("argmax", "teacher",
-                                                         "sample"),
-                "fusion='local'": mcfg.fusion == "local",
-                "act_visited_nodes": tcfg.act_visited_nodes,
-                "detailed_output": tcfg.detailed_output,
-                "expert_policy " + tcfg.expert_policy:
-                    feedback == "sample" and tcfg.expert_policy != "spl",
-                "dataset " + cfg.dataset: cfg.dataset != "r2r"}
-    if any(unported.values()):
-        raise NotImplementedError(
-            f"not ported yet: {[k for k, v in unported.items() if v]}")
+    if feedback not in ("argmax", "teacher", "sample", "expl_sample"):
+        raise ValueError(f"feedback {feedback!r}")
+    if feedback in ("teacher", "argmax"):
+        train_rl = False
+    if cfg.dataset != "r2r":
+        raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported "
+                                  "yet: ROADMAP Queue 1 item 4")
     require_r2r_episodes(ep)
-    training = train_ml is not None
+    training = train_ml is not None or train_rl
     if early_exit and training:
         raise ValueError("early_exit is for inference rollouts only")
-    if feedback == "sample" and rng is None:
-        raise ValueError("'sample' feedback draws its actions from rng")
+    if feedback in ("sample", "expl_sample") and rng is None:
+        raise ValueError(f"{feedback!r} feedback draws its actions from rng")
+    if train_rl and critic is None:
+        raise ValueError("train_rl needs the critic")
     drop = None if deterministic else rng
     with torch.set_grad_enabled(training):
         return _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
-                        max_steps, early_exit)
+                        max_steps, early_exit, critic, train_rl)
 
 
 def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
-             max_steps, early_exit) -> DuetRolloutResult:
+             max_steps, early_exit, critic, train_rl) -> DuetRolloutResult:
     mcfg, tcfg, ecfg = cfg.model, cfg.train, cfg.env
     B = ep.batch
     T = max_steps or ecfg.max_action_len
@@ -198,6 +227,13 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
     g_ar = torch.arange(Gcap, device=dev)
     zero = torch.zeros((), device=dev)
     scan = ep.scan.long()
+    local = mcfg.fusion == "local"
+    expert = train_ml is not None and feedback != "teacher"
+    ndtw_expert = expert and tcfg.expert_policy == "ndtw"
+    if expert and tcfg.expert_policy not in ("spl", "ndtw"):
+        raise ValueError(f"expert_policy {tcfg.expert_policy!r}")
+    # the trajectory's DTW row, read only by the nDTW expert and the rewards
+    need_dtw = ndtw_expert or train_rl
 
     # ---- per-episode prologue (agent.py:386-398) ---------------------------
     txt_embeds = model.text(ep.txt_ids, ep.txt_mask, drop)
@@ -221,9 +257,22 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
     plen = torch.ones((B,), dtype=torch.int32, device=dev)
     goal = ep.goal  # the gt path's last node
     dist_full = tables.dist
+    if need_dtw:
+        dtw_row = envx.dtw_init(tables, ep)
+    if train_rl:
+        last_dist = envx.distance_to_goal(tables, ep, st.node)
+        last_ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
+
+    def dtw_extend(row, hop_nodes, hop_valid):
+        """Fold the appended path nodes into the DTW row, hop by hop."""
+        for i in range(hop_nodes.shape[1]):
+            new = envx.dtw_push(tables, ep, row, hop_nodes[:, i])
+            row = torch.where(hop_valid[:, i, None], new, row)
+        return row
 
     ml_acc = ent_acc = zero
     logits_seq, actions = [], []
+    ys = {k: [] for k in ("logp", "entropy", "state", "reward", "mask")}
     t = 0
     for t in range(T):
         active = ~st.ended
@@ -239,14 +288,20 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
         # ---------------- model inputs ([stop] + gmap slots)
         gvalid_s = gm.valid()[:, :Gcap]
         gnodes = gm.node_ids[:, :Gcap]
-        gvisited_s = gm.visited[:, :Gcap] & gvalid_s
+        cur_slot = G._slot(gm, st.node[:, None])[:, 0].long()
+        if tcfg.act_visited_nodes:
+            # only the CURRENT node counts as visited (agent.py:107-122);
+            # the reference feeds this same mask to the expert and to the
+            # forced stop (no_vp_left) below, not the true visited set
+            act_visited_s = (g_ar[None, :] == cur_slot[:, None]) & gvalid_s
+        else:
+            act_visited_s = gm.visited[:, :Gcap] & gvalid_s
         ones_b = torch.ones((B, 1), dtype=torch.bool, device=dev)
         gmap_img = F.pad(G.node_embeds(gm)[:, :Gcap].to(pano.dtype),
                          (0, 0, 1, 0))
         gmap_step_ids = F.pad(gm.step_ids[:, :Gcap], (1, 0))
         gmap_valid = torch.cat([ones_b, gvalid_s], dim=1)
-        gmap_visited = F.pad(gvisited_s, (1, 0))
-        cur_slot = G._slot(gm, st.node[:, None])[:, 0].long()
+        gmap_visited = F.pad(act_visited_s, (1, 0))
 
         cur_heading = view_heading(st.view_index, tables.views)
         cur_elev = view_elevation(st.view_index, tables.views)
@@ -282,7 +337,8 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
             gmap_valid, gmap_pair, gmap_visited, vp_img, vp_pos, vp_valid,
             vp_nav_valid, cand_to_gmap, imagine_embeds=imagine_embeds,
             imagine_mask=ep.imagine_mask, rng=drop)
-        nav_logits = (out.global_logits if mcfg.fusion == "global"
+        nav_logits = (out.local_logits if local
+                      else out.global_logits if mcfg.fusion == "global"
                       else out.fused_logits)
 
         # the stop score at the current node (agent.py:515-520)
@@ -292,25 +348,38 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
             (b_idx, stop_tgt), torch.where(stop_tgt == gm.trash,
                                            gm.stop_scores[:, -1], probs[:, 0])))
 
-        # ---------------- teacher (agent.py:241-287, _teacher_action_r4r)
-        no_vp_left = ~torch.any(gvalid_s & ~gvisited_s, dim=1)
-        teacher = None  # greedy eval reads no teacher
+        # ---------------- teacher (agent.py:241-287, _teacher_action_r4r):
+        # map slots j-1, or under fusion 'local' candidate tokens j-1
+        no_vp_left = ~torch.any(gvalid_s & ~act_visited_s, dim=1)
+        teacher = None  # greedy eval and the RL rollout read no teacher
         if feedback == "teacher":
             tgt_node = ep.gt_path[:, min(t + 1, ep.gt_path.shape[1] - 1)]
-            match = (gnodes == tgt_node[:, None]) & gvalid_s
+            nodes, ok = ((obs.cand_nodes, obs.cand_valid) if local
+                         else (gnodes, gvalid_s))
+            match = (nodes == tgt_node[:, None]) & ok
             slot = torch.argmax(match.to(torch.int32), dim=1) + 1
             # a missing target means the map buffer overflowed: ignore it
             teacher = torch.where(t >= ep.gt_len - 1, 0,
                                   torch.where(match.any(dim=1), slot, ignore))
-        elif train_ml is not None:  # the SPL expert
-            cand_ok = gvalid_s & ~gvisited_s
-            cost = (dist_full[scan[:, None], gnodes.long(), goal.long()[:, None]]
-                    + dist_full[scan[:, None], st.node.long()[:, None],
-                                gnodes.long()])
-            cost = torch.where(cand_ok, cost, INF)
+        elif expert:
+            nodes, ok = ((obs.cand_nodes, obs.cand_valid) if local
+                         else (gnodes, gvalid_s & ~act_visited_s))
+            if ndtw_expert:
+                rows = dtw_row[:, None, :].expand(B, nodes.shape[1], -1)
+                if local:  # one step to each candidate
+                    rows = envx.dtw_push_multi(tables, ep, rows, nodes)
+                else:  # along the full-graph shortest path to each node
+                    rows = _expert_rows(tables, ep, rows, st.node, nodes)
+                cost = -envx.dtw_ndtw_multi(rows, ep, ecfg.error_margin)
+            else:  # 'spl'
+                cost = (dist_full[scan[:, None], nodes.long(),
+                                  goal.long()[:, None]]
+                        + dist_full[scan[:, None], st.node.long()[:, None],
+                                    nodes.long()])
+            cost = torch.where(ok, cost, INF)
             slot = torch.argmin(cost, dim=1) + 1
             teacher = torch.where(st.node == goal, 0,
-                                  torch.where(cand_ok.any(dim=1), slot, ignore))
+                                  torch.where(ok.any(dim=1), slot, ignore))
         if teacher is not None:
             teacher = torch.where(st.ended, ignore, teacher).to(torch.int32)
 
@@ -321,8 +390,10 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
             ml_acc = ml_acc + torch.sum(torch.where(teacher == ignore, 0.0, ce))
 
         # ---------------- action selection (agent.py:545-575)
-        valid_act = gmap_valid & ~gmap_visited
+        valid_act = (vp_nav_valid if local
+                     else gmap_valid & ~gmap_visited).clone()
         valid_act[:, 0] = True
+        logp_a = ent = None
         if feedback == "teacher":
             a_t = teacher
         else:
@@ -332,15 +403,21 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
                              dim=-1)
             ent_acc = ent_acc + torch.sum(torch.where(st.ended, 0.0, ent))
             if feedback == "argmax":
-                a_t = torch.argmax(logp, dim=-1).to(torch.int32)
-            else:
-                a_t = sample_categorical(logp, rng.device).to(torch.int32)
+                a_t = torch.argmax(logp, dim=-1)
+            elif feedback == "sample":
+                a_t = sample_categorical(logp, rng.device)
+            else:  # 'expl_sample'
+                explore = uniform_coin(B, rng.device) > tcfg.expl_max_ratio
+                a_t = torch.where(explore, sample_uniform(valid_act, rng.device),
+                                  torch.argmax(logp, dim=-1))
+            a_t = a_t.to(torch.int32)
+            logp_a = logp.gather(1, a_t.long()[:, None])[:, 0]
 
         # stop rule (agent.py:570-575): training stops at the gt goal,
-        # inference on the predicted stop.  A sampled stop away from the goal
-        # ends the episode in place, with no stop-score backtrack
-        # (agent.py:584,610)
-        if feedback == "argmax":
+        # inference (and A2C, 'expl_sample') on the predicted stop.  A sampled
+        # stop away from the goal ends the episode in place, with no
+        # stop-score backtrack (agent.py:584,610)
+        if train_rl or feedback not in ("teacher", "sample"):
             a_t_stop = a_t == 0
             end_in_place = torch.zeros_like(a_t_stop)
         else:
@@ -353,7 +430,10 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
             stop_now = torch.ones_like(stop_now)
         just_ended = stop_now & ~st.ended
 
-        move_tgt = envx._take(gnodes, torch.clamp(a_t - 1, 0, Gcap - 1))
+        if local:  # a_t - 1 indexes the current candidates
+            move_tgt = envx._take(obs.cand_nodes, torch.clamp(a_t - 1, 0, K - 1))
+        else:
+            move_tgt = envx._take(gnodes, torch.clamp(a_t - 1, 0, Gcap - 1))
         tgt_node = torch.where(stop_now, st.node, move_tgt)
 
         # ---------------- teleport along the observed path (agent.py:289-305)
@@ -363,6 +443,8 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
         hop_nodes, hop_valid = _fix_endpoint(
             hop_nodes, hop_valid & moving[:, None], tgt_node, moving)
         path, plen = _append_path(path, plen, hop_nodes, hop_valid)
+        if need_dtw:
+            dtw_row = dtw_extend(dtw_row, hop_nodes, hop_valid)
 
         n_hops = hop_valid.sum(dim=1)
         prev_node = torch.where(
@@ -390,9 +472,27 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
         back_nodes, back_valid = _fix_endpoint(
             back_nodes, back_valid & do_back[:, None], best_stop_node, do_back)
         path, plen = _append_path(path, plen, back_nodes, back_valid)
+        if need_dtw:
+            dtw_row = dtw_extend(dtw_row, back_nodes, back_valid)
 
+        ended_pre = st.ended
         st = st.replace(node=new_node, view_index=new_view,
                         ended=st.ended | stop_now, step=st.step + 1)
+
+        if train_rl:
+            # reward shaping on the node after the teleport, or after the
+            # backtrack for just-ended items (agent_cmt.py:615-653)
+            eff_node = torch.where(do_back, best_stop_node, new_node)
+            dist = dist_full[scan, eff_node.long(), goal.long()]
+            ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
+            ys["reward"].append(shaped_reward(dist, ndtw, last_dist, last_ndtw,
+                                              just_ended, ended_pre))
+            last_dist = torch.where(ended_pre, last_dist, dist)
+            last_ndtw = torch.where(ended_pre, last_ndtw, ndtw)
+            ys["mask"].append(torch.where(ended_pre, 0.0, 1.0))
+            ys["logp"].append(logp_a)
+            ys["entropy"].append(ent)
+            ys["state"].append(out.gmap_embeds[:, 0] * out.vp_embeds[:, 0])
 
         # ---------------- observe the new node, grow the graph
         obs = envx.observe_duet(tables, ep, st, mcfg.angle_feat_size)
@@ -406,25 +506,57 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
 
     path = path.clone()
     path[:, -1] = 0  # the trash column: a deterministic output
-    ml_loss = zero
+    ml_loss = rl_loss = zero
     loss = mcfg.cosine_weight * aux_loss if mcfg.use_cosine_aux_loss else zero
     if train_ml is not None:
         ml_loss = ml_acc * train_ml / B
         loss = loss + ml_loss
+    if train_rl:
+        # every item ends by T-1, so the return after the last step is 0
+        states = torch.stack(ys["state"]).float()              # [T, B, H]
+        values = critic(states.reshape(T * B, -1), drop).float().reshape(T, B)
+        # the entropy bonus only under 'sample' (not 'expl_sample')
+        rl_loss = a2c_loss(
+            values, torch.stack(ys["reward"]), torch.stack(ys["mask"]),
+            torch.stack(ys["logp"]),
+            torch.stack(ys["entropy"]) if feedback == "sample" else None,
+            torch.zeros((B,), device=dev), tcfg, B)
+        loss = loss + rl_loss
     return DuetRolloutResult(
         loss=loss, ml_loss=ml_loss, aux_loss=aux_loss, path_nodes=path,
         path_len=plen,
         logits=torch.stack(logits_seq) if logits_seq else None,
         actions=torch.stack(actions) if actions else None,
-        entropy_sum=ent_acc, steps=t + 1)
+        entropy_sum=ent_acc, steps=t + 1, rl_loss=rl_loss,
+        stop_nodes=gm.node_ids[:, :Gcap], stop_scores=gm.stop_scores[:, :Gcap],
+        stop_valid=(gm.valid() & gm.visited)[:, :Gcap])
+
+
+def _expert_rows(tables, ep, rows, cur_node, nodes):
+    """The DTW rows [B, M, P+1] extended hop by hop along the full-graph
+    shortest path from `cur_node` to each of `nodes` [B, M], for up to
+    MAX_EXPERT_HOPS hops (the nDTW expert, agent.py:270-277)."""
+    scan = ep.scan.long()[:, None]
+    cur = cur_node[:, None].expand_as(nodes)
+    done = torch.zeros(nodes.shape, dtype=torch.bool, device=nodes.device)
+    for _ in range(MAX_EXPERT_HOPS):
+        stepping = ~done & (cur != nodes)
+        nxt = torch.where(stepping,
+                          tables.next_hop[scan, cur.long(), nodes.long()], cur)
+        new = envx.dtw_push_multi(tables, ep, rows, nxt)
+        rows = torch.where(stepping[..., None], new, rows)
+        done = done | (nxt == nodes)
+        cur = nxt
+    return rows
 
 
 def make_eval_fn(model: DuetModel, tables: WorldTables, cfg: Config,
-                 device=None):
+                 device=None, detailed: bool = False):
     """Greedy-eval rollout on `device` (the card unless the caller names
-    one): episodes -> (path_nodes, path_len).  Moves the model and the
-    tables there once.  `eval_fn.steps` is the number of steps the last
-    call's loop ran."""
+    one): episodes -> (path_nodes, path_len), and with `detailed` a third
+    element, the final stop table (stop_nodes, stop_scores, stop_valid).
+    Moves the model and the tables there once.  `eval_fn.steps` is the
+    number of steps the last call's loop ran."""
     dev = resolve_device(device)
     model.to(dev).eval()
     tables = tables.to(dev)
@@ -432,6 +564,9 @@ def make_eval_fn(model: DuetModel, tables: WorldTables, cfg: Config,
     def eval_fn(ep: EpisodeBatch):
         res = rollout_duet(model, tables, ep.to(dev), cfg, early_exit=True)
         eval_fn.steps = res.steps
+        if detailed:
+            return res.path_nodes, res.path_len, (
+                res.stop_nodes, res.stop_scores, res.stop_valid)
         return res.path_nodes, res.path_len
 
     return eval_fn

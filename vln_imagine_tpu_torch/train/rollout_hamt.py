@@ -22,11 +22,18 @@ Semantics kept from the JAX package:
 - A2C: discounted returns seeded with the critic value of the final state
   (under stop-gradient) for unfinished items, one batched critic call over
   all T*B step states (not detached: the critic loss reaches the model),
-  0.5 L2 critic loss, entropy bonus under 'sample', normalised by
-  `normalize_loss` (:661-744)
+  0.5 L2 critic loss, entropy bonus under 'sample' and 'mixed', normalised
+  by `normalize_loss` (:661-744)
+- 'mixed' feedback is the fused rollout of one train step: a batch of 2B
+  items where those in `il_mask` take the teacher action and the rest
+  sample.  CE covers only the IL items and entropy and A2C only the others,
+  each normalised by its own half's size; the alignment loss is the sum of
+  each half's own mean, with negatives from the same half
+  (`contrastive_alignment_loss(groups=...)`).  Each half's losses are
+  those of the two separate rollouts it replaces.
 
-Not ported yet: 'mixed' feedback (the fused rollout), r2r_back's two
-phases, REVERIE objects.
+Not ported yet: r2r_back's two phases and REVERIE objects (ROADMAP Queue 1
+item 4).
 """
 
 from __future__ import annotations
@@ -53,12 +60,12 @@ class RolloutResult(NamedTuple):
     loss: torch.Tensor              # scalar total loss (IL + RL + aux)
     ml_loss: torch.Tensor           # scalar
     rl_loss: torch.Tensor           # scalar
-    aux_loss: torch.Tensor          # scalar cosine alignment loss
+    aux_loss: torch.Tensor          # scalar alignment loss
     path_nodes: torch.Tensor        # [B, T+1]
     path_len: torch.Tensor          # [B]
     logits: torch.Tensor | None     # [T, B, T_obs] (None under early exit)
     actions: torch.Tensor | None    # [T, B]
-    entropy_sum: torch.Tensor       # scalar, 'sample' feedback (log metric)
+    entropy_sum: torch.Tensor       # scalar, 'sample' / 'mixed' (log metric)
     steps: int                      # steps the loop ran
 
 
@@ -71,18 +78,75 @@ def sample_categorical(logp: torch.Tensor,
     return torch.argmax(logp + gumbel, dim=-1)
 
 
-def _select_action(logits, valid, teacher, feedback: str, rng: Rng | None):
-    """Action slot per item (agent_cmt.py:560-577); under 'sample' also its
-    log-probability and the policy entropy, which only the RL loss reads."""
+def uniform_coin(batch: int, generator: torch.Generator) -> torch.Tensor:
+    """[batch] draws from U[0, 1), as `jax.random.uniform`."""
+    return torch.rand((batch,), generator=generator, device=generator.device)
+
+
+def sample_uniform(valid: torch.Tensor,
+                   generator: torch.Generator) -> torch.Tensor:
+    """One draw per row, uniform over the row's valid entries of [B, K]
+    (a categorical over a uniform logit, as the JAX package draws it)."""
+    return sample_categorical(torch.where(valid, 0.0, LOGIT_NEG_INF), generator)
+
+
+def shaped_reward(dist, ndtw, last_dist, last_ndtw, stopped, ended_pre):
+    """One step's RL reward per item (agent_cmt.py:615-653): at a stop +2
+    plus twice the nDTW within 3 m of the goal, else -2; on a move +-1 by
+    the sign of the distance gained, plus the nDTW gained, less a penalty
+    for leaving the goal's 1 m ring; 0 for items that had already ended."""
+    stop_rew = torch.where(dist < 3.0, 2.0 + ndtw * 2.0, -2.0)
+    delta = -(dist - last_dist)
+    ndtw_rew = ndtw - last_ndtw
+    move_rew = torch.where(delta > 0.0, 1.0 + ndtw_rew,
+                           torch.where(delta < 0.0, -1.0 + ndtw_rew, 0.0))
+    move_rew = move_rew - torch.where(
+        (last_dist <= 1.0) & (delta < 0.0), (1.0 - last_dist) * 2.0, 0.0)
+    return torch.where(ended_pre, 0.0, torch.where(stopped, stop_rew, move_rew))
+
+
+def a2c_loss(values, rewards, masks, logps, entropys, bootstrap, tcfg,
+             n_items):
+    """The A2C loss of a rollout (agent_cmt.py:712-744) from its [T, B]
+    critic values, rewards, masks and chosen log-probabilities: returns
+    discounted by `tcfg.gamma` from `bootstrap` [B], the policy gradient on
+    the detached advantage, the 0.5 L2 critic loss, the entropy bonus where
+    `entropys` is given, normalised by `tcfg.normalize_loss` ('batch'
+    divides by `n_items`)."""
+    rl_loss = values.new_zeros(())
+    discount = bootstrap
+    for s in reversed(range(values.shape[0])):
+        discount = discount * tcfg.gamma + rewards[s]
+        adv = (discount - values[s]).detach()
+        rl_loss = (rl_loss + torch.sum(-logps[s] * adv * masks[s])
+                   + torch.sum(((discount - values[s]) ** 2) * masks[s]) * 0.5)
+    if entropys is not None:
+        rl_loss = rl_loss + torch.sum(
+            -tcfg.entropy_loss_weight * entropys * masks)
+    if tcfg.normalize_loss == "total":
+        rl_loss = rl_loss / torch.clamp(torch.sum(masks), min=1.0)
+    elif tcfg.normalize_loss == "batch":
+        rl_loss = rl_loss / n_items
+    return rl_loss
+
+
+def _select_action(logits, valid, teacher, feedback: str, rng: Rng | None,
+                   il_mask=None):
+    """Action slot per item (agent_cmt.py:560-577); under 'sample' and
+    'mixed' also its log-probability and the policy entropy, which only the
+    RL loss reads.  'mixed': items in `il_mask` take the teacher action, the
+    rest sample."""
     if feedback == "teacher":
         return teacher, None, None
     logp = torch.log_softmax(
         torch.where(valid, logits, LOGIT_NEG_INF).float(), dim=-1)
     if feedback == "argmax":
         return torch.argmax(logp, dim=-1).to(torch.int32), None, None
-    if feedback != "sample":
-        raise NotImplementedError(f"feedback {feedback!r} is not ported yet")
+    if feedback not in ("sample", "mixed"):
+        raise ValueError(f"feedback {feedback!r}")
     a = sample_categorical(logp, rng.device)
+    if feedback == "mixed":
+        a = torch.where(il_mask, teacher.long(), a)
     entropy = -torch.sum(torch.where(valid, logp.exp() * logp, 0.0), dim=-1)
     chosen = logp.gather(1, a.clamp(0, logp.shape[1] - 1)[:, None])[:, 0]
     return a.to(torch.int32), chosen, entropy
@@ -93,32 +157,41 @@ def rollout_hamt(model: HamtModel, tables: WorldTables, ep: EpisodeBatch,
                  feedback: str = "argmax", train_ml: float | None = None,
                  train_rl: bool = False, deterministic: bool = True,
                  max_steps: int | None = None,
-                 early_exit: bool = False) -> RolloutResult:
+                 early_exit: bool = False,
+                 il_mask: torch.Tensor | None = None) -> RolloutResult:
     """Roll out a batch of episodes; tables and ep lie on the model's device.
 
-    feedback: 'argmax' (greedy), 'teacher' (gt-path teacher forcing) or
-    'sample' (actions drawn from `rng`).  train_ml weights the teacher CE;
-    train_rl adds the A2C loss (needs `critic`).  `deterministic` turns every
-    dropout off; `rng` is needed for dropout and for 'sample'.  Autograd is
-    on only when a loss is asked for."""
+    feedback: 'argmax' (greedy), 'teacher' (gt-path teacher forcing),
+    'sample' (actions drawn from `rng`) or 'mixed' (the fused rollout: the
+    items of the [B] bool `il_mask` take the teacher action, the rest
+    sample).  train_ml weights the teacher CE; train_rl adds the A2C loss
+    (needs `critic`).  `deterministic` turns every dropout off; `rng` is
+    needed for dropout and for 'sample' / 'mixed'.  Autograd is on only when
+    a loss is asked for."""
     if feedback in ("teacher", "argmax"):
         train_rl = False
+    if feedback == "mixed":
+        if il_mask is None:
+            raise ValueError("feedback='mixed' needs il_mask")
+    else:
+        il_mask = None
     training = train_ml is not None or train_rl
     if early_exit and training:
         raise ValueError("early_exit is for inference rollouts only")
     if cfg.dataset != "r2r":
-        raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported yet")
+        raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported "
+                                  "yet: ROADMAP Queue 1 item 4")
     require_r2r_episodes(ep)
     if train_rl and critic is None:
         raise ValueError("train_rl needs the critic")
     drop = None if deterministic else rng
     with torch.set_grad_enabled(training):
         return _rollout(model, tables, ep, cfg, rng, drop, critic, feedback,
-                        train_ml, train_rl, max_steps, early_exit)
+                        train_ml, train_rl, max_steps, early_exit, il_mask)
 
 
 def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
-             train_rl, max_steps, early_exit) -> RolloutResult:
+             train_rl, max_steps, early_exit, il_m) -> RolloutResult:
     mcfg, tcfg, ecfg = cfg.model, cfg.train, cfg.env
     B = ep.batch
     T = max_steps or ecfg.max_action_len
@@ -134,9 +207,12 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
     if mcfg.imagine_enc_pano:
         imagine_embeds = model.imagine(ep.imagine_feats, ep.imagine_mask, drop)
         if mcfg.use_cosine_aux_loss:
+            # a fused batch: each half normalised alone, negatives from its
+            # own half (one alignment call per rollout in the reference)
+            groups = None if il_m is None else (~il_m).to(torch.int32)
             aux_loss, imagine_embeds = model.align_with_contrastive_loss(
                 txt_embeds, ep.txt_mask, imagine_embeds, ep.imagine_mask,
-                ep.np_weights, drop)
+                ep.np_weights, drop, groups=groups)
 
     h0 = model.history_initial(B, drop)
     hist_buf = torch.zeros((B, T + 1, mcfg.hidden_size), dtype=h0.dtype,
@@ -171,7 +247,8 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
         obs, out = visual_forward(st, hist_buf, hist_len)
         act_logits = out.act_logits
         teacher = (envx.teacher_hamt(tables, ep, st, t, ignore)
-                   if feedback == "teacher" or train_ml is not None else None)
+                   if feedback in ("teacher", "mixed") or train_ml is not None
+                   else None)
 
         # IL: summed CE with ignore index from the UNMASKED logits, as the
         # reference computes ml_loss before the no_cand_backtrack masking
@@ -180,7 +257,10 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
             logp = torch.log_softmax(act_logits.float(), dim=-1)
             tgt = teacher.clamp(0, logp.shape[1] - 1).long()
             ce = -logp.gather(1, tgt[:, None])[:, 0]
-            ml_acc = ml_acc + torch.sum(torch.where(teacher == ignore, 0.0, ce))
+            ce_skip = teacher == ignore
+            if il_m is not None:
+                ce_skip = ce_skip | ~il_m  # CE supervises the IL half only
+            ml_acc = ml_acc + torch.sum(torch.where(ce_skip, 0.0, ce))
 
         if tcfg.no_cand_backtrack:
             # mask candidates leading to already-visited nodes (incl. the
@@ -195,13 +275,14 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
 
         a_t, logp_a, entropy = _select_action(
             act_logits, (obs.nav_types != 0) & obs.valid, teacher, feedback,
-            rng)
+            rng, il_m)
         if entropy is not None:
-            ent_acc = ent_acc + torch.sum(torch.where(st.ended, 0.0, entropy))
+            ent_skip = st.ended if il_m is None else st.ended | il_m
+            ent_acc = ent_acc + torch.sum(torch.where(ent_skip, 0.0, entropy))
 
         # stop selected this step / the teacher says ignore (ended items)
         stop_sel = a_t == obs.stop_slot
-        if feedback == "teacher":
+        if feedback in ("teacher", "mixed"):
             stop_sel = stop_sel | (a_t == ignore)
         stop_sel = stop_sel & ~st.ended
         is_stop = stop_sel | st.ended
@@ -228,21 +309,15 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
             new_row = envx.dtw_push(tables, ep, dtw_row, st.node)
             dtw_row = torch.where(moved[:, None], new_row, dtw_row)
             ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
-            stop_rew = torch.where(dist < 3.0, 2.0 + ndtw * 2.0, -2.0)
-            delta = -(dist - last_dist)
-            ndtw_rew = ndtw - last_ndtw
-            move_rew = torch.where(delta > 0.0, 1.0 + ndtw_rew,
-                                   torch.where(delta < 0.0, -1.0 + ndtw_rew,
-                                               0.0))
-            move_rew = move_rew - torch.where(
-                (last_dist <= 1.0) & (dist - last_dist > 0.0),
-                (1.0 - last_dist) * 2.0, 0.0)
-            reward = torch.where(ended_pre, 0.0,
-                                 torch.where(is_stop, stop_rew, move_rew))
+            reward = shaped_reward(dist, ndtw, last_dist, last_ndtw, is_stop,
+                                   ended_pre)
             last_dist = torch.where(ended_pre, last_dist, dist)
             last_ndtw = torch.where(moved, ndtw, last_ndtw)
+            mask = torch.where(ended_pre, 0.0, 1.0)
+            if il_m is not None:
+                mask = mask * ~il_m  # RL terms cover the sampled half only
             ys["reward"].append(reward)
-            ys["mask"].append(torch.where(ended_pre, 0.0, 1.0))
+            ys["mask"].append(mask)
             ys["logp"].append(logp_a)
             ys["entropy"].append(entropy)
             ys["state"].append(out.state)
@@ -257,7 +332,10 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
             else zero)
     ml_loss = rl_loss = zero
     if train_ml is not None:
-        ml_loss = ml_acc * train_ml / B
+        # per-rollout normalisation (agent_cmt.py:747): a fused batch's CE
+        # divides by the IL half's size
+        n_il = B if il_m is None else torch.clamp(il_m.sum(), min=1)
+        ml_loss = ml_acc * train_ml / n_il
         loss = loss + ml_loss
 
     if train_rl:
@@ -265,24 +343,13 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
         with torch.no_grad():
             _, last_out = visual_forward(st, hist_buf, hist_len)
             last_value = critic(last_out.state, drop)
-        discount = torch.where(st.ended, 0.0, last_value.float())
+        bootstrap = torch.where(st.ended, 0.0, last_value.float())
         states = torch.stack(ys["state"])                    # [T, B, H]
         values = critic(states.reshape(T * B, -1), drop).float().reshape(T, B)
-        rewards, masks = torch.stack(ys["reward"]), torch.stack(ys["mask"])
-        logps, entropys = torch.stack(ys["logp"]), torch.stack(ys["entropy"])
-        # reverse-time A2C pass (agent_cmt.py:712-732)
-        for s in reversed(range(T)):
-            discount = discount * tcfg.gamma + rewards[s]
-            adv = (discount - values[s]).detach()
-            rl_loss = (rl_loss + torch.sum(-logps[s] * adv * masks[s])
-                       + torch.sum(((discount - values[s]) ** 2) * masks[s]) * 0.5)
-        if feedback == "sample":
-            rl_loss = rl_loss + torch.sum(
-                -tcfg.entropy_loss_weight * entropys * masks)
-        if tcfg.normalize_loss == "total":
-            rl_loss = rl_loss / torch.clamp(torch.sum(masks), min=1.0)
-        elif tcfg.normalize_loss == "batch":
-            rl_loss = rl_loss / B
+        rl_loss = a2c_loss(
+            values, torch.stack(ys["reward"]), torch.stack(ys["mask"]),
+            torch.stack(ys["logp"]), torch.stack(ys["entropy"]), bootstrap,
+            tcfg, B if il_m is None else torch.clamp((~il_m).sum(), min=1))
         loss = loss + rl_loss
 
     return RolloutResult(

@@ -7,14 +7,20 @@ only the episodes and the train step only the two episode batches.
 
 One train step is one reference iteration (agent_cmt.py:799-832): under
 'sample' feedback an IL rollout (teacher forcing, weight ml_weight) and an
-RL rollout (sampled actions, A2C) share one backward; under 'teacher' only
-the IL rollout runs.  The navigator and the critic each have their own
-optimizer (train/optim.py): the navigator's clips at 40 and carries the
-3-stage imagination warm-up, the critic's is plain Adam.
+RL rollout (sampled actions, A2C) share one backward, or with
+`fused_sample_rollout` one rollout of both batches side by side ('mixed'
+feedback, the same losses per half); under 'teacher' only the IL rollout
+runs.  The navigator and the critic each have their own optimizer
+(train/optim.py, any of `cfg.train.optim`): the navigator's clips at 40 and
+carries the 3-stage imagination warm-up, the critic's does neither.
+
+Not ported yet: CVDN's shortest-path teacher (ROADMAP Queue 1 item 4) and
+the ViT of `e2e_imagination` (item 5).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -86,6 +92,14 @@ def model_optimizer(cfg: Config, model: nn.Module):
                            tcfg.max_grad_norm, weight_decay=tcfg.weight_decay)
 
 
+def concat_episodes(a: EpisodeBatch, b: EpisodeBatch) -> EpisodeBatch:
+    """The items of `a`, then those of `b`, as one batch."""
+    return dataclasses.replace(a, **{
+        f.name: None if getattr(a, f.name) is None
+        else torch.cat([getattr(a, f.name), getattr(b, f.name)])
+        for f in dataclasses.fields(a)})
+
+
 class HamtTrainer:
     """Builds the HAMT model and its critic with seeded weights on `device`
     (the card unless the caller names one), their optimizers, the greedy
@@ -125,8 +139,8 @@ class HamtTrainer:
         tcfg = cfg.train
         if feedback not in ("teacher", "sample"):
             raise ValueError(f"feedback {feedback!r}")
-        if feedback == "sample" and tcfg.ml_weight != 0 and tcfg.fused_sample_rollout:
-            raise NotImplementedError("the fused sample rollout is not ported yet")
+        fused = (feedback == "sample" and tcfg.ml_weight != 0
+                 and tcfg.fused_sample_rollout)
         # teacher-forced rollouts end with the annotated path, so they need
         # only max_gt_path_len steps
         t_il = min(cfg.env.max_gt_path_len, cfg.env.max_action_len)
@@ -149,6 +163,18 @@ class HamtTrainer:
                           train_ml=tcfg.teacher_weight, max_steps=t_il)
                 loss = loss + res.loss
                 metrics.update(ml_loss=res.ml_loss, aux_loss=res.aux_loss)
+            elif fused:
+                # one rollout at batch 2B: the IL half teacher-forced, the RL
+                # half sampled, over max_action_len steps
+                il_mask = torch.cat([
+                    torch.ones(ep_il.batch, dtype=torch.bool, device=dev),
+                    torch.zeros(ep_rl.batch, dtype=torch.bool, device=dev)])
+                res = run(concat_episodes(ep_il, ep_rl), feedback="mixed",
+                          train_ml=tcfg.ml_weight, train_rl=True,
+                          il_mask=il_mask)
+                loss = loss + res.loss
+                metrics.update(ml_loss=res.ml_loss, aux_loss=res.aux_loss,
+                               rl_loss=res.rl_loss, entropy=res.entropy_sum)
             else:
                 if tcfg.ml_weight != 0:
                     res = run(ep_il, feedback="teacher",
