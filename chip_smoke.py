@@ -6,7 +6,8 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It imports nothing of JAX or of the JAX package.  Phases, each printing one
-JSON line; any failed check exits non-zero:
+JSON line and each starting with its own peak memory (`fresh_phase`); any
+failed check exits non-zero:
 
 1. build        compile every kernel source (`vln_imagine_tpu_torch/csrc/
                 attention_fwd.cu`: K1, K2; `attention_bwd.cu`: K3, K4) with
@@ -96,7 +97,34 @@ JSON line; any failed check exits non-zero:
                 --expl-sample --iters 2 --log-every 1` with no `--device`,
                 then the driver's validation with outputs: it writes
                 `detail_val_unseen.json` on the card.
-16. kernels     every kernel against its plain PyTorch version on the card:
+16. variants    every task variant at its preset (`VARIANT_PRESETS`), full
+                width, bf16, on the bench world with 768-d objects where
+                the task grounds them (REVERIE 20 a node, SOON 100):
+                REVERIE-DUET, SOON, REVERIE-HAMT (NavRef), r2r_back
+                (out-and-back episodes with a midstop), CVDN (the
+                shortest-path teacher), RxR (250,002-token vocabulary, 270
+                text keys), and R4R of both agents (eval only).  Greedy
+                eval at batch 64: valid walks, K1 from the launch formulas
+                (`eval_calls`), each predicted object one that its node
+                shows, each midstop on its path; then but for R4R the
+                preset's train step at batch 8 with every dropout on
+                (`variant_steps`: K2 / K3 from `train_launches_per_step`
+                or `duet_train_launches_per_step`, stage-1 semantics or,
+                for NavRef's plain optimizer, `plain_split`), and a
+                positive grounding loss where objects are supervised.
+17. reverie_hamt_f32_parity / reverie_duet_f32_parity  NavRef's 'sample'
+                step (same draws) and REVERIE-DUET's 'imitation' step, f32,
+                batch 2, card vs CPU (`f32_parity`).
+18. variant_driver  `FinetuneDriver.validate` of REVERIE-DUET over 100
+                items, the object tables built by `build_object_tables`
+                from a stand-in of the HDF5 store (`StandInObjectStore`):
+                K1 counted from the loop's steps, RGS / RGSPL, a
+                `predObjId` per item in the submission.
+19. train_cli_r2r_back  the train CLI with `--dataset r2r_back` on files
+                written in the ReturnBack layout (`write_run_files`), the
+                view features in memory in the HDF5 reader's place;
+                `cli_phase`'s gates.
+20. kernels     every kernel against its plain PyTorch version on the card:
                 K1 at every (Lq, Lk) of the eval path, B 8 and 64, and of
                 the teacher step, B 8; K2 (both bit sources), K3 (both) and
                 K4 at every training shape, B 8; every kernel also at the
@@ -107,8 +135,13 @@ JSON line; any failed check exits non-zero:
                 packed projection; and at DUET's shapes and bias forms
                 (`DUET_SHAPES`: the graph bias [B,1,97,97] with dBias, the
                 -1e9 pano key padding), with launch-weighted times per DUET
-                step (`duet_weighted`); and at the imagination encoder's
-                20/20 with one item's keys all masked (`IMAGINE_SHAPE`).
+                step (`duet_weighted`); at the imagination encoder's
+                20/20 with one item's keys all masked (`IMAGINE_SHAPE`);
+                at the task variants' shapes (`VARIANT_SHAPES`: SOON's
+                150/150 and 151/101, REVERIE-DUET's 70/70 and 71/201,
+                NavRef's 87/87 and 87/60, RxR's 270/67 and 67/270, CVDN's
+                100/100), and at 70/70 with one item's object keys all
+                masked (`NO_OBJECTS_SHAPE`).
                 Kernel, plain and library times
                 (CUDA-graph replays between CUDA events) beside the least
                 time the card could take.  Two K2 calls, and two K3 calls,
@@ -204,6 +237,19 @@ DUET_SHAPES = [(200, 200, "mask"), (50, 50, "pad"), (97, 220, "mask"),
 # self-attention over max_imagination_len tokens with the -10000 key mask;
 # an item without imaginations has every key of its rows masked
 IMAGINE_SHAPE = (20, 20, "imagine")
+# the task variants' calls past the R2R shapes (bias form beside each):
+# SOON's pano encoder over 14 + 36 + 100 tokens and its local branch,
+# [stop] + those 150, against 100 + 1 text keys; REVERIE-DUET's 70 pano
+# tokens and its local cross over 200 + 1 text keys; NavRef's visual
+# stream of 16 history + 51 observation + 20 object tokens and its cross
+# over 60 text keys; RxR's crosses between 67 visual and 250 + 20 text
+# tokens; CVDN's 80 + 20 text tokens
+VARIANT_SHAPES = [(150, 150, "pad"), (151, 101, "mask"), (70, 70, "pad"),
+                  (71, 201, "mask"), (87, 87, "mask"), (87, 60, "mask"),
+                  (270, 67, "mask"), (67, 270, "mask"), (100, 100, "mask")]
+# REVERIE-DUET's pano encoder with one item's 20 object keys all masked
+# (its views stay valid)
+NO_OBJECTS_SHAPE = (70, 70, "no_objects")
 DUET_TEXT_CALLS = 9
 DUET_STEP_CALLS = {(50, 50): 2, (97, 220): 4, (97, 97): 4, (51, 220): 4,
                    (51, 51): 4}
@@ -270,6 +316,15 @@ def time_ms(torch, fn, iters: int = 20, repeats: int = 5,
     return statistics.median(times)
 
 
+def fresh_phase(torch) -> None:
+    """Start a phase with its own peak memory: free what earlier phases left
+    (trainers held in reference cycles, the caching allocator's blocks),
+    then reset the peak.  Every phase calls it first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
 # --------------------------------------------------------------- phase 2
 def check_walks(world, ep, nodes, lens, max_len, jumps_allowed=False) -> int:
     """Every path starts at its start node, has at most `max_len` entries of
@@ -309,12 +364,12 @@ def main_path_phase(torch, cfg, world):
     from vln_imagine_tpu_torch.ops import attention
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
 
+    fresh_phase(torch)
     T = cfg.env.max_action_len
     # attention calls: one per language layer once per episode; per step,
     # four per cross-modal layer and one per history pano layer (9 + 18 at
     # the released config)
-    m = cfg.model
-    per_episode, per_step = m.num_l_layers, 4 * m.num_x_layers + m.num_pano_layers
+    per_episode, per_step = eval_calls(cfg)
     t0 = time.perf_counter()
     trainer = HamtTrainer(cfg, world, device="cuda")
     eval_step = trainer.make_eval_step()
@@ -389,6 +444,7 @@ def parity_phase(torch, cfg, world):
     from vln_imagine_tpu_torch.train.rollout_hamt import rollout_hamt
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
 
+    fresh_phase(torch)
     cfg32 = _replace(cfg, "model", compute_dtype="float32")
     ep = bench_episodes(world, cfg32, 4)
     out = {}
@@ -419,28 +475,45 @@ def parity_phase(torch, cfg, world):
 
 
 # --------------------------------------------------------------- phase 4
-def train_launches_per_step(cfg) -> tuple[int, int]:
-    """K2 and K3 launches of one 'sample' step: every attention call has
-    dropout on (K2).  IL rollout: the language stack once, then per step 4
-    per cross-modal layer and 1 per pano layer; the RL rollout the same over
-    max_action_len steps plus the final-state visual call (4 per x-layer).
-    With `fused_sample_rollout` one rollout of max_action_len steps does
-    both.  The full imagination encoder (`bypass_imag_encoder=False`) adds
-    its `num_pano_layers` self-attentions once a rollout.  Backward (K3):
-    the x-layer calls and the imagination encoder's, since
-    fix_lang_embedding and fix_hist_embedding keep the language stack and
-    the pano encoder out of autograd and the final-state value is under
-    stop-gradient."""
-    m, e = cfg.model, cfg.env
-    t_il, t_rl = min(e.max_gt_path_len, e.max_action_len), e.max_action_len
-    per_step = 4 * m.num_x_layers + m.num_pano_layers
+def hamt_calls(cfg) -> tuple[int, int, int, int]:
+    """Attention calls of one HAMT rollout: (language stack, imagination
+    encoder) once an episode, (cross-modal layers, history pano encoder)
+    per step.  The language stack is `num_l_layers`, plus each x-layer's
+    language branch under no_lang_ca, but not NavRef's (objects), whose
+    text skips the x-layers; the full imagination encoder
+    (`bypass_imag_encoder=False`) is `num_pano_layers`; an x-layer makes 4
+    calls, 2 when the text stays static (no_lang_ca)."""
+    m = cfg.model
+    lang = m.num_l_layers + (m.num_x_layers if m.no_lang_ca
+                             and m.obj_feat_size == 0 else 0)
     imagine = (m.num_pano_layers if m.imagine_enc_pano
                and not m.bypass_imag_encoder else 0)
+    x = (2 if m.no_lang_ca else 4) * m.num_x_layers
+    return lang, imagine, x, m.num_pano_layers
+
+
+def train_launches_per_step(cfg) -> tuple[int, int]:
+    """K2 and K3 launches of one 'sample' step: every attention call has
+    dropout on (K2).  IL rollout (over min(max_gt_path_len, max_action_len)
+    steps, cvdn's shortest-path teacher over max_action_len): the language
+    stack once, then per step the cross-modal and pano calls; the RL
+    rollout the same over max_action_len steps plus the final-state visual
+    call (the cross-modal calls).  With `fused_sample_rollout` one rollout
+    of max_action_len steps does both.  Backward (K3): the x-layer calls,
+    the imagination encoder's unless fix_imagine_embeds, the language
+    stack's unless fix_lang_embedding, and the pano encoder's unless
+    fix_hist_embedding, save the last step's, whose history token no later
+    call reads; the final-state value is under stop-gradient."""
+    m, e = cfg.model, cfg.env
+    t_rl = e.max_action_len
+    t_il = t_rl if cfg.dataset == "cvdn" else min(e.max_gt_path_len, t_rl)
+    lang, imagine, x, pano = hamt_calls(cfg)
     rollouts = [t_rl] if cfg.train.fused_sample_rollout else [t_il, t_rl]
-    k2 = sum(m.num_l_layers + imagine + t * per_step for t in rollouts) \
-        + 4 * m.num_x_layers
-    k3 = sum(4 * m.num_x_layers * t
-             + (0 if m.fix_imagine_embeds else imagine) for t in rollouts)
+    k2 = sum(lang + imagine + t * (x + pano) for t in rollouts) + x
+    k3 = sum(x * t + (0 if m.fix_imagine_embeds else imagine)
+             + (0 if m.fix_lang_embedding else lang)
+             + (0 if m.fix_hist_embedding else pano * (t - 1))
+             for t in rollouts)
     return k2, k3
 
 
@@ -454,6 +527,7 @@ def train_phase(torch, cfg, world):
           and cfg.model.attention_probs_dropout_prob > 0,
           "the released config fixes the language and history embeddings "
           "and trains with attention dropout")
+    fresh_phase(torch)
     k2_want, k3_want = train_launches_per_step(cfg)
     t0 = time.perf_counter()
     trainer = HamtTrainer(cfg, world, device="cuda")
@@ -562,12 +636,14 @@ def f32_parity(torch, phase, make_trainer, make_step, keys, lr, draws=None,
     UPDATE_TOL.  Returns the card's launches."""
     from vln_imagine_tpu_torch.ops import attention
 
+    fresh_phase(torch)
     out, launches = {}, None
     for dev in ("cuda", "cpu"):
         trainer, ep = make_trainer(dev)
         # the alignment head's fixed 0.15 dropout and the critic's 0.5, off
         # on both sides
-        trainer.model.contrastive_alignment_model.image_proj.rate = 0.0
+        if hasattr(trainer.model, "contrastive_alignment_model"):
+            trainer.model.contrastive_alignment_model.image_proj.rate = 0.0
         if trainer.critic is not None:
             trainer.critic.rate = 0.0
         before = {k: v.detach().cpu().clone()
@@ -671,6 +747,7 @@ def duet_eval_phase(torch, cfg, world):
     from vln_imagine_tpu_torch.train.rollout_duet import path_buffer_len
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
 
+    fresh_phase(torch)
     per_episode, per_step = duet_calls(cfg)
     t0 = time.perf_counter()
     trainer = DuetTrainer(cfg, world, device="cuda")
@@ -744,6 +821,7 @@ def duet_parity_phase(torch, cfg, world):
     from vln_imagine_tpu_torch.train.rollout_duet import rollout_duet
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
 
+    fresh_phase(torch)
     cfg32 = _replace(cfg, "model", compute_dtype="float32")
     ep = bench_episodes(world, cfg32, 4)
     out = {}
@@ -781,6 +859,7 @@ def duet_train_phase(torch, cfg, world):
     check(cfg.train.train_alg == "dagger"
           and cfg.model.attention_probs_dropout_prob > 0,
           "the DUET recipe trains by DAgger with attention dropout")
+    fresh_phase(torch)
     k2_want, k3_want = duet_train_launches_per_step(cfg)
     t0 = time.perf_counter()
     trainer = DuetTrainer(cfg, world, device="cuda")
@@ -873,21 +952,24 @@ def eval_calls(cfg) -> tuple[int, int]:
     per step (9 and 18 at either released config)."""
     if cfg.agent == "duet":
         return duet_calls(cfg)
-    m = cfg.model
-    return m.num_l_layers, 4 * m.num_x_layers + m.num_pano_layers
+    lang, imagine, x, pano = hamt_calls(cfg)
+    return lang + imagine, x + pano
 
 
-def write_run_files(cfg, graphs, ep, root: Path) -> dict:
+def write_run_files(cfg, graphs, ep, root: Path, dataset="r2r") -> dict:
     """The world as a user's run would find it on disk: MP3D connectivity
     JSON, `R2R_{train,val_unseen}_enc.json` (two instructions a train path,
-    one a val path), the generated-flag and sub-instruction JSON.  Returns
-    the imagination features by instruction id, for an in-memory store."""
+    one a val path; under `ReturnBack/` with each item's midstop for
+    r2r_back), the generated-flag and sub-instruction JSON.  Returns the
+    imagination features by instruction id, for an in-memory store."""
     import numpy as np
 
     rng = np.random.default_rng(3)
     conn, anno = root / "connectivity", root / "annotations"
     conn.mkdir(parents=True)
-    anno.mkdir()
+    if dataset == "r2r_back":
+        anno = anno / "ReturnBack"
+    anno.mkdir(parents=True)
     for g in graphs:
         n = g.num_nodes
         unob = [[False] * n for _ in range(n)]
@@ -916,6 +998,8 @@ def write_run_files(cfg, graphs, ep, root: Path) -> dict:
                          for v in ep.gt_path[b, :int(ep.gt_len[b])]],
                 "instructions": ["walk past the sofa and stop."] * n_instr,
                 "instr_encodings": [enc, enc[:len(enc) // 2 + 1]][:n_instr]})
+            if dataset == "r2r_back":
+                items[-1]["midstop"] = g.node_ids[int(ep.midstop[b])]
             for j in range(n_instr):
                 iid = f"{b}_{j}"
                 n = int(rng.integers(1, 4))
@@ -1008,6 +1092,7 @@ def driver_phase(torch, cfg, scratch: Path):
     from vln_imagine_tpu_torch.envx import synthetic_episodes, synthetic_world
     from vln_imagine_tpu_torch.ops import attention
 
+    fresh_phase(torch)
     agent = cfg.agent
     root = scratch / f"driver_{agent}"
     t_phase = t0 = time.perf_counter()
@@ -1141,10 +1226,10 @@ def cli_phase(torch, scratch: Path, phase, argv, files=CLI_FILES,
     from vln_imagine_tpu_torch.ops import attention
     from vln_imagine_tpu_torch.scripts import train as cli
 
+    fresh_phase(torch)
     t_phase = time.perf_counter()
     log = scratch / phase
     attention.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     d = cli.main(argv + ["--log-dir", str(log)])
     torch.cuda.synchronize()
@@ -1166,7 +1251,8 @@ def cli_phase(torch, scratch: Path, phase, argv, files=CLI_FILES,
     check(iters == 2 and launches == want,
           f"{phase} launches {launches}, expected {want}")
     emit({"phase": phase, "argv": " ".join(argv),
-          "config": f"{d.cfg.agent}_r2r_config", "seconds": seconds,
+          "config": f"{d.cfg.agent}_r2r_config", "dataset": d.cfg.dataset,
+          "seconds": seconds,
           "phase_s": time.perf_counter() - t_phase,
           "eval_steps": d.eval_step_counts, "expected": want,
           "interval_s": [t["seconds"] for t in d.timings["train"]],
@@ -1236,16 +1322,29 @@ def stage1_split(label, model, before) -> tuple[list, list]:
     return moved, still
 
 
+def plain_split(model, before) -> tuple[list, list]:
+    """Parameters that moved and that stayed bitwise under a plain
+    optimizer (no warm-up stages): those with a gradient move, the others
+    (a branch the configuration never runs) stay."""
+    moved, still = [], []
+    for name, p in model.named_parameters():
+        (still if p.equal(before[name]) else moved).append(name)
+        check((p.grad is None) == (name in still),
+              f"{name}: gradient {p.grad is not None}, moved "
+              f"{name in moved}")
+    return moved, still
+
+
 def variant_steps(torch, make_trainer, ep, steps, want):
     """Build a trainer on the card, run `steps` train steps (the first a
     warm-up) and gate each: finite metrics, grad_norm > 0, K2 / K3 launches
-    = `want` (K1, K4 none), stage-1 semantics, the critic moved (when there
-    is one).  Returns (trainer, record)."""
+    = `want` (K1, K4 none), stage-1 semantics (`plain_split` where the
+    recipe has no warm-up), the critic moved (when there is one).  Returns
+    (trainer, record)."""
     from vln_imagine_tpu_torch.ops import attention
     from vln_imagine_tpu_torch.train.optim import label_hamt_param
 
-    gc.collect()  # what an earlier trainer left in reference cycles
-    torch.cuda.empty_cache()
+    fresh_phase(torch)
     t0 = time.perf_counter()
     trainer = make_trainer()
     model0 = {k: v.clone() for k, v in trainer.model.state_dict().items()}
@@ -1275,7 +1374,10 @@ def variant_steps(torch, make_trainer, ep, steps, want):
         check(c == {"attention_fwd": 0, "attention_dropout_fwd": k2,
                     "attention_dropout_bwd": k3, "attention_bwd": 0},
               f"launches per step {c}, expected K2 {k2} and K3 {k3} only")
-    moved, still = stage1_split(label_hamt_param, trainer.model, model0)
+    m = trainer.cfg.model
+    moved, still = (stage1_split(label_hamt_param, trainer.model, model0)
+                    if m.imagine_enc_pano and m.use_cosine_aux_loss
+                    else plain_split(trainer.model, model0))
     if critic0 is not None:
         check(all(not v.equal(critic0[k])
                   for k, v in trainer.critic.state_dict().items()),
@@ -1308,6 +1410,7 @@ def hamt_train_variants_phase(torch, cfg, world):
     from vln_imagine_tpu_torch.train import rollout_hamt as RH
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
 
+    fresh_phase(torch)
     t_phase = time.perf_counter()
     ep = bench_episodes(world, cfg, TRAIN_BATCH).to("cuda")
     runs = {}
@@ -1355,6 +1458,7 @@ def duet_train_variants_phase(torch, cfg, world):
     from vln_imagine_tpu_torch.train import rollout_duet as RD
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
 
+    fresh_phase(torch)
     t_phase = time.perf_counter()
     ep = bench_episodes(world, cfg, TRAIN_BATCH).to("cuda")
     runs = {}
@@ -1409,6 +1513,7 @@ def duet_eval_variants_phase(torch, cfg, world):
     from vln_imagine_tpu_torch.train.rollout_duet import path_buffer_len
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
 
+    fresh_phase(torch)
     per_episode, per_step = duet_calls(cfg)
     ep_np = bench_episodes(world, cfg, DUET_EVAL_BATCH)
     ep = ep_np.to("cuda")
@@ -1457,6 +1562,394 @@ def duet_eval_variants_phase(torch, cfg, world):
     return most_launches(runs, "attention_launches")
 
 
+# -------------------------------------------------------- task variants
+# (name, preset, its arguments, objects a node, eval only): each variant at
+# its preset, full width, bf16, on the bench world (with `max_objects`
+# objects of 768 features a node where the task grounds objects)
+VARIANT_PRESETS = (
+    ("reverie_duet", "reverie_config", ("duet",), 20, False),
+    ("soon_duet", "soon_config", (), 100, False),
+    ("reverie_hamt", "reverie_config", ("hamt",), 20, False),
+    ("r2r_back_hamt", "hamt_r2r_config", (), 0, False),
+    ("cvdn_hamt", "cvdn_config", (), 0, False),
+    ("rxr_hamt", "rxr_config", (), 0, False),
+    ("r4r_duet", "r4r_config", ("duet",), 0, True),
+    ("r4r_hamt", "r4r_config", ("hamt",), 0, True),
+)
+VARIANT_TRAIN_STEPS = 3  # one warm-up and two timed
+
+
+def variant_cfg(preset: str, args: tuple, name: str):
+    from vln_imagine_tpu_torch import config as C
+
+    cfg = getattr(C, preset)(*args)
+    return cfg.replace(dataset="r2r_back") if name == "r2r_back_hamt" else cfg
+
+
+def variant_world(cfg, max_objects: int):
+    """bench_world's world (the same draws), with `max_objects` objects of
+    768 features a node after them."""
+    from vln_imagine_tpu_torch.envx import synthetic_world
+
+    return synthetic_world(num_scans=2, num_nodes=96,
+                           max_candidates=cfg.env.max_candidates, views=36,
+                           feat_dim=cfg.model.image_feat_size, seed=0,
+                           max_objects=max_objects,
+                           obj_feat_dim=cfg.model.obj_feat_size or None)
+
+
+def out_and_back(ep):
+    """r2r_back episodes: the gt path out and back (cut to the buffer),
+    the midstop its far end."""
+    import numpy as np
+
+    gt_path, gt_len = np.asarray(ep.gt_path), np.asarray(ep.gt_len)
+    P = gt_path.shape[1]
+    paths, lens = [], []
+    for b in range(ep.batch):
+        fwd = gt_path[b, :gt_len[b]].tolist()
+        back = (fwd + fwd[-2::-1])[:P]
+        lens.append(len(back))
+        paths.append(back + [back[-1]] * (P - len(back)))
+    return ep.replace(gt_path=np.asarray(paths, np.int32),
+                      gt_len=np.asarray(lens, np.int32),
+                      midstop=gt_path[np.arange(ep.batch), gt_len - 1])
+
+
+def variant_episodes(world, cfg, batch: int):
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+
+    ep = bench_episodes(world, cfg, batch)
+    return out_and_back(ep) if cfg.dataset == "r2r_back" else ep
+
+
+def check_grounding(world, ep, nodes, lens, pred, T, agent) -> int:
+    """Each predicted object is -1 or one that the node the item grounded
+    at shows: HAMT grounds where it stops, or at step T-1 at the node it
+    then leaves; DUET at the node it ends on, after the backtrack, and a
+    node without objects yields the id in its first slot (the argmax of
+    all-masked logits).  Returns the items that grounded an object."""
+    import numpy as np
+
+    ids, valid = np.asarray(world.obj_ids), np.asarray(world.obj_valid)
+    scan, grounded = np.asarray(ep.scan), 0
+    for b in range(len(lens)):
+        n = int(lens[b])
+        node = nodes[b, min(n - 1, T - 1) if agent == "hamt" else n - 1]
+        shown = ids[scan[b], node][valid[scan[b], node]].tolist()
+        ok = pred[b] == -1 or pred[b] in shown or (
+            agent == "duet" and not shown and pred[b] == ids[scan[b], node, 0])
+        check(ok, f"item {b}: object {pred[b]} is not at node {node} "
+              f"({shown})")
+        grounded += int(pred[b] != -1)
+    return grounded
+
+
+def check_midstops(nodes, lens, mids) -> int:
+    """Each declared midstop is -1 or a node of the item's path; returns
+    the items that declared one."""
+    for b in range(len(lens)):
+        check(mids[b] == -1 or mids[b] in nodes[b, :int(lens[b])].tolist(),
+              f"item {b}: midstop {mids[b]} off its path")
+    return int((mids >= 0).sum())
+
+
+def variant_eval(torch, trainer, world, ep_np) -> dict:
+    """Greedy eval at batch `ep_np.batch`: the counted run (valid walks, K1
+    9 + 18 a step or the variant's own count, no other kernel, the
+    grounded objects or the midstops), then two timed runs."""
+    import numpy as np
+
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.train.rollout_duet import path_buffer_len
+
+    cfg = trainer.cfg
+    per_episode, per_step = eval_calls(cfg)
+    eval_step = trainer.make_eval_step()
+    ep = ep_np.to("cuda")
+    eval_step(ep)  # warm-up
+    torch.cuda.synchronize()
+    attention.reset_launch_counts()
+    out = eval_step(ep)
+    torch.cuda.synchronize()
+    launches = attention.launch_counts()
+    steps = eval_step.steps
+    nodes, lens = out[0].cpu().numpy(), out[1].cpu().numpy()
+    want = per_episode + per_step * steps
+    check(launches == {"attention_fwd": want, "attention_dropout_fwd": 0,
+                       "attention_dropout_bwd": 0, "attention_bwd": 0},
+          f"{cfg.dataset} eval: launches {launches} for {steps} steps, "
+          f"expected K1 {want}")
+    duet = cfg.agent == "duet"
+    T = cfg.env.max_action_len
+    jumps = check_walks(world, ep_np, nodes, lens,
+                        path_buffer_len(cfg) if duet else T + 1,
+                        jumps_allowed=duet)
+    rec = {"steps": steps, "attention_launches": launches,
+           "path_len_max": int(lens.max()), "non_edge_moves": jumps}
+    if world.obj_feat is not None:
+        rec["items_grounded"] = check_grounding(
+            world, ep_np, nodes, lens, out[2].cpu().numpy(), T, cfg.agent)
+    if cfg.dataset == "r2r_back":
+        rec["midstops_declared"] = check_midstops(nodes, lens,
+                                                  out[2].cpu().numpy())
+    times = []
+    for _ in range(2):
+        t = time.perf_counter()
+        again = eval_step(ep)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        check(np.array_equal(again[0].cpu().numpy(), nodes),
+              f"{cfg.dataset}: greedy paths differ between runs")
+    dt = statistics.median(times)
+    rec.update(episodes_per_s=ep.batch / dt, episode_batch_ms=dt * 1e3,
+               episode_batch_ms_all=[x * 1e3 for x in times])
+    return rec
+
+
+def grounding_loss(trainer, ep) -> float:
+    """The grounding CE of one teacher-forced rollout, dropout off."""
+    from vln_imagine_tpu_torch.train.rollout_duet import rollout_duet
+    from vln_imagine_tpu_torch.train.rollout_hamt import rollout_hamt
+
+    rollout = rollout_hamt if trainer.cfg.agent == "hamt" else rollout_duet
+    return float(rollout(trainer.model, trainer.tables, ep, trainer.cfg,
+                         feedback="teacher", train_ml=1.0).og_loss.detach())
+
+
+def variants_phase(torch):
+    """Every task variant at its preset (VARIANT_PRESETS), full width, bf16:
+    greedy eval at batch 64 (`variant_eval`), and but for R4R's presets,
+    which change only capacities, the train step of the preset's recipe
+    at batch 8 with every dropout on (`variant_steps`: one warm-up and two
+    timed steps; K2 / K3 per step from the launch formulas, stage-1
+    semantics, or for NavRef's plain optimizer every parameter that got a
+    gradient moved and no other), and where objects are supervised a
+    positive grounding loss of a teacher rollout.  Returns each variant's
+    launches (its eval run and one train step)."""
+    fresh_phase(torch)
+    t_phase = time.perf_counter()
+    runs, path_launches = {}, {}
+    for name, preset, args, n_obj, eval_only in VARIANT_PRESETS:
+        cfg = variant_cfg(preset, args, name)
+        world, _ = variant_world(cfg, n_obj)
+        trainer = make_variant_trainer(cfg, world)
+        rec = {"dataset": cfg.dataset, "agent": cfg.agent,
+               "preset": f"{preset}({', '.join(map(repr, args))})",
+               "max_objects": n_obj, "vocab_size": cfg.model.vocab_size,
+               "max_instr_len": cfg.env.max_instr_len,
+               "max_action_len": cfg.env.max_action_len,
+               "eval": variant_eval(torch, trainer, world,
+                                    variant_episodes(world, cfg, 64))}
+        launches = dict(rec["eval"]["attention_launches"])
+        if not eval_only:
+            ep = variant_episodes(world, cfg, TRAIN_BATCH).to("cuda")
+            want = (train_launches_per_step(cfg) if cfg.agent == "hamt"
+                    else duet_train_launches_per_step(cfg))
+            trainer, rec["train"] = variant_steps(
+                torch, lambda: trainer, ep, VARIANT_TRAIN_STEPS, want)
+            for k, v in rec["train"]["launches_per_step"].items():
+                launches[k] += v
+            if n_obj:
+                og = grounding_loss(trainer, ep)
+                check(math.isfinite(og) and og > 0,
+                      f"{name}: grounding loss {og}")
+                rec["train"]["og_loss"] = og
+        rec["params"] = sum(p.numel() for p in trainer.model.parameters())
+        runs[name] = rec
+        path_launches[name] = launches
+        del trainer, world
+    emit({"phase": "variants", "compute_dtype": "bfloat16",
+          "eval_batch": 64, "train_batch": TRAIN_BATCH, "runs": runs,
+          "phase_s": time.perf_counter() - t_phase})
+    return path_launches
+
+
+def make_variant_trainer(cfg, world, dev="cuda"):
+    from vln_imagine_tpu_torch.train.trainer import HamtTrainer
+    from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
+
+    return (HamtTrainer if cfg.agent == "hamt" else DuetTrainer)(
+        cfg, world, device=dev)
+
+
+def variants_f32_parity_phase(torch):
+    """Two f32 steps card vs CPU (`f32_parity`), every dropout off, at batch
+    2: NavRef's 'sample' step (IL + A2C, with the grounding CE) with the
+    same draws, and REVERIE-DUET's 'imitation' step, objects on both."""
+    from vln_imagine_tpu_torch.train import rollout_hamt as RH
+
+    launches = {}
+    for name, preset, args, alg in (
+            ("reverie_hamt", "reverie_config", ("hamt",), "sample"),
+            ("reverie_duet", "reverie_config", ("duet",), "imitation")):
+        cfg = variant_cfg(preset, args, name)
+        pcfg = cfg_f32(cfg, **({"train_alg": alg} if alg == "imitation"
+                               else {}))
+        world, _ = variant_world(pcfg, 20)
+        launches[f"{name}_f32_parity"] = f32_parity(
+            torch, f"{name}_f32_parity",
+            lambda dev: (make_variant_trainer(pcfg, world, dev),
+                         variant_episodes(world, pcfg, 2)),
+            lambda tr: (tr.make_train_step("sample") if alg == "sample"
+                        else tr.make_train_step()),
+            RL_KEYS if alg == "sample" else ("loss", "grad_norm", "ml_loss"),
+            cfg.train.lr, draws=RH if alg == "sample" else None, batch=2,
+            train_alg=alg, max_objects=20)
+    return launches
+
+
+class StandInObjectStore:
+    """What `ObjectFeatureDB` reads from a REVERIE HDF5 store, served from
+    a world's object arrays, for a machine without h5py:
+    `load_feature(scan, viewpoint)` -> the viewpoint's object features and
+    attrs `directions`, `sizes` and byte `obj_ids`."""
+
+    def __init__(self, world, graphs):
+        import numpy as np
+
+        self.rows = {}
+        for s, g in enumerate(graphs):
+            for n, vp in enumerate(g.node_ids):
+                k = int(np.asarray(world.obj_valid)[s, n].sum())
+                pos = np.asarray(world.obj_pos)[s, n, :k]
+                self.rows[(g.scan_id, vp)] = (
+                    np.asarray(world.obj_feat)[s, n, :k], {
+                        "directions": np.asarray(world.obj_ang)[s, n, :k],
+                        "sizes": np.stack([(pos[:, 2] - pos[:, 0]) * 640,
+                                           (pos[:, 3] - pos[:, 1]) * 480], -1),
+                        "obj_ids": np.asarray([str(i).encode() for i in
+                                               np.asarray(world.obj_ids)
+                                               [s, n, :k]])})
+
+    def load_feature(self, scan, viewpoint, max_objects=None):
+        fts, attrs = self.rows[(scan, viewpoint)]
+        return fts[:max_objects], {k: v[:max_objects]
+                                   for k, v in attrs.items()}
+
+
+def variant_driver_phase(torch):
+    """`FinetuneDriver.validate` of REVERIE-DUET at its preset, full width,
+    bf16, on 100 items in batches of 64: the object tables built by
+    `build_object_tables` from a stand-in store of the world's objects,
+    the submission written with the graphs.  Gates: the tables equal the
+    world's objects, K1 = 9 + 18 a step over the eval batches (the loop's
+    own step counts) and no other kernel, finite RGS / RGSPL / SR / SPL,
+    one `predObjId` an item."""
+    import numpy as np
+
+    from vln_imagine_tpu_torch.data.features import build_object_tables
+    from vln_imagine_tpu_torch.driver import FinetuneDriver, SplitData
+    from vln_imagine_tpu_torch.ops import attention
+
+    fresh_phase(torch)
+    t_phase = time.perf_counter()
+    cfg = variant_cfg("reverie_config", ("duet",), "reverie_duet")
+    world, graphs = variant_world(cfg, 20)
+    o_feat, o_ang, o_valid, o_ids, o_pos, _ = build_object_tables(
+        StandInObjectStore(world, graphs), graphs, 20,
+        cfg.model.obj_feat_size, max_nodes=world.node_xyz.shape[1])
+    for a, b in ((o_feat, world.obj_feat), (o_ang, world.obj_ang),
+                 (o_valid, world.obj_valid)):
+        check(np.array_equal(a[o_valid], np.asarray(b)[o_valid])
+              and np.array_equal(o_valid, world.obj_valid),
+              "the object tables differ from the world's objects")
+    check(np.array_equal(o_ids[o_valid], world.obj_ids[o_valid]),
+          "the object ids differ from the world's")
+    tables = world.replace(obj_feat=o_feat, obj_ang=o_ang, obj_valid=o_valid,
+                           obj_ids=o_ids, obj_pos=o_pos)
+    ep = variant_episodes(tables, cfg, DRIVER_VAL_PATHS)
+    val = SplitData("val_unseen", ep,
+                    [f"{b}_{ep.gt_obj_id[b]}_0" for b in range(ep.batch)])
+    with scratch_dir() as tmp:
+        d = FinetuneDriver(cfg, tables, val, [val], tmp, graphs=graphs,
+                           device="cuda")
+        d.setup()
+        d.validate(val)  # warm-up
+        attention.reset_launch_counts()
+        d.eval_step_counts.clear()
+        t0 = time.perf_counter()
+        score = d.validate(val, write_outputs=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = attention.launch_counts()
+        sub = json.loads((Path(tmp) / "submit_val_unseen.json").read_text())
+    per_episode, per_step = eval_calls(cfg)
+    want = {"attention_fwd": sum(per_episode + per_step * s
+                                 for s in d.eval_step_counts),
+            "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
+            "attention_bwd": 0}
+    check(launches == want, f"reverie validate launches {launches}, "
+          f"expected {want}")
+    check({"rgs", "rgspl", "sr", "spl"} <= score.keys()
+          and all(math.isfinite(v) for v in score.values()),
+          f"reverie validate metrics {score}")
+    check(len(sub) == ep.batch and all(isinstance(p["predObjId"], str)
+                                       for p in sub),
+          "the submission lacks a predObjId an item")
+    emit({"phase": "variant_driver", "config": "reverie_config('duet')",
+          "items": ep.batch, "eval_batch": cfg.train.eval_batch_size,
+          "eval_steps": d.eval_step_counts, "metrics": score,
+          "validate_s": seconds, "episodes_per_s": ep.batch / seconds,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    del d
+    return launches
+
+
+def r2r_back_cli(torch, scratch: Path):
+    """The train CLI with `--dataset r2r_back` on files written as
+    `write_run_files` does (the ReturnBack layout, a midstop an item), the
+    view features served by an `InMemoryFeaturesDB` in the HDF5 reader's
+    place (for a machine without h5py); `cli_phase` gates it."""
+    import vln_imagine_tpu_torch.data.features as F
+    from vln_imagine_tpu_torch.config import hamt_r2r_config
+    from vln_imagine_tpu_torch.envx import synthetic_episodes, synthetic_world
+
+    cfg = hamt_r2r_config()
+    world, graphs = synthetic_world(
+        num_scans=2, num_nodes=96, max_candidates=cfg.env.max_candidates,
+        views=36, feat_dim=cfg.model.image_feat_size, seed=0)
+    ep = synthetic_episodes(
+        world, batch=DRIVER_TRAIN_PATHS + DRIVER_VAL_PATHS,
+        max_gt_path_len=cfg.env.max_gt_path_len,
+        max_instr_len=cfg.env.max_instr_len,
+        max_imaginations=cfg.model.max_imagination_len,
+        vocab_size=cfg.model.vocab_size, feat_dim=cfg.model.hidden_size,
+        seed=1)
+    root = scratch / "files"
+    write_run_files(cfg, graphs, out_and_back(ep), root, dataset="r2r_back")
+    views = {f"{g.scan_id}_{vp}": world.feat[s, i]
+             for s, g in enumerate(graphs) for i, vp in enumerate(g.node_ids)}
+    orig = F.ImageFeaturesDB
+    F.ImageFeaturesDB = lambda path, dim: F.InMemoryFeaturesDB(views)
+    try:
+        return cli_phase(
+            torch, scratch, "train_cli_r2r_back",
+            ["--dataset", "r2r_back", "--connectivity-dir",
+             str(root / "connectivity"), "--anno-dir",
+             str(root / "annotations"), "--img-features", "in-memory",
+             "--generated-flag-file", str(root / "generated_flags.json"),
+             "--sub-instr-file", str(root / "sub_instr.json"),
+             "--splits", "train", "val_unseen", "--iters", "2",
+             "--log-every", "1"], after=r2r_back_scores)
+    finally:
+        F.ImageFeaturesDB = orig
+
+
+def r2r_back_scores(d, log: Path) -> dict:
+    """After the r2r_back CLI: its episodes carry midstops and its
+    validation scored them (individual metrics per item)."""
+    val = next(s for s in d.val_splits if s.name == "val_unseen")
+    check(d.cfg.dataset == "r2r_back"
+          and (val.episodes.midstop >= 0).all(),
+          "the r2r_back episodes carry no midstop")
+    score = d.validate(val)
+    check(all(math.isfinite(v) for v in score.values()),
+          f"r2r_back validate metrics {score}")
+    return {"val_metrics": score}
+
+
 # --------------------------------------------------------------- phase 6
 def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen, D=HEAD_DIM):
     from vln_imagine_tpu_torch.ops.masks import extend_neg_mask
@@ -1482,6 +1975,9 @@ def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen, D=HEAD_DIM):
         elif bias_kind == "imagine":  # item 0 has no imagination at all
             keep[0] = False
             bias = extend_neg_mask(keep)
+        elif bias_kind == "no_objects":  # item 0's 20 object keys masked
+            keep[0, -20:] = False
+            bias = torch.where(keep, 0.0, -1e9)[:, None, None, :]
     return q, k, v, do, bias
 
 
@@ -1629,6 +2125,7 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
 
 
 def kernels_phase(torch, parent=None):
+    fresh_phase(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for B in BATCHES:  # K1: the eval path's batches
@@ -1695,6 +2192,26 @@ def kernels_phase(torch, parent=None):
             cases.append(kernel_case(torch, "attention_fwd", B, lq, lk, dt, bk,
                                      gen))
         for kernel, bits in (("attention_dropout_fwd", "philox"),
+                             ("attention_dropout_bwd", "philox"),
+                             ("attention_bwd", None)):
+            cases.append(kernel_case(torch, kernel, TRAIN_BATCH, lq, lk, dt,
+                                     bk, gen, bits=bits))
+    for lq, lk, bk in VARIANT_SHAPES:  # the task variants' shapes
+        cases.append(kernel_case(torch, "attention_fwd", 64, lq, lk,
+                                 "bfloat16", bk, gen, timed=True))
+        for kernel, bits in (("attention_dropout_fwd", "philox"),
+                             ("attention_dropout_bwd", "philox"),
+                             ("attention_bwd", None)):
+            cases.append(kernel_case(torch, kernel, TRAIN_BATCH, lq, lk,
+                                     "bfloat16", bk, gen, bits=bits,
+                                     timed=bits is not None))
+        for kernel in ("attention_fwd", "attention_bwd"):  # the f32 steps'
+            cases.append(kernel_case(torch, kernel, TRAIN_BATCH, lq, lk,
+                                     "float32", bk, gen))
+    lq, lk, bk = NO_OBJECTS_SHAPE
+    for dt in ("bfloat16", "float32"):
+        for kernel, bits in (("attention_fwd", None),
+                             ("attention_dropout_fwd", "philox"),
                              ("attention_dropout_bwd", "philox"),
                              ("attention_bwd", None)):
             cases.append(kernel_case(torch, kernel, TRAIN_BATCH, lq, lk, dt,
@@ -1849,7 +2366,11 @@ def main() -> None:
             ["--agent", "duet", "--synthetic", "--detailed-output",
              "--expl-sample", "--iters", "2", "--log-every", "1"],
             CLI_FILES + ("detail_val_unseen.json",), after=duet_details)
-    # after the paths, so that their peak memory is their own
+    path_launches.update(variants_phase(torch))
+    path_launches.update(variants_f32_parity_phase(torch))
+    path_launches["variant_driver"] = variant_driver_phase(torch)
+    with scratch_dir() as tmp:
+        path_launches["train_cli_r2r_back"] = r2r_back_cli(torch, Path(tmp))
     cases = kernels_phase(torch, parent)
 
     summary = []

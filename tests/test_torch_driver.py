@@ -13,7 +13,7 @@
   `latest_dict` bitwise; bucketed validation equals sequential and
   pipelined equals synchronous, item for item; the augmented-split
   alternation trains; VLN_PROFILE_DIR writes a trace; unported branches
-  raise, naming their ROADMAP item.
+  raise, naming their ROADMAP item, and item 4's branches run.
 """
 
 import dataclasses
@@ -238,20 +238,108 @@ def test_profile_dir_traces_the_first_interval(tmp_path, monkeypatch):
     ("model", {"e2e_imagination": "frozen"}, 5),
 ])
 def test_unported_branches_raise(tmp_path, part, over, item):
+    """Items 5-7 raise, naming their ROADMAP item.  Item 4 (the task
+    variants) is ported: its dataset and its episodes, once refused here,
+    now build a driver that trains and validates."""
     d = _driver(tmp_path)
     cfg = (d.cfg.replace(dataset=over) if part == "dataset"
            else _replace(d.cfg, part, **over))
+    if part == "dataset":
+        # r2r_back episodes (a midstop per item), under both configs
+        ep = dataclasses.replace(d.train_split.episodes,
+                                 midstop=d.train_split.episodes.gt_path[:, 1])
+        for c, name in ((cfg, "x"), (d.cfg, "y")):
+            d2 = FinetuneDriver(c, d.tables, SplitData("train", ep),
+                                [SplitData("val_unseen", ep)],
+                                str(tmp_path / name), device="cpu")
+            d2.setup()
+            logs = d2.train_interval(1)
+            assert all(math.isfinite(v) for v in logs.values()), logs
+            score = d2.validate(d2.val_splits[0])
+            assert 0.0 <= score["sr"] <= 100.0
+        return
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         FinetuneDriver(cfg, d.tables, d.train_split, d.val_splits,
                        str(tmp_path / "x"), device="cpu")
-    if part == "dataset":  # episodes of a variant, under the r2r config
-        ep = dataclasses.replace(d.train_split.episodes,
-                                 midstop=d.train_split.episodes.gt_len)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            FinetuneDriver(d.cfg, d.tables, SplitData("train", ep),
-                           d.val_splits, str(tmp_path / "y"), device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            d._train_step(ep, ep)
     if part == "mesh":
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             d.init_from_pretrain(str(tmp_path / "model_step_10"))
+
+
+# ------------------------------------------------------------ task variants
+VARIANT_SPLITS = {
+    # name -> (agent, dataset, model overrides, objects in the world)
+    "reverie_hamt": ("hamt", "reverie",
+                     dict(obj_feat_size=32, imagine_enc_pano=False,
+                          use_cosine_aux_loss=False, no_lang_ca=True,
+                          act_pred_token="ob_hist"), True),
+    "reverie_duet": ("duet", "reverie", dict(obj_feat_size=32), True),
+    "soon_duet": ("duet", "soon", dict(obj_feat_size=32), True),
+    "r2r_back": ("hamt", "r2r_back", {}, False),
+    "cvdn": ("hamt", "cvdn", {}, False),
+}
+
+
+def _variant_split(world_fn, episodes_fn, split_cls, cfg, variant, n=7):
+    objects = VARIANT_SPLITS[variant][3]
+    world, graphs = world_fn(
+        num_scans=2, num_nodes=16, max_candidates=cfg.env.max_candidates,
+        views=cfg.env.views, feat_dim=cfg.model.image_feat_size, seed=0,
+        **(dict(max_objects=3, obj_feat_dim=32) if objects else {}))
+    ep = episodes_fn(world, batch=n, max_gt_path_len=cfg.env.max_gt_path_len,
+                     max_instr_len=cfg.env.max_instr_len,
+                     max_imaginations=cfg.model.max_imagination_len,
+                     vocab_size=cfg.model.vocab_size,
+                     feat_dim=cfg.model.hidden_size, seed=2)
+    end_panos = None
+    if variant == "r2r_back":  # the midstop: the gt path's middle node
+        ep = ep.replace(midstop=np.asarray(ep.gt_path)[
+            np.arange(n), np.asarray(ep.gt_len) // 2])
+    if variant == "cvdn":  # the goal and one more goal pano per item
+        end_panos = [[int(ep.goal[b]), (int(ep.goal[b]) + 3) % 16]
+                     for b in range(n)]
+    split = split_cls("val_unseen", ep, [f"val_unseen_{i}" for i in range(n)],
+                      end_panos=end_panos)
+    return world, graphs, split
+
+
+@pytest.mark.parametrize("variant", list(VARIANT_SPLITS))
+def test_variant_validate_equals_the_jax_driver(tmp_path, variant):
+    """Each variant's own metrics (RGS / RGSPL with `predObjId` in the
+    submission, the midstop's success, CVDN's goal progress) and its
+    output files equal the JAX driver's from the JAX init."""
+    agent, dataset, model, _ = VARIANT_SPLITS[variant]
+    jcfg = dataclasses.replace(j_replace(j_tiny_test_config(agent), "model",
+                                         **model), dataset=dataset)
+    jworld, jgraphs, jval = _variant_split(j_world, j_episodes, JSplitData,
+                                           jcfg, variant)
+    jd = JFinetuneDriver(jcfg, jax.tree.map(jnp.asarray, jworld), jval,
+                         [jval], str(tmp_path / "jax"), graphs=jgraphs)
+    jd.setup()
+    want = jd.validate(jval, batch_size=4, write_outputs=True)
+
+    cfg = dataclasses.replace(_replace(tiny_test_config(agent), "model",
+                                       **model), dataset=dataset)
+    world, graphs, val = _variant_split(synthetic_world, synthetic_episodes,
+                                        SplitData, cfg, variant)
+    d = FinetuneDriver(cfg, world, val, [val], str(tmp_path / "port"),
+                       graphs=graphs, device="cpu")
+    # NavRef's x-layer language branches have no flax params: they keep
+    # the port's init
+    sd = d.trainer.model.state_dict()
+    sd.update(state_dict_from_flax(jax.tree.map(np.asarray, jd.state.params),
+                                   agent))
+    d.setup(init_state_dict=sd)
+    got = d.validate(val, batch_size=4, write_outputs=True)
+    assert got == want
+    keys = {"reverie_hamt": "rgs", "reverie_duet": "rgspl",
+            "soon_duet": "rgs", "r2r_back": "CLS", "cvdn": "gp"}
+    assert keys[variant] in got
+    for name in ("individual_metrics_val_unseen.json",
+                 "submit_val_unseen.json"):
+        assert _read(tmp_path / "port" / name) == \
+            _read(tmp_path / "jax" / name), name
+    sub = json.loads(_read(tmp_path / "port" / "submit_val_unseen.json"))
+    assert len(sub) == 7
+    if VARIANT_SPLITS[variant][3]:
+        assert all(isinstance(p["predObjId"], str) for p in sub)

@@ -7,7 +7,9 @@ against the JAX package, in f32 on the CPU at the tiny config:
   language mode returns one static text per layer; critic state hist[CLS]),
   with visual-concatenated imagination and no alignment loss, and its
   refusal of language-concatenated imagination;
-- the InfoNCE and margin alignment losses inside the train step.
+- the InfoNCE and margin alignment losses inside the train step;
+- `act_pred_token="ob_imagine_text"`, with language- and visual-concat
+  imagination.
 
 For each: the modes it changes against `HamtModel.apply` (same weights
 through the bridge, same numpy inputs), a JAX init that loads strict into
@@ -53,8 +55,16 @@ VARIANTS = {
                        use_cosine_aux_loss=False),
     "infonce": dict(aux_loss_type="infonce"),
     "margin": dict(aux_loss_type="margin"),
+    # the head ob * (txt[CLS] + mean(imagination outputs)): the language
+    # stream's imagination tokens, or under visual concat the embeddings
+    "ob_imagine_text": dict(act_pred_token="ob_imagine_text"),
+    "ob_imagine_text_visual": dict(act_pred_token="ob_imagine_text",
+                                   concat_imagine_with="visual",
+                                   use_cosine_aux_loss=False),
 }
-MODEL_VARIANTS = ("full_imagine_encoder", "no_lang_ca")
+MODEL_VARIANTS = ("full_imagine_encoder", "no_lang_ca", "ob_imagine_text",
+                  "ob_imagine_text_visual")
+STEP_VARIANTS = ("full_imagine_encoder", "no_lang_ca", "infonce", "margin")
 
 
 def _with(cfg, part, **kw):
@@ -212,7 +222,7 @@ class _NoDropout(flax.linen.Module):
         return x
 
 
-@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("variant", STEP_VARIANTS)
 def test_teacher_train_steps_match_jax(variant, monkeypatch):
     """Two teacher steps (stage 1, then the lagged stage 2 with stage ends 1
     and 2) from the JAX init, every dropout out of both packages: loss,

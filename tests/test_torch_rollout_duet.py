@@ -368,9 +368,18 @@ def test_deferred_branches_run(part, kw, call):
     ("model", {"use_lang2visn_attn": True}, "init"),
 ])
 def test_deferred_options_raise(part, kw, call):
-    """What the slice leaves for later raises where it is reached."""
+    """What the port leaves for later raises where it is reached.  Objects
+    (`obj_feat_size`, ROADMAP Queue 1 item 4) are ported: the model builds
+    its grounding head and, on a world without objects, evaluates as R2R."""
     cfg = _with(tiny_test_config("duet"), part, **kw)
     world, ep = _world_ep(synthetic_world, synthetic_episodes, cfg)
+    if kw.get("obj_feat_size"):
+        tr = DuetTrainer(cfg, world, device="cpu")
+        assert hasattr(tr.model, "og_head")
+        assert hasattr(tr.model.img_embeddings, "obj_linear")  # 768 != 32
+        paths, lens = tr.make_eval_step()(ep)
+        assert (lens >= 1).all() and (paths[:, 0] == ep.to("cpu").start_node).all()
+        return
     with pytest.raises(NotImplementedError):
         tr = DuetTrainer(cfg, world, device="cpu")
         if call == "train":

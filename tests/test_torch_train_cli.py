@@ -82,9 +82,20 @@ def test_no_lang_ca_guards():
     (["--obj-features", "obj.hdf5"], 4),
     (["--dataset", "cvdn"], 4),
 ])
-def test_unported_flags_exit_naming_their_item(flags, item):
+def test_unported_flags_exit_naming_their_item(flags, item, tmp_path):
+    """Items 5-7 exit, naming their ROADMAP item.  Item 4 (the task
+    variants) is ported: its flags, once refused here, now run (the
+    synthetic world has no object store, so `--obj-features` is not read)."""
+    argv = ["--synthetic", "--device", "cpu"] + flags
+    if item == 4:
+        d = cli.main(argv + ["--iters", "1", "--log-every", "1",
+                             "--log-dir", str(tmp_path)])
+        assert d.cfg.dataset == (flags[1] if flags[0] == "--dataset"
+                                 else "r2r")
+        assert os.path.exists(tmp_path / "ckpts" / "latest_dict")
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 item {item}$"):
-        cli.main(["--synthetic", "--device", "cpu"] + flags)
+        cli.main(argv)
 
 
 @pytest.mark.parametrize("flags, part, key, value", [
@@ -95,6 +106,8 @@ def test_unported_flags_exit_naming_their_item(flags, item):
      True),
     (["--aux-loss-type", "infonce"], "model", "aux_loss_type", "infonce"),
     (["--aux-loss-type", "margin"], "model", "aux_loss_type", "margin"),
+    (["--act-pred-token", "ob_imagine_text"], "model", "act_pred_token",
+     "ob_imagine_text"),
 ])
 def test_deferred_branch_flags_run(tmp_path, flags, part, key, value):
     d = cli.main(["--synthetic", "--iters", "1", "--log-every", "1",
@@ -352,3 +365,36 @@ def _tiny_world(cfg):
                                views=cfg.env.views,
                                feat_dim=cfg.model.image_feat_size, seed=0)
     return world
+
+
+class _Built(Exception):
+    """Raised by a patched `build_real` to hand back the run's config."""
+
+
+@pytest.mark.parametrize("flags", [
+    ["--dataset", d] for d in ("r2r", "r2r_back", "r4r", "rxr", "cvdn",
+                               "reverie", "soon")
+] + [["--agent", "duet", "--dataset", d] for d in ("r2r", "r4r", "rxr",
+                                                     "reverie", "soon")])
+def test_dataset_routes_to_the_jax_cli_preset(flags, monkeypatch):
+    """`--dataset` picks the same preset as scripts/train.py: the config
+    handed to `build_real` is the JAX CLI's, field for field."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import train as jcli
+
+    def capture(cfg, args):
+        raise _Built(cfg)
+
+    monkeypatch.setattr(jcli, "apply_platform_env", lambda: None)
+    monkeypatch.setattr(jcli, "build_real", capture)
+    monkeypatch.setattr(cli, "build_real", capture)
+    argv = ["--anno-dir", "unused"] + flags
+    monkeypatch.setattr(sys, "argv", ["train.py"] + argv)
+    with pytest.raises(_Built) as jbuilt:
+        jcli.main()
+    with pytest.raises(_Built) as built:
+        cli.main(argv + ["--device", "cpu"])
+    import dataclasses
+    got = dataclasses.asdict(built.value.args[0])
+    assert got == dataclasses.asdict(jbuilt.value.args[0])
+    assert got["dataset"] == flags[-1]

@@ -343,6 +343,8 @@ _DUET_TOP = {
     "img_layer_norm": "img_embeddings.img_layer_norm",
     "loc_linear": "img_embeddings.loc_linear",
     "loc_layer_norm": "img_embeddings.loc_layer_norm",
+    "obj_linear": "img_embeddings.obj_linear",
+    "obj_layer_norm": "img_embeddings.obj_layer_norm",
     "nav_type_embedding": "img_embeddings.nav_type_embedding",
     "img_final_norm": "img_embeddings.layer_norm",
     "pano_encoder": "img_embeddings.pano_encoder",

@@ -1,10 +1,12 @@
 """Typed configuration tree, the port's own copy.
 
 Field names and defaults equal those of the JAX package's config, so a
-configuration means the same thing in both packages.  Only the presets the
-port runs are carried: `hamt_r2r_config` and `duet_r2r_config` (the released
-R2R recipes, VLN-HAMT/finetune_src/scripts/run_r2r.sh and
-VLN-DUET/map_nav_src/scripts/run_r2r.sh) and `tiny_test_config` of either.
+configuration means the same thing in both packages.  The presets are the
+released recipes: `hamt_r2r_config` and `duet_r2r_config` (R2R,
+VLN-HAMT/finetune_src/scripts/run_r2r.sh and
+VLN-DUET/map_nav_src/scripts/run_r2r.sh), the task variants `rxr_config`,
+`r4r_config`, `cvdn_config`, `soon_config` and `reverie_config`, and
+`tiny_test_config` of either agent.
 """
 
 from __future__ import annotations
@@ -211,6 +213,89 @@ def duet_r2r_config() -> Config:
     cfg = _replace(cfg, "env", max_instr_len=200)
     cfg = _replace(cfg, "train", train_alg="dagger", gamma=0.0,
                    eval_batch_size=64)
+    return cfg
+
+
+def rxr_config() -> Config:
+    """RxR multilingual preset (HAMT stack, xlm-roberta text:
+    vlnbert_init.py:6-11, pretrain config/rxr_xlm_model_config.json).
+
+    RxR guide paths are much longer than R2R's 4-7 nodes (up to ~20), so the
+    gt-path buffer and the episode horizon are sized up — a too-small
+    max_gt_path_len would silently shift gt_path[-1] off the true goal,
+    corrupting the teacher, DTW reward shaping and nDTW/SDTW metrics."""
+    cfg = hamt_r2r_config().replace(dataset="rxr")
+    cfg = _replace(cfg, "model", vocab_size=250_002,
+                   max_position_embeddings=512, type_vocab_size=2)
+    cfg = _replace(cfg, "env", max_instr_len=250, max_gt_path_len=20,
+                   max_action_len=20)
+    return cfg
+
+
+def r4r_config(agent: str = "duet") -> Config:
+    """R4R preset: paths are two joined R2R paths (~10-15 nodes), so the
+    gt-path buffer grows while the action horizon stays 15
+    (VLN-DUET/map_nav_src/scripts/run_r4r.sh:29,36-37: --expert_policy spl
+    --max_action_len 15 --max_instr_len 200)."""
+    cfg = (duet_r2r_config() if agent == "duet"
+           else hamt_r2r_config()).replace(dataset="r4r")
+    cfg = _replace(cfg, "env", max_gt_path_len=16, max_action_len=15,
+                   max_instr_len=200 if agent == "duet" else 60)
+    return cfg
+
+
+def cvdn_config() -> Config:
+    """CVDN/NDH preset (HAMT stack, finetune_src/cvdn/parser.py:32-33:
+    --max_instr_len 80 --max_action_len 15).  NDH supervision paths are the
+    full shortest path to a sampled goal pano (cvdn/env.py:30-45) and
+    routinely exceed 8 nodes, so the gt-path buffer is sized to the NDH
+    path-length distribution; episodes_from_annotations raises (rather than
+    silently truncating) if a path still overflows."""
+    cfg = hamt_r2r_config().replace(dataset="cvdn")
+    cfg = _replace(cfg, "env", max_instr_len=80, max_gt_path_len=25,
+                   max_action_len=15)
+    return cfg
+
+
+def soon_config() -> Config:
+    """SOON preset (DUET stack, map_nav_src/scripts/run_soon.sh:39-41:
+    --max_action_len 20 --max_instr_len 100 --max_objects 100); SOON
+    trajectories run longer than R2R's, hence the 20-step horizon and a
+    larger gt-path buffer."""
+    cfg = reverie_config("duet").replace(dataset="soon")
+    cfg = _replace(cfg, "env", max_instr_len=100, max_action_len=20,
+                   max_gt_path_len=24)
+    return cfg
+
+
+def reverie_config(agent: str = "duet") -> Config:
+    """REVERIE object-grounding presets.
+
+    agent='duet': DUET stack w/ objects + the single-imagination REVERIE
+    variant (map_nav_src/scripts/run_reverie.sh, vilmodel.py:781-888).
+    agent='hamt': NavRefCMT (finetune_src/reverie/vlnbert_navref.py) — a
+    separate object token segment in the visual stream and a ref_object
+    grounding head; the reference NavRef model carries no imagination
+    modules, so imagination/aux-loss are off."""
+    if agent == "duet":
+        cfg = duet_r2r_config().replace(dataset="reverie")
+        cfg = _replace(cfg, "model", obj_feat_size=768, max_imagination_len=1)
+        # run_reverie.sh: --max_instr_len 200; run_soon.sh uses 100 and
+        # --max_objects 100 (override per dataset from the CLI)
+        cfg = _replace(cfg, "env", max_instr_len=200)
+    else:
+        cfg = hamt_r2r_config().replace(dataset="reverie")
+        # released NavRef recipe (scripts/run_reverie.sh): --no_lang_ca is
+        # PASSED (text never updates through the x-layers) and
+        # --fix_lang_embedding/--fix_hist_embedding are NOT (unlike the R2R
+        # recipe, REVERIE fine-tunes both); NavRefCMT hardcodes act_logits =
+        # next_action(ob * hist[CLS]) (vlnbert_navref.py:150)
+        cfg = _replace(cfg, "model", obj_feat_size=768,
+                       imagine_enc_pano=False, use_cosine_aux_loss=False,
+                       no_lang_ca=True, fix_lang_embedding=False,
+                       fix_hist_embedding=False, act_pred_token="ob_hist")
+        # finetune_src/scripts/run_reverie.sh: --max_instr_len 60
+        cfg = _replace(cfg, "env", max_instr_len=60)
     return cfg
 
 

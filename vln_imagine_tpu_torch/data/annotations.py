@@ -9,8 +9,7 @@ consumes their output and emits EpisodeBatch arrays.
 
 The port's own copy of the JAX package's module; its arrays and index
 streams equal that package's.  Not ported yet: raw imagination images
-(`imagine_images`, ROADMAP Queue 1 item 5) and the NDH (CVDN) episode
-builder (item 4).
+(`imagine_images`, ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ from typing import Any
 
 import numpy as np
 
-from vln_imagine_tpu_torch.envx.compiler import ScanGraph
+from vln_imagine_tpu_torch.envx.compiler import ScanGraph, shortest_path_nodes
 from vln_imagine_tpu_torch.envx.tables import EpisodeBatch
 
 
@@ -327,6 +326,108 @@ def episodes_from_annotations(
         imagine_feats=imagine_feats, imagine_mask=imagine_mask,
         np_weights=np_w, midstop=midstop, gt_obj_id=gt_obj)
     return ep, instr_ids
+
+
+class RoundRobinSampler:
+    """Training batch order: sequential with reshuffle-on-wrap
+    (R2RBatch._next_minibatch, env.py:188-204)."""
+
+    def __init__(self, n: int, batch_size: int, seed: int = 0):
+        self.n = n
+        self.bs = batch_size
+        self.rng = np.random.default_rng(seed)
+        self.order = self.rng.permutation(n)
+        self.ix = 0
+
+    def next_batch(self) -> np.ndarray:
+        take = self.order[self.ix: self.ix + self.bs]
+        if len(take) < self.bs:
+            self.order = self.rng.permutation(self.n)
+            self.ix = self.bs - len(take)
+            take = np.concatenate([take, self.order[: self.ix]])
+        else:
+            self.ix += self.bs
+        return take
+
+
+class EvalSampler:
+    """Whole-epoch eval order with 'looped' detection
+    (BaseAgent.test, agent_base.py:25-49): batches wrap; items seen twice are
+    dropped by the caller via the returned fresh-mask."""
+
+    def __init__(self, n: int, batch_size: int):
+        self.n = n
+        self.bs = batch_size
+        self.ix = 0
+        self.seen: set[int] = set()
+
+    def __iter__(self):
+        self.ix = 0
+        self.seen = set()
+        while len(self.seen) < self.n:
+            idxs = [(self.ix + k) % self.n for k in range(self.bs)]
+            self.ix = (self.ix + self.bs) % self.n
+            # mark as seen item by item so WITHIN-batch duplicates (bs > n,
+            # e.g. after the driver's mesh rounding raised bs above a tiny
+            # split) are not fresh twice and never scored twice
+            fresh = np.empty(len(idxs), bool)
+            for k, i in enumerate(idxs):
+                fresh[k] = i not in self.seen
+                self.seen.add(i)
+            yield np.asarray(idxs), fresh
+
+
+def ndh_episodes_from_annotations(
+    items: list[dict],
+    graphs: list[ScanGraph],
+    max_instr_len: int,
+    max_gt_path_len: int,
+    max_imaginations: int,
+    rng: np.ndarray | None = None,
+    use_player_path: bool = False,
+) -> tuple[EpisodeBatch, list[str], list[list[int]]]:
+    """NDH (CVDN) episodes: the supervision path is resampled per call —
+    the player's recorded path with p=0.5 (when enabled) or the shortest
+    path to a random end pano (NDHNavBatch._next_minibatch,
+    cvdn/env.py:30-45).  Returns (episodes, instr_ids, end_panos_per_item
+    as node indices for goal-progress eval)."""
+    rng = rng if rng is not None else np.random.default_rng(0)
+    graphs_by_scan = {g.scan_id: g for g in graphs}
+    id_maps = {g.scan_id: g.id_to_index for g in graphs}
+    resolved = []
+    end_panos_all = []
+    for item in items:
+        g = graphs_by_scan[item["scan"]]
+        idmap = id_maps[item["scan"]]
+        it = dict(item)
+        if "end_panos" in item and item["end_panos"]:
+            player = use_player_path and rng.random() > 0.5 and \
+                item.get("nav_steps")
+            if player:
+                it["path"] = item["nav_steps"][item.get("nav_idx", 0):]
+            else:
+                # goal sampled per call (NDHNavBatch._next_minibatch,
+                # cvdn/env.py:30-45); the gt path is the full shortest path
+                # to the sampled goal — nDTW/SDTW metrics and DTW reward
+                # shaping both score against it, so a [start, end] stub
+                # would silently corrupt every DTW-family number
+                end = rng.choice(item["end_panos"])
+                nodes = shortest_path_nodes(g, idmap[item["start_pano"]],
+                                            idmap[end])
+                it["path"] = [g.node_ids[n] for n in nodes]
+            end_panos_all.append([idmap[p] for p in item["end_panos"]
+                                  if p in idmap])
+        else:
+            it["path"] = [item["start_pano"]]
+            end_panos_all.append([idmap[item["start_pano"]]])
+        it.setdefault("heading", item.get("start_heading", 0.0))
+        it.setdefault("instr_id", str(item.get("inst_idx",
+                                               len(resolved))))
+        resolved.append(it)
+    ep, ids = episodes_from_annotations(
+        resolved, graphs, AuxMetadata(), max_instr_len, max_gt_path_len,
+        max_imaginations, clamp_gt_path=True)
+    return ep, ids, end_panos_all
 
 
 class RoundRobinSampler:

@@ -17,11 +17,13 @@ agent_cmt.py:837-852; DUET's DAgger recipe has no critic).  The trainer's
 card unless the caller names a device.
 
 DUET's `detailed_output` evaluates with the final stop table and writes it
-into `detail_<split>.json` (main_nav.py:384).  Not ported yet, and refused
-with NotImplementedError: a device mesh (ROADMAP Queue 1 item 7), any
-dataset but r2r and episodes that carry a midstop or a target object (item
-4), `e2e_imagination` (item 5) and the JAX pre-trainer's snapshots
-(`init_from_pretrain`, item 6).
+into `detail_<split>.json` (main_nav.py:384).  Validation scores each
+task variant by its own metrics (variants.py): REVERIE / SOON by object
+navigation and grounding (RGS, RGSPL, `predObjId` in the submission),
+r2r_back by the declared midstop, CVDN by goal progress over the split's
+`end_panos`.  Not ported yet, and refused with NotImplementedError: a
+device mesh (ROADMAP Queue 1 item 7), `e2e_imagination` (item 5) and the
+JAX pre-trainer's snapshots (`init_from_pretrain`, item 6).
 """
 
 from __future__ import annotations
@@ -39,12 +41,9 @@ import torch
 from vln_imagine_tpu_torch.ckpt.manager import CheckpointManager
 from vln_imagine_tpu_torch.config import Config
 from vln_imagine_tpu_torch.data.annotations import EvalSampler, RoundRobinSampler
-from vln_imagine_tpu_torch.envx.tables import (
-    EpisodeBatch,
-    WorldTables,
-    require_r2r_episodes,
-)
+from vln_imagine_tpu_torch.envx.tables import EpisodeBatch, WorldTables
 from vln_imagine_tpu_torch.eval.metrics import eval_batch
+from vln_imagine_tpu_torch.variants import eval_batch_variant
 from vln_imagine_tpu_torch.utils.logger import (
     MetricsWriter,
     dump_args,
@@ -57,6 +56,9 @@ class SplitData:
     name: str
     episodes: EpisodeBatch          # full split, host-side arrays
     instr_ids: list = field(default_factory=list)
+    # NDH (cvdn): the annotated goal-pano node indices per item, used by
+    # goal-progress eval (NDHNavBatch, VLN-HAMT/finetune_src/cvdn/env.py:91-130)
+    end_panos: list | None = None
 
 
 def _take(ep: EpisodeBatch, idxs: np.ndarray) -> EpisodeBatch:
@@ -67,13 +69,16 @@ def _take(ep: EpisodeBatch, idxs: np.ndarray) -> EpisodeBatch:
         for f in dataclasses.fields(ep)})
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
 def refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a
     configuration whose branch the port does not have yet."""
     unported = [
         (cfg.mesh.data_parallelism != 0, "a device mesh (data parallelism)",
          7),
-        (cfg.dataset != "r2r", f"dataset {cfg.dataset!r}", 4),
         (cfg.model.e2e_imagination != "off", "e2e_imagination", 5),
     ]
     for bad, what, item in unported:
@@ -88,14 +93,10 @@ class FinetuneDriver:
                  log_dir: str, graphs=None,
                  aug_split: SplitData | None = None, device=None):
         refuse_unported(cfg)
-        for split in [train_split, *val_splits] + (
-                [aug_split] if aug_split is not None else []):
-            require_r2r_episodes(split.episodes)
         self.cfg = cfg
         self.tables = tables
         # host copy of the distance tables, for the metrics
-        self._dist = (tables.dist.cpu().numpy() if torch.is_tensor(tables.dist)
-                      else np.asarray(tables.dist))
+        self._dist = _host(tables.dist)
         # host ScanGraphs (scan index -> graph): needed only to emit
         # submit_<env>.json with real viewpoint ids/poses (main.py:416-421)
         self.graphs = graphs
@@ -289,6 +290,7 @@ class FinetuneDriver:
         # a batch bigger than the split only pads compute (EvalSampler wraps)
         bs = max(min(bs, n), 1)
         paths, gts, scans, kept_ids, kept_idx = [], [], [], [], []
+        extra = []  # pred_obj (reverie/soon) or declared midstop (r2r_back)
         details = []  # per item {node: stop probability} (detailed_output)
         # a window of eval calls in flight (VLN_EVAL_PIPELINE, default 4;
         # 1 is fully synchronous).  The port's eval step waits for the
@@ -327,10 +329,12 @@ class FinetuneDriver:
             if not inflight:
                 break
             idxs, fresh, out = inflight.popleft()
-            pn, pl = out[0].cpu().numpy(), out[1].cpu().numpy()
             if self._eval_detailed:
                 det_nodes, det_scores, det_valid = (x.cpu().numpy()
-                                                    for x in out[2])
+                                                    for x in out[-1])
+                out = out[:-1]
+            pn, pl = out[0].cpu().numpy(), out[1].cpu().numpy()
+            po = out[2].cpu().numpy() if len(out) > 2 else None
             for j, keep in enumerate(fresh):
                 if not keep:
                     continue
@@ -340,11 +344,34 @@ class FinetuneDriver:
                 scans.append(int(scan[b]))
                 kept_ids.append(split.instr_ids[b] if split.instr_ids else b)
                 kept_idx.append(b)
+                if po is not None:
+                    extra.append(int(po[j]))
                 if self._eval_detailed:
                     details.append({int(n): float(s) for n, s, v in zip(
                         det_nodes[j], det_scores[j], det_valid[j]) if v})
-        avg, per = eval_batch(self._dist, np.asarray(scans),
-                              paths, gts, kept_ids)
+        is_obj = bool(extra) and split.episodes.gt_obj_id is not None
+        if is_obj:
+            # REVERIE/SOON: object-navigation scoring (success = stop at any
+            # viewpoint the gt object is visible from; RGS/RGSPL grounding)
+            avg, per = self._eval_object_split(split, scans, paths, gts,
+                                               kept_ids, kept_idx, extra)
+        elif (self.cfg.dataset == "r2r_back"
+              and split.episodes.midstop is not None):
+            gt_mid = np.asarray(split.episodes.midstop)
+            avg, per = eval_batch_variant(
+                "r2r_back", self._dist, np.asarray(scans), paths,
+                gt_paths=gts,
+                midstops=[(m if m >= 0 else None) for m in extra],
+                gt_midstops=[int(gt_mid[b]) for b in kept_idx],
+                instr_ids=kept_ids)
+        elif self.cfg.dataset == "cvdn" and split.end_panos is not None:
+            avg, per = eval_batch_variant(
+                "cvdn", self._dist, np.asarray(scans), paths, gt_paths=gts,
+                end_panos=[split.end_panos[b] for b in kept_idx],
+                instr_ids=kept_ids)
+        else:
+            avg, per = eval_batch(self._dist, np.asarray(scans),
+                                  paths, gts, kept_ids)
         if write_outputs:
             # submit_<env>.json + individual_metrics_<env>.json
             # (main.py:410-421); the submission needs host graphs for real
@@ -362,11 +389,32 @@ class FinetuneDriver:
                 write_submission(
                     os.path.join(self.log_dir, f"{prefix}_{split.name}.json"),
                     self.graphs, np.asarray(scans), paths, kept_ids, headings,
-                    details=details or None)
+                    details=details or None,
+                    pred_obj_ids=extra if is_obj else None)
         self.timings["validate"].append(
             {"seconds": time.perf_counter() - t0, "items": n,
              "split": split.name})
         return avg
+
+    def _eval_object_split(self, split, scans, paths, gts, kept_ids,
+                           kept_idx, pred_objs):
+        gt_obj = np.asarray(split.episodes.gt_obj_id)
+        obj_ids = _host(self.tables.obj_ids)       # [S, N, Ko]
+        obj_valid = _host(self.tables.obj_valid)
+        gt_objs, goal_vps = [], []
+        for i, b in enumerate(kept_idx):
+            g = int(gt_obj[b])
+            gt_objs.append(g)
+            visible = (obj_ids[scans[i]] == g) & obj_valid[scans[i]]
+            vps = list(np.nonzero(np.any(visible, axis=-1))[0])
+            # fall back to the annotated goal if the object table lacks it
+            goal_vps.append(vps if vps else [gts[i][-1]])
+        variant = (self.cfg.dataset if self.cfg.dataset in ("reverie", "soon")
+                   else "reverie")
+        return eval_batch_variant(
+            variant, self._dist, np.asarray(scans), paths, gt_paths=gts,
+            goal_viewpoints=goal_vps, pred_objs=pred_objs, gt_objs=gt_objs,
+            instr_ids=kept_ids)
 
     # ------------------------------------------------------------------ loop
     def _train_interval_profiled(self, interval: int, profile_dir: str):

@@ -24,7 +24,7 @@ out-of-range index where JAX clamps.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +50,14 @@ class HamtObs(NamedTuple):
     valid: torch.Tensor       # [B, T_obs] bool
     cand_valid: torch.Tensor  # [B, K] bool
     stop_slot: int            # == K
+    # REVERIE object segment (separate token bank, NavRefCMT
+    # `_object_variable` reverie/agent.py:125-139)
+    obj_img: Optional[torch.Tensor] = None    # [B, Ko, Do] (obj feature dim,
+    # NOT padded to the view dim — NavRef's obj_linear is [Do -> H])
+    obj_ang: Optional[torch.Tensor] = None    # [B, Ko, A]
+    obj_ids: Optional[torch.Tensor] = None    # [B, Ko] i32
+    obj_valid: Optional[torch.Tensor] = None  # [B, Ko] bool
+    obj_pos: Optional[torch.Tensor] = None    # [B, Ko, 5] normalized bbox
 
 
 def obs_tokens(max_candidates: int, views: int) -> int:
@@ -141,8 +149,25 @@ def observe_hamt(tables: WorldTables, ep: EpisodeBatch, state: EnvState,
     valid = torch.cat([adj_valid,
                        torch.ones((B, 1), dtype=torch.bool, device=img.device),
                        ~used], dim=1)
+
+    obj_img = obj_ang = obj_ids = obj_valid = obj_pos = None
+    if tables.obj_feat is not None:
+        o_feat = _gather_sn(tables.obj_feat, ep.scan, state.node)
+        o_ang = _gather_sn(tables.obj_ang, ep.scan, state.node)
+        obj_valid = _gather_sn(tables.obj_valid, ep.scan, state.node)
+        obj_ids = _gather_sn(tables.obj_ids, ep.scan, state.node)
+        # object features keep their OWN dim: NavRefCMT's obj img_linear is
+        # [obj_feat_size -> H] (vlnbert_navref.py:17)
+        obj_img = o_feat * obj_valid[:, :, None]
+        obj_ang = angle_feature(o_ang[..., 0] - base_h, o_ang[..., 1],
+                                angle_feat_size)
+        if tables.obj_pos is not None:
+            obj_pos = (_gather_sn(tables.obj_pos, ep.scan, state.node)
+                       * obj_valid[:, :, None])
     return HamtObs(img=img, ang=ang, nav_types=nav, valid=valid,
-                   cand_valid=adj_valid, stop_slot=K)
+                   cand_valid=adj_valid, stop_slot=K,
+                   obj_img=obj_img, obj_ang=obj_ang, obj_ids=obj_ids,
+                   obj_valid=obj_valid, obj_pos=obj_pos)
 
 
 def history_inputs(tables: WorldTables, ep: EpisodeBatch, state: EnvState,
@@ -199,10 +224,12 @@ def distance_to_goal(tables: WorldTables, ep: EpisodeBatch,
 class DuetObs(NamedTuple):
     img: torch.Tensor         # [B, T_pano, Df]
     loc: torch.Tensor         # [B, T_pano, A+3] (angle feats + [1,1,1] box)
-    nav_types: torch.Tensor   # [B, T_pano] i32 (0 pano, 1 candidate)
+    nav_types: torch.Tensor   # [B, T_pano] i32 (0 pano, 1 candidate, 2 object)
     valid: torch.Tensor       # [B, T_pano] bool
     cand_nodes: torch.Tensor  # [B, K] neighbour node id
     cand_valid: torch.Tensor  # [B, K] bool
+    obj_ids: Optional[torch.Tensor] = None    # [B, Ko] dataset object ids
+    obj_valid: Optional[torch.Tensor] = None  # [B, Ko] bool
 
 
 def observe_duet(tables: WorldTables, ep: EpisodeBatch, state: EnvState,
@@ -210,7 +237,7 @@ def observe_duet(tables: WorldTables, ep: EpisodeBatch, state: EnvState,
     """DUET pano token bank (no STOP token; the local branch prepends it):
     slots [0..K-1] candidates, [K..K+V-1] panorama views; views claimed by a
     candidate are masked (agent.py:53-96 `_panorama_feature_variable`).
-    REVERIE/SOON object tokens are not ported yet."""
+    REVERIE/SOON object tokens follow the views."""
     if tables.feat is None:
         raise ValueError("observe_duet needs view features")
     B = ep.batch
@@ -240,9 +267,29 @@ def observe_duet(tables: WorldTables, ep: EpisodeBatch, state: EnvState,
                      torch.zeros((B, V), dtype=torch.int32, device=img.device)],
                     dim=1)
     valid = torch.cat([adj_valid, ~used], dim=1)
+
+    obj_ids = obj_valid = None
+    if tables.obj_feat is not None:
+        # REVERIE/SOON: object tokens after the views, nav type 2
+        # (reverie agent `_object_variable`, obj dims padded/truncated to Df)
+        o_feat = _gather_sn(tables.obj_feat, ep.scan, state.node)
+        o_ang = _gather_sn(tables.obj_ang, ep.scan, state.node)
+        obj_valid = _gather_sn(tables.obj_valid, ep.scan, state.node)
+        obj_ids = _gather_sn(tables.obj_ids, ep.scan, state.node)
+        Do = o_feat.shape[-1]
+        o_feat = F.pad(o_feat, (0, Df - Do)) if Do < Df else o_feat[..., :Df]
+        o_ang_f = angle_feature(o_ang[..., 0] - base_h, o_ang[..., 1],
+                                angle_feat_size)
+        o_loc = torch.cat([o_ang_f, torch.ones_like(o_ang_f[..., :3])], -1)
+        img = torch.cat([img, o_feat * obj_valid[:, :, None]], 1)
+        loc = torch.cat([loc, o_loc], 1)
+        nav = torch.cat([nav, 2 * obj_valid.to(torch.int32)], 1)
+        valid = torch.cat([valid, obj_valid], 1)
+
     loc = loc * valid[:, :, None]
     return DuetObs(img=img, loc=loc, nav_types=nav, valid=valid,
-                   cand_nodes=adj, cand_valid=adj_valid)
+                   cand_nodes=adj, cand_valid=adj_valid,
+                   obj_ids=obj_ids, obj_valid=obj_valid)
 
 
 def rel_pos_features(tables: WorldTables, ep: EpisodeBatch,
@@ -268,17 +315,23 @@ def rel_pos_features(tables: WorldTables, ep: EpisodeBatch,
 
 
 def teacher_hamt(tables: WorldTables, ep: EpisodeBatch, state: EnvState,
-                 t: int, ignore_id: int) -> torch.Tensor:
-    """Teacher action slot, the time-indexed gt-path teacher (env.py:293-307):
-    target = gt_path[t+1], stop once t reaches the end of the path.  Returns
-    K (the stop slot) to stop or when no candidate leads to the target, and
-    ignore_id for ended items.  (CVDN's shortest-path teacher is not ported
-    yet.)"""
+                 t: int, ignore_id: int,
+                 shortest_teacher: bool = False) -> torch.Tensor:
+    """Teacher action slot.  Time-indexed gt-path teacher by default
+    (env.py:293-307): target = gt_path[t+1], stop once t reaches the end of
+    the path; shortest_teacher (CVDN) follows the next hop towards the goal
+    (env.py:213-219).  Returns K (the stop slot) to stop or when no
+    candidate leads to the target, and ignore_id for ended items."""
     adj, adj_valid, _, _, _ = candidate_info(tables, ep, state)
     K = adj.shape[1]
     P = ep.gt_path.shape[1]
-    is_stop = t >= ep.gt_len - 1
-    target = ep.gt_path[:, min(max(t + 1, 0), P - 1)]
+    if shortest_teacher:
+        goal = ep.goal
+        is_stop = state.node == goal
+        target = tables.next_hop[ep.scan.long(), state.node.long(), goal.long()]
+    else:
+        is_stop = t >= ep.gt_len - 1
+        target = ep.gt_path[:, min(max(t + 1, 0), P - 1)]
     match = adj_valid & (adj == target[:, None])
     slot = torch.argmax(match.to(torch.int32), dim=1)  # first match
     a = torch.where(is_stop | ~match.any(dim=1), K, slot)

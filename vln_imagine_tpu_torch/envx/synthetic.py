@@ -8,8 +8,8 @@ suite and the throughput benchmark.
 
 The port's own copy of the JAX package's generator: the same numpy RNG
 calls in the same order, so both packages build bit-identical tables from a
-seed.  The REVERIE object tables and raw imagination images wait for the
-slices that use them.
+seed.  Raw imagination images (`imagine_image_size`) wait for the ViT
+slice (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -70,6 +70,8 @@ def synthetic_world(
     feat_dim: int = 32,
     seed: int = 0,
     with_features: bool = True,
+    max_objects: int = 0,
+    obj_feat_dim: int | None = None,
 ) -> tuple[WorldTables, list[ScanGraph]]:
     rng = np.random.default_rng(seed)
     graphs = [random_scan_graph(rng, f"scan{s}", num_nodes)
@@ -80,6 +82,29 @@ def synthetic_world(
         feat = rng.standard_normal((S, N, views, feat_dim)).astype(np.float32)
         feat *= 0.5
         world = world.replace(feat=feat)
+    if max_objects > 0:
+        # REVERIE-style objects: 0..max_objects per node, globally-unique ids
+        Do = obj_feat_dim or feat_dim
+        obj_feat = (rng.standard_normal((S, N, max_objects, Do)) * 0.5
+                    ).astype(np.float32)
+        obj_ang = np.stack(
+            [rng.uniform(-np.pi, np.pi, (S, N, max_objects)),
+             rng.uniform(-0.4, 0.4, (S, N, max_objects))], -1
+        ).astype(np.float32)
+        n_obj = rng.integers(0, max_objects + 1, (S, N))
+        obj_valid = np.arange(max_objects)[None, None, :] < n_obj[:, :, None]
+        obj_ids = rng.integers(0, 10_000, (S, N, max_objects)).astype(np.int32)
+        obj_valid &= np.asarray(world.node_valid)[:, :, None]
+        # normalized bbox positions (x1,y1,x2,y2,area in [0,1])
+        x1 = rng.uniform(0, 0.8, (S, N, max_objects))
+        y1 = rng.uniform(0, 0.8, (S, N, max_objects))
+        w = rng.uniform(0.05, 0.2, (S, N, max_objects))
+        h = rng.uniform(0.05, 0.2, (S, N, max_objects))
+        obj_pos = np.stack([x1, y1, x1 + w, y1 + h, w * h],
+                           -1).astype(np.float32)
+        world = world.replace(obj_feat=obj_feat, obj_ang=obj_ang,
+                              obj_valid=obj_valid, obj_ids=obj_ids,
+                              obj_pos=obj_pos)
     return world, graphs
 
 
@@ -157,6 +182,17 @@ def synthetic_episodes(
             st = rng.integers(lo, hi - span + 1)
             np_weights[b, i, st:st + span] = 1.0 / span
 
+    gt_obj_id = None
+    if world.obj_feat is not None:
+        # target = an object visible at the goal node (fall back to id 0)
+        obj_ids_t = np.asarray(world.obj_ids)
+        obj_valid_t = np.asarray(world.obj_valid)
+        gt_obj_id = np.zeros(batch, np.int32)
+        for b in range(batch):
+            vis = obj_ids_t[scans[b], goals[b]][obj_valid_t[scans[b],
+                                                            goals[b]]]
+            gt_obj_id[b] = vis[rng.integers(0, len(vis))] if len(vis) else 0
+
     return EpisodeBatch(
         scan=scans.astype(np.int32),
         start_node=starts.astype(np.int32),
@@ -168,4 +204,5 @@ def synthetic_episodes(
         imagine_feats=imagine_feats,
         imagine_mask=imagine_mask,
         np_weights=np_weights,
+        gt_obj_id=gt_obj_id,
     )

@@ -58,6 +58,17 @@ class WorldTables(_Arrays):
     next_hop: Any        # [S, N, N] i32 next node on shortest path
     hops: Any            # [S, N, N] i32 number of edges on shortest path
     feat: Optional[Any] = None  # [S, N, V, Df] f32 view features
+    # REVERIE/SOON object annotations (None for object-free tasks)
+    obj_feat: Optional[Any] = None   # [S, N, Ko, Do] f32
+    obj_ang: Optional[Any] = None    # [S, N, Ko, 2] heading/elev
+    obj_valid: Optional[Any] = None  # [S, N, Ko] bool
+    obj_ids: Optional[Any] = None    # [S, N, Ko] i32 dataset obj id
+    obj_pos: Optional[Any] = None    # [S, N, Ko, 5] normalized bbox
+    # (x1,y1,x2,y2,area — get_obj_local_pos, reverie/data_utils.py:25-31)
+
+    @property
+    def max_objects(self) -> int:
+        return 0 if self.obj_feat is None else self.obj_feat.shape[2]
 
     @property
     def num_scans(self) -> int:
@@ -90,8 +101,6 @@ class EpisodeBatch(_Arrays):
     imagine_feats: Any  # [B, I, Df] f32
     imagine_mask: Any   # [B, I] bool (generated-flag per sub-instruction)
     np_weights: Any     # [B, I, L] f32 noun-phrase mean weights
-    # the annotation builder fills these for r2r_back / REVERIE / SOON items;
-    # the rollouts refuse a batch that carries either (not ported yet)
     midstop: Optional[Any] = None    # [B] i32 r2r_back turn-around node
     gt_obj_id: Optional[Any] = None  # [B] i32 REVERIE/SOON target object
 
@@ -105,16 +114,6 @@ class EpisodeBatch(_Arrays):
         if torch.is_tensor(self.gt_path):
             return self.gt_path.gather(1, idx.long()[:, None])[:, 0]
         return self.gt_path[np.arange(self.batch), idx]
-
-
-def require_r2r_episodes(ep: EpisodeBatch) -> None:
-    """Raise for a batch that carries r2r_back's midstop or a REVERIE/SOON
-    target object: neither is ported yet."""
-    for name in ("midstop", "gt_obj_id"):
-        if getattr(ep, name) is not None:
-            raise NotImplementedError(
-                f"episodes with {name} (r2r_back, REVERIE, SOON) are not "
-                "ported yet: ROADMAP Queue 1 item 4")
 
 
 @dataclass(frozen=True)

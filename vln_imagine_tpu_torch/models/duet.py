@@ -15,16 +15,23 @@ method:
 - navigation_per_step (:1133-1235): the global branch (step and position
   embeddings, graph-sprel-biased cross-modal encoder), the local branch
   ([stop] + pano tokens with 14-d viewpoint position features), dynamic
-  sigmoid fusion and the fused-logit graph merge
+  sigmoid fusion and the fused-logit graph merge; with objects (REVERIE /
+  SOON) the `og_head` grounding logits over the local branch's object
+  tokens (:1221-1225)
 
 Module names are the reference's torch keys (`lang_encoder.layer.*`,
 `img_embeddings.pano_encoder.layers.*`, `global_encoder.sprel_linear`, ...),
 so a released state_dict loads with `load_state_dict`.  Every mode takes
 `rng` (ops/dropout.py); without it dropout is off.
 
-Not ported yet: REVERIE/SOON objects (`obj_feat_size`, `og_head`), the
-in-model ViT (`e2e_imagination`), `lang2visn_stack` and its
-`use_lang2visn_attn` blocks.
+Object tokens reach the pano encoder through the view embedding:
+`observe_duet` pads or truncates their features to the view dim.  So
+`img_embeddings.obj_linear` / `obj_layer_norm`, which the model holds when
+`obj_feat_size != image_feat_size` as the JAX package does, are never
+applied (they keep a released checkpoint's keys).
+
+Not ported yet: the in-model ViT (`e2e_imagination`), `lang2visn_stack`
+and its `use_lang2visn_attn` blocks.
 """
 
 from __future__ import annotations
@@ -93,6 +100,10 @@ class ImageEmbeddings(nn.Module):
         self.nav_type_embedding = Embed(3, H, dt)
         self.layer_norm = LayerNorm12(H)
         self.pano_encoder = PreNormEncoder(cfg, cfg.num_pano_layers)
+        if 0 < cfg.obj_feat_size != cfg.image_feat_size:
+            # created and never applied, as in the JAX package
+            self.obj_linear = Dense(cfg.obj_feat_size, H, dt)
+            self.obj_layer_norm = LayerNorm12(H)
 
 
 class LocalEncoder(nn.Module):
@@ -125,6 +136,7 @@ class NavOut(NamedTuple):
     fused_logits: torch.Tensor   # [B, G+1]
     gmap_embeds: torch.Tensor
     vp_embeds: torch.Tensor
+    obj_logits: torch.Tensor | None = None  # [B, T_pano+1] REVERIE/SOON
 
 
 class DuetModel(nn.Module):
@@ -132,11 +144,9 @@ class DuetModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, feat_dropout: float = 0.4):
         super().__init__()
-        unported = {"obj_feat_size": cfg.obj_feat_size > 0,
-                    "e2e_imagination": cfg.e2e_imagination != "off"}
-        if any(unported.values()):
+        if cfg.e2e_imagination != "off":
             raise NotImplementedError(
-                f"not ported yet: {[k for k, v in unported.items() if v]}")
+                "e2e_imagination is not ported yet: ROADMAP Queue 1 item 5")
         if cfg.imagine_enc_pano and not cfg.bypass_imag_encoder:
             # the DUET reference ships only the bypass embeddings
             # (vilmodel.py:562), and so does the JAX package
@@ -156,6 +166,8 @@ class DuetModel(nn.Module):
         if cfg.glocal_fuse:
             self.sap_fuse_linear = ClsPrediction(cfg,
                                                  input_size=2 * cfg.hidden_size)
+        if cfg.obj_feat_size > 0:
+            self.og_head = ClsPrediction(cfg)
         if cfg.imagine_enc_pano:
             self.imagine_embeddings = BypassImagineEmbeddings(cfg)
             if cfg.use_cosine_aux_loss or cfg.no_loss_test:
@@ -208,7 +220,7 @@ class DuetModel(nn.Module):
         gmap_pair_dists, gmap_visited,
         vp_img_embeds, vp_pos_fts, vp_valid, vp_nav_valid,
         cand_to_gmap,       # [B, G+1, T_pano+1] bool: gmap slot g is vp token j
-        imagine_embeds=None, imagine_mask=None, rng=None,
+        imagine_embeds=None, imagine_mask=None, vp_obj_valid=None, rng=None,
     ) -> NavOut:
         cfg, glob, loc = self.config, self.global_encoder, self.local_encoder
 
@@ -251,9 +263,14 @@ class DuetModel(nn.Module):
         local_logits = mask_logits(local_logits, vp_nav_valid)
         fused = fused_logit_merge(global_logits, local_logits, gmap_visited,
                                   gmap_valid, vp_nav_valid, cand_to_gmap)
+        # object grounding logits (REVERIE/SOON; vilmodel.py:1221-1225)
+        obj_logits = None
+        if cfg.obj_feat_size > 0 and vp_obj_valid is not None:
+            obj_logits = mask_logits(self.og_head(vp_embeds)[..., 0],
+                                     vp_obj_valid)
         return NavOut(global_logits=global_logits, local_logits=local_logits,
                       fused_logits=fused, gmap_embeds=gmap_embeds,
-                      vp_embeds=vp_embeds)
+                      vp_embeds=vp_embeds, obj_logits=obj_logits)
 
 
 def fused_logit_merge(global_logits, local_logits, gmap_visited, gmap_valid,

@@ -14,6 +14,11 @@ wrapper, models/model_HAMT.py:13-97).  Each reference mode is a method:
 - visual    (:1056-1205), cross-modal streams [txt; imagine] x [hist; obs];
   under no_lang_ca the text is not updated by the cross-modal layers and
   the language mode returns one static text per layer (:1022-1029)
+- with `obj_feat_size` > 0, the REVERIE object segment of NavRefCMT
+  (finetune_src/reverie/vlnbert_navref.py:11-155): `obj_embeddings`, the
+  visual stream [hist; obs; obj] and the `ref_object` grounding head; its
+  language mode returns the final text for every layer (:66-80) and its
+  action head is next_action(ob * hist[CLS]) under no_lang_ca (:150)
 
 Every mode takes `rng` (ops/dropout.py): with it the flax blocks' dropouts
 and the wrapper's env-feature dropout (`drop_env`, `feat_dropout`) are
@@ -22,8 +27,7 @@ gradients (`fix_lang_embedding`, `fix_hist_embedding`, and
 `fix_imagine_embeds` / `fix_obs_embedding`) run their branch under
 `torch.no_grad()`, so no residuals are kept for layers that get no gradient.
 
-Not ported yet: the ViT (ROADMAP Queue 1 item 5) and REVERIE objects
-(item 4).
+Not ported yet: the ViT (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -77,6 +81,33 @@ class ImageEmbeddings(nn.Module):
              + self.ang_layer_norm(self.ang_linear(ang_feat))
              + type_embeddings
              + self.nav_type_embedding(nav_types))
+        return dropout(self.layer_norm(x), self.rate, rng)
+
+
+class ObjectEmbeddings(nn.Module):
+    """REVERIE object tokens (NavRefCMT ObjectEmbeddings,
+    vlnbert_navref.py:11-41): img/ang/5-d-bbox-pos linear+LN branches plus
+    the image module's nav-type embedding (type 2) and the token-type
+    embedding, final LN -> dropout."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        H, dt = cfg.hidden_size, compute_dtype(cfg)
+        self.img_linear = Dense(cfg.obj_feat_size, H, dt)
+        self.img_layer_norm = LayerNorm12(H)
+        self.ang_linear = Dense(cfg.angle_feat_size, H, dt)
+        self.ang_layer_norm = LayerNorm12(H)
+        self.pos_linear = Dense(5, H, dt)
+        self.pos_layer_norm = LayerNorm12(H)
+        self.layer_norm = LayerNorm12(H)
+        self.rate = cfg.hidden_dropout_prob
+
+    def forward(self, obj_feat, obj_ang, obj_pos, type_embeddings,
+                nav_type_embeddings, rng=None):
+        x = (self.img_layer_norm(self.img_linear(obj_feat))
+             + self.ang_layer_norm(self.ang_linear(obj_ang))
+             + self.pos_layer_norm(self.pos_linear(obj_pos))
+             + nav_type_embeddings + type_embeddings)
         return dropout(self.layer_norm(x), self.rate, rng)
 
 
@@ -264,6 +295,7 @@ class VisualOut(NamedTuple):
     hist_embeds: torch.Tensor  # [B, T, H]
     ob_embeds: torch.Tensor    # [B, T_obs, H]
     state: torch.Tensor        # [B, H] critic state
+    obj_logits: torch.Tensor | None = None  # [B, Ko] REVERIE grounding
 
 
 class HamtEncoder(nn.Module):
@@ -282,11 +314,9 @@ class HamtModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, feat_dropout: float = 0.4):
         super().__init__()
-        unported = {"obj_feat_size": cfg.obj_feat_size > 0,
-                    "e2e_imagination": cfg.e2e_imagination != "off"}
-        if any(unported.values()):
+        if cfg.e2e_imagination != "off":
             raise NotImplementedError(
-                f"not ported yet: {[k for k, v in unported.items() if v]}")
+                "e2e_imagination is not ported yet: ROADMAP Queue 1 item 5")
         self.config = cfg
         self.feat_dropout = feat_dropout
         self.embeddings = BertEmbeddings(cfg)
@@ -300,6 +330,11 @@ class HamtModel(nn.Module):
                 self.contrastive_alignment_model = ContrastiveAlignment(cfg)
         self.encoder = HamtEncoder(cfg)
         self.next_action = NextActionPrediction(cfg)
+        if cfg.obj_feat_size > 0:
+            # REVERIE object segment (NavRefCMT: ObjectEmbeddings
+            # vlnbert_navref.py:11-41 + ref_object head :56,153)
+            self.obj_embeddings = ObjectEmbeddings(cfg)
+            self.ref_object = NextActionPrediction(cfg)
 
     def drop_env(self, feats, rng):
         """The VLNBertCMT wrapper's env-feature dropout (models/model_HAMT.py)."""
@@ -310,7 +345,8 @@ class HamtModel(nn.Module):
         """The text embeddings [B, L, H]; under no_lang_ca the stack
         [1 + X, B, L, H] of the base text and each x-layer's language
         self-attention branch over the BASE text (vilmodel_cmt.py:1022-1029:
-        the reference does not chain them)."""
+        the reference does not chain them).  NavRefCMT (objects + no_lang_ca,
+        vlnbert_navref.py:66-80,143) returns the final text in every slot."""
         ext = extend_neg_mask(txt_mask)
         with _stop_gradient(self.config.fix_lang_embedding):
             x = self.embeddings(txt_ids, rng)
@@ -318,6 +354,8 @@ class HamtModel(nn.Module):
                 x = layer(x, ext, rng)
         if not self.config.no_lang_ca:
             return x
+        if self.config.obj_feat_size > 0:
+            return x[None].expand(1 + len(self.encoder.x_layers), *x.shape)
         return torch.stack([x] + [layer.lang_self_att_branch(x, ext, rng)
                                   for layer in self.encoder.x_layers])
 
@@ -354,9 +392,14 @@ class HamtModel(nn.Module):
 
     def visual(self, txt_embeds, txt_mask, hist_embeds, hist_mask,
                ob_img_feats, ob_ang_feats, ob_nav_types, ob_valid,
-               imagine_embeds=None, imagine_mask=None, rng=None) -> VisualOut:
+               imagine_embeds=None, imagine_mask=None,
+               obj_img_feats=None, obj_ang_feats=None, obj_valid=None,
+               obj_pos_feats=None, rng=None) -> VisualOut:
         """Per-step cross-modal encoding + action logits
-        (vilmodel_cmt.py:1056-1205)."""
+        (vilmodel_cmt.py:1056-1205).  With object inputs (REVERIE,
+        vlnbert_navref.py:90-155) the visual stream is [hist; obs; obj]
+        (then a visual-concat imagination) and obj_logits =
+        ref_object(obj_embeds * txt[CLS]) masked by obj_valid."""
         cfg = self.config
         no_ca = cfg.no_lang_ca
         if no_ca:
@@ -379,6 +422,25 @@ class HamtModel(nn.Module):
         visn = torch.cat([hist_embeds, ob_embeds], dim=1)
         visn_mask = torch.cat([extend_neg_mask(hist_mask),
                                extend_neg_mask(ob_valid)], dim=-1)
+
+        Ko = 0
+        if cfg.obj_feat_size > 0 and obj_img_feats is not None:
+            Ko = obj_img_feats.shape[1]
+            obj_img_feats = self.drop_env(obj_img_feats, rng)
+            ones = torch.ones((B, Ko), dtype=torch.long,
+                              device=ob_nav_types.device)
+            if obj_pos_feats is None:  # tables without bbox positions
+                obj_pos_feats = obj_img_feats.new_zeros((B, Ko, 5))
+            # objects carry the STOP nav type from the IMAGE module's
+            # embedding table (vlnbert_navref.py:127-130)
+            obj_embeds = self.obj_embeddings(
+                obj_img_feats, obj_ang_feats, obj_pos_feats,
+                self.embeddings.token_type_embeddings(ones),
+                self.img_embeddings.nav_type_embedding(2 * ones), rng)
+            visn = torch.cat([visn, obj_embeds], dim=1)
+            visn_mask = torch.cat([visn_mask, extend_neg_mask(obj_valid)],
+                                  dim=-1)
+
         lang, lang_mask = txt_embeds, ext_txt
         if cfg.imagine_enc_pano and cfg.concat_imagine_with == "language":
             lang = torch.cat([txt_embeds, imagine_embeds], dim=1)
@@ -395,8 +457,14 @@ class HamtModel(nn.Module):
 
         hist_out = visn[:, :hist_len]
         ob_out = visn[:, hist_len:hist_len + T_obs]
-        txt_out = lang[:, :txt_embeds.shape[1]]
-        if no_ca:
+        txt_len = txt_embeds.shape[1]
+        txt_out = lang[:, :txt_len]
+        if no_ca and Ko:
+            # NavRefCMT hardcodes next_action(ob * hist[CLS]) regardless of
+            # flags (vlnbert_navref.py:150); the released REVERIE recipe
+            # runs it with --no_lang_ca (run_reverie.sh:27)
+            head_in = ob_out * hist_out[:, :1]
+        elif no_ca:
             head_in = ob_out  # (:1187-1188)
         elif cfg.act_pred_token == "ob_txt":
             head_in = ob_out * txt_out[:, :1]
@@ -406,12 +474,25 @@ class HamtModel(nn.Module):
             head_in = ob_out * hist_out[:, :1]
         elif cfg.act_pred_token == "ob_txt_hist":
             head_in = ob_out * (txt_out[:, :1] + hist_out[:, :1])
+        elif cfg.act_pred_token == "ob_imagine_text":
+            # the mean over the imagination outputs: the language stream's
+            # imagination tokens under language concat, else the embeddings
+            imagine_out = (lang[:, txt_len:] if cfg.imagine_enc_pano
+                           and cfg.concat_imagine_with == "language"
+                           else imagine_embeds)
+            head_in = ob_out * (txt_out[:, :1]
+                                + imagine_out.mean(dim=1, keepdim=True))
         else:
-            raise NotImplementedError(f"act_pred_token {cfg.act_pred_token!r}")
+            raise ValueError(cfg.act_pred_token)
 
         logits = self.next_action(head_in, rng)[..., 0]
         logits = mask_logits(logits, (ob_nav_types != 0) & ob_valid)
         # critic state: txt[CLS] * hist[CLS], or hist[CLS] under no_lang_ca
         # (model_HAMT.py:83-86)
         state = hist_out[:, 0] if no_ca else txt_out[:, 0] * hist_out[:, 0]
-        return VisualOut(logits, txt_out, hist_out, ob_out, state)
+        obj_logits = None
+        if Ko:
+            obj_out = visn[:, hist_len + T_obs:hist_len + T_obs + Ko]
+            obj_logits = self.ref_object(obj_out * txt_out[:, :1], rng)[..., 0]
+            obj_logits = mask_logits(obj_logits, obj_valid)
+        return VisualOut(logits, txt_out, hist_out, ob_out, state, obj_logits)

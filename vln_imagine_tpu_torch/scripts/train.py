@@ -13,15 +13,18 @@ Synthetic smoke run (no datasets needed) on the CPU:
       --iters 20 --log-every 10 --device cpu
 
 Everything runs on the card unless `--device` names another device; with
-no CUDA and no `--device` the CLI exits.  `--synthetic` takes the tiny test
-preset off the card and the agent's released preset on it (`preset`).  Flags
-whose branch is not ported yet exit with the ROADMAP item that will port it.
+no CUDA and no `--device` the CLI exits.  `--dataset` picks the task
+variant's preset (`preset`); `--synthetic` takes the tiny test preset off
+the card and the dataset's preset on it.  Flags whose branch is not ported
+yet exit with the ROADMAP item that will port it.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+
+import numpy as np
 
 
 def parse_args(argv=None):
@@ -160,8 +163,6 @@ def refuse_unported(args) -> None:
         (args.mesh_data, "--mesh-data", 7),
         (args.e2e_imagination != "off", "--e2e-imagination", 5),
         (args.init_from_pretrain, "--init-from-pretrain", 6),
-        (args.obj_features, "--obj-features", 4),
-        (args.dataset != "r2r", f"--dataset {args.dataset}", 4),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -170,18 +171,35 @@ def refuse_unported(args) -> None:
 
 
 def preset(args, device):
-    """The config a run starts from: the agent's released R2R preset, or
-    with `--synthetic` off the card the tiny test preset.  On the card
-    `--synthetic` keeps the released preset, since the tiny preset's head
+    """The config a run starts from: the per-dataset preset, which carries
+    the right env capacities (gt-path buffer, action horizon, instruction
+    length; the long-path variants overflow the R2R defaults), or with
+    `--synthetic` off the card the tiny test preset.  On the card
+    `--synthetic` keeps the dataset's preset, since the tiny preset's head
     dim (16) is not one the attention kernels take (32, 64, 128)."""
     from vln_imagine_tpu_torch.config import (
+        cvdn_config,
         duet_r2r_config,
         hamt_r2r_config,
+        r4r_config,
+        reverie_config,
+        rxr_config,
+        soon_config,
         tiny_test_config,
     )
 
     if args.synthetic and device.type != "cuda":
         return tiny_test_config(args.agent)
+    if args.dataset == "soon":
+        return soon_config()
+    if args.dataset == "reverie":
+        return reverie_config(args.agent)
+    if args.dataset == "rxr" and args.agent == "hamt":
+        return rxr_config()
+    if args.dataset == "r4r":
+        return r4r_config(args.agent)
+    if args.dataset == "cvdn":
+        return cvdn_config()
     return hamt_r2r_config() if args.agent == "hamt" else duet_r2r_config()
 
 
@@ -212,13 +230,16 @@ def build_real(cfg, args):
         AuxMetadata,
         construct_instrs,
         episodes_from_annotations,
+        ndh_episodes_from_annotations,
     )
     from vln_imagine_tpu_torch.data.features import (
         ImageFeaturesDB,
         ImaginationImageFeaturesDB,
+        ObjectFeatureDB,
         build_feature_table,
         build_imagination_arrays,
         build_imagination_arrays_v1,
+        build_object_tables,
     )
     from vln_imagine_tpu_torch.driver import SplitData
     from vln_imagine_tpu_torch.envx.compiler import (
@@ -235,18 +256,21 @@ def build_real(cfg, args):
         aug_items = construct_instrs(args.anno_dir, args.dataset,
                                      [args.aug], aug_flag=True)
     # size the gt-path buffer from the data: the presets carry known caps,
-    # but guide paths are not length-bounded in every dataset, so an
-    # overflowing split auto-raises the capacity instead of aborting at
-    # episode build
-    need = max((len(it["path"]) for items in all_items.values()
-                for it in items), default=0)
-    if aug_items:
-        need = max(need, max(len(it["path"]) for it in aug_items))
-    if need > cfg.env.max_gt_path_len:
-        print(f"auto-sizing env.max_gt_path_len "
-              f"{cfg.env.max_gt_path_len} -> {need} from the loaded "
-              f"annotations")
-        cfg = _replace(cfg, "env", max_gt_path_len=need)
+    # but guide paths are not length-bounded in every dataset (RxR follows
+    # annotator walks, not shortest paths), so an overflowing split
+    # auto-raises the capacity instead of aborting at episode build.
+    # cvdn is excluded: its supervision paths are resampled shortest paths
+    # (ndh_episodes_from_annotations) with their own clamp semantics.
+    if args.dataset != "cvdn":
+        need = max((len(it["path"]) for items in all_items.values()
+                    for it in items), default=0)
+        if aug_items:
+            need = max(need, max(len(it["path"]) for it in aug_items))
+        if need > cfg.env.max_gt_path_len:
+            print(f"auto-sizing env.max_gt_path_len "
+                  f"{cfg.env.max_gt_path_len} -> {need} from the loaded "
+                  f"annotations")
+            cfg = _replace(cfg, "env", max_gt_path_len=need)
     scans = sorted({it["scan"] for items in all_items.values()
                     for it in items}
                    | ({it["scan"] for it in aug_items} if aug_items
@@ -258,6 +282,23 @@ def build_real(cfg, args):
                                cfg.model.image_feat_size)
     world = compile_world(graphs, max_candidates=cfg.env.max_candidates,
                           views=cfg.env.views, feat=feat)
+    obj_id_fn = None
+    if args.obj_features and cfg.model.obj_feat_size > 0:
+        # REVERIE/SOON grounding: dense object tables; table visibility
+        # equals the reference's obj2vps map (reverie/data_utils.py:113-124)
+        obj_db = ObjectFeatureDB(args.obj_features, cfg.model.obj_feat_size)
+        o_feat, o_ang, o_valid, o_ids, o_pos, id_of = build_object_tables(
+            obj_db, graphs, args.max_objects, cfg.model.obj_feat_size,
+            max_nodes=world.node_xyz.shape[1],
+            bbox_format="xyxy" if args.dataset == "soon" else "xywh")
+        world = world.replace(obj_feat=o_feat, obj_ang=o_ang,
+                              obj_valid=o_valid, obj_ids=o_ids, obj_pos=o_pos)
+
+        def obj_id_fn(raw):
+            try:
+                return int(raw)
+            except (TypeError, ValueError):
+                return id_of.get(str(raw), 0)
 
     meta = AuxMetadata.load(args.sub_instr_file, args.generated_flag_file)
     imag_db = (ImaginationImageFeaturesDB(args.imagine_features,
@@ -266,6 +307,15 @@ def build_real(cfg, args):
 
     def make_split(name):
         items = all_items[name]
+        if args.dataset == "cvdn":
+            # NDH: sampled-goal shortest-path supervision + goal-pano list
+            # for goal-progress eval (NDHNavBatch, cvdn/env.py:30-130)
+            ep, ids, end_panos = ndh_episodes_from_annotations(
+                items, graphs, cfg.env.max_instr_len,
+                cfg.env.max_gt_path_len, cfg.model.max_imagination_len,
+                rng=np.random.default_rng(cfg.train.seed),
+                use_player_path=(name == "train"))
+            return SplitData(name, ep, ids, end_panos=end_panos)
         instr_ids = [it["instr_id"] for it in items]
         imagine = mask_override = None
         if imag_db is not None and not cfg.model.imagination_data_v2:
@@ -280,7 +330,7 @@ def build_real(cfg, args):
         ep, ids = episodes_from_annotations(
             items, graphs, meta, cfg.env.max_instr_len,
             cfg.env.max_gt_path_len, cfg.model.max_imagination_len, imagine,
-            imagine_mask_override=mask_override,
+            imagine_mask_override=mask_override, obj_id_fn=obj_id_fn,
             imagine_feat_dim=cfg.model.hidden_size)
         return SplitData(name, ep, ids)
 
@@ -295,7 +345,7 @@ def build_real(cfg, args):
         ep, ids = episodes_from_annotations(
             aug_items, graphs, AuxMetadata(), cfg.env.max_instr_len,
             cfg.env.max_gt_path_len, cfg.model.max_imagination_len,
-            imagine_feat_dim=cfg.model.hidden_size)
+            obj_id_fn=obj_id_fn, imagine_feat_dim=cfg.model.hidden_size)
         aug = SplitData("aug", ep, ids)
     # cfg comes back too: the gt-path capacity may have been auto-sized
     # from the annotations above
@@ -391,8 +441,6 @@ def main(argv=None):
         if args.aug:
             # synthetic smoke path: the train episodes with the imagination
             # modality masked off (aug data has no imaginations)
-            import numpy as np
-
             aug = SplitData("aug", dataclasses.replace(
                 train.episodes,
                 imagine_mask=np.zeros_like(train.episodes.imagine_mask)),

@@ -44,14 +44,20 @@ Semantics kept from the JAX package:
   MAX_TELEPORT_HOPS, the endpoint is forced into the trajectory
 - the final stop table (`stop_nodes`, `stop_scores`, `stop_valid`): each
   visited map node's last stop probability, for `detailed_output`
+- REVERIE / SOON objects (`obj_feat_size` > 0, tables with objects and
+  episodes with `gt_obj_id`): the og_head logits of the object tokens at
+  vp index 1 + K + views, the best object of each visited map node kept
+  in `node_obj` (masked lanes write its trash slot), the grounding CE on
+  every step whose node shows the target object, * train_ml / batch, and
+  `pred_obj` read from the node the item ends on, after the stop-node
+  backtrack.  A node without valid objects stores the id in its first
+  object slot (the argmax over all-masked logits), as the JAX package does
 
 JAX rematerialises every step of a differentiated rollout to fit a TPU's
 memory; the port keeps the activations (see PERF.md for the peak).  The
 incremental DTW row (the trajectory's, through every teleport and
 backtrack hop) is computed only where it is read: by the nDTW expert and
 the RL rewards.
-
-Not ported yet: REVERIE/SOON objects (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -64,12 +70,7 @@ import torch.nn.functional as F
 from vln_imagine_tpu_torch.config import Config
 from vln_imagine_tpu_torch.envx import env as envx
 from vln_imagine_tpu_torch.envx import gmap as G
-from vln_imagine_tpu_torch.envx.tables import (
-    INF,
-    EpisodeBatch,
-    WorldTables,
-    require_r2r_episodes,
-)
+from vln_imagine_tpu_torch.envx.tables import INF, EpisodeBatch, WorldTables
 from vln_imagine_tpu_torch.models.bert import Critic
 from vln_imagine_tpu_torch.models.duet import DuetModel
 from vln_imagine_tpu_torch.ops.angles import view_elevation, view_heading
@@ -104,6 +105,8 @@ class DuetRolloutResult(NamedTuple):
     stop_nodes: torch.Tensor        # [B, Gcap] node id per map slot
     stop_scores: torch.Tensor       # [B, Gcap] last stop probability there
     stop_valid: torch.Tensor        # [B, Gcap] slot valid and visited
+    og_loss: torch.Tensor           # scalar object-grounding CE (REVERIE/SOON)
+    pred_obj: torch.Tensor          # [B] i32 predicted object id (-1 none)
 
 
 def path_buffer_len(cfg: Config) -> int:
@@ -196,10 +199,6 @@ def rollout_duet(model: DuetModel, tables: WorldTables, ep: EpisodeBatch,
         raise ValueError(f"feedback {feedback!r}")
     if feedback in ("teacher", "argmax"):
         train_rl = False
-    if cfg.dataset != "r2r":
-        raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported "
-                                  "yet: ROADMAP Queue 1 item 4")
-    require_r2r_episodes(ep)
     training = train_ml is not None or train_rl
     if early_exit and training:
         raise ValueError("early_exit is for inference rollouts only")
@@ -234,6 +233,11 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
         raise ValueError(f"expert_policy {tcfg.expert_policy!r}")
     # the trajectory's DTW row, read only by the nDTW expert and the rewards
     need_dtw = ndtw_expert or train_rl
+    use_obj = (mcfg.obj_feat_size > 0 and tables.obj_feat is not None
+               and ep.gt_obj_id is not None)
+    Ko = tables.max_objects if use_obj else 0
+    node_obj = torch.full((B, Gcap + 1), -1, dtype=torch.int32, device=dev)
+    pred_obj = torch.full((B,), -1, dtype=torch.int32, device=dev)
 
     # ---- per-episode prologue (agent.py:386-398) ---------------------------
     txt_embeds = model.text(ep.txt_ids, ep.txt_mask, drop)
@@ -270,7 +274,7 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
             row = torch.where(hop_valid[:, i, None], new, row)
         return row
 
-    ml_acc = ent_acc = zero
+    ml_acc = og_acc = ent_acc = zero
     logits_seq, actions = [], []
     ys = {k: [] for k in ("logp", "entropy", "state", "reward", "mask")}
     t = 0
@@ -331,12 +335,34 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
         c2g = ((g_ar[None, :, None] == cand_slot[:, None, :])
                & obs.cand_valid[:, None, :] & (cand_slot >= 0)[:, None, :])
         cand_to_gmap = F.pad(c2g, (1, Tp - K, 1, 0))
+        vp_obj_valid = (F.pad(obs.nav_types == 2, (1, 0)) if use_obj
+                        else None)
 
         out = model.navigation_per_step(
             txt_embeds, ep.txt_mask, gmap_img, gmap_step_ids, gmap_pos,
             gmap_valid, gmap_pair, gmap_visited, vp_img, vp_pos, vp_valid,
             vp_nav_valid, cand_to_gmap, imagine_embeds=imagine_embeds,
-            imagine_mask=ep.imagine_mask, rng=drop)
+            imagine_mask=ep.imagine_mask, vp_obj_valid=vp_obj_valid, rng=drop)
+        if use_obj:
+            # object grounding (reverie agent `_teacher_object` + og
+            # logits): the best object of the current node, and the CE
+            # against the target object where it is visible
+            obj_tok0 = 1 + K + tables.views  # first object token in vp seq
+            obj_lg = out.obj_logits[:, obj_tok0:obj_tok0 + Ko]
+            best_id = envx._take(obs.obj_ids, torch.argmax(obj_lg, dim=1))
+            store = torch.where(active, cur_slot, gm.trash)
+            node_obj = node_obj.index_put(
+                (b_idx, store), torch.where(store == gm.trash,
+                                            node_obj[:, -1], best_id))
+            if train_ml is not None:
+                gt_match = ((obs.obj_ids == ep.gt_obj_id[:, None])
+                            & obs.obj_valid)
+                og_logp = torch.log_softmax(torch.where(
+                    obs.obj_valid, obj_lg, LOGIT_NEG_INF).float(), dim=-1)
+                gt_k = torch.argmax(gt_match.to(torch.int32), dim=1)
+                og_ce = -og_logp.gather(1, gt_k[:, None])[:, 0]
+                og_acc = og_acc + torch.sum(
+                    torch.where(active & gt_match.any(1), og_ce, 0.0))
         nav_logits = (out.local_logits if local
                       else out.global_logits if mcfg.fusion == "global"
                       else out.fused_logits)
@@ -474,6 +500,13 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
         path, plen = _append_path(path, plen, back_nodes, back_valid)
         if need_dtw:
             dtw_row = dtw_extend(dtw_row, back_nodes, back_valid)
+        if use_obj:
+            # the object of the node the item ends on: the backtrack's
+            # target, else the current node
+            final_slot = torch.where(has_score & just_ended & ~end_in_place,
+                                     best_stop_slot, cur_slot)
+            chosen = envx._take(node_obj, final_slot.clamp(0, gm.trash))
+            pred_obj = torch.where(just_ended, chosen, pred_obj)
 
         ended_pre = st.ended
         st = st.replace(node=new_node, view_index=new_view,
@@ -506,11 +539,14 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
 
     path = path.clone()
     path[:, -1] = 0  # the trash column: a deterministic output
-    ml_loss = rl_loss = zero
+    ml_loss = rl_loss = og_loss = zero
     loss = mcfg.cosine_weight * aux_loss if mcfg.use_cosine_aux_loss else zero
     if train_ml is not None:
         ml_loss = ml_acc * train_ml / B
         loss = loss + ml_loss
+        if use_obj:
+            og_loss = og_acc * train_ml / B
+            loss = loss + og_loss
     if train_rl:
         # every item ends by T-1, so the return after the last step is 0
         states = torch.stack(ys["state"]).float()              # [T, B, H]
@@ -529,7 +565,8 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
         actions=torch.stack(actions) if actions else None,
         entropy_sum=ent_acc, steps=t + 1, rl_loss=rl_loss,
         stop_nodes=gm.node_ids[:, :Gcap], stop_scores=gm.stop_scores[:, :Gcap],
-        stop_valid=(gm.valid() & gm.visited)[:, :Gcap])
+        stop_valid=(gm.valid() & gm.visited)[:, :Gcap], og_loss=og_loss,
+        pred_obj=pred_obj)
 
 
 def _expert_rows(tables, ep, rows, cur_node, nodes):
@@ -553,20 +590,24 @@ def _expert_rows(tables, ep, rows, cur_node, nodes):
 def make_eval_fn(model: DuetModel, tables: WorldTables, cfg: Config,
                  device=None, detailed: bool = False):
     """Greedy-eval rollout on `device` (the card unless the caller names
-    one): episodes -> (path_nodes, path_len), and with `detailed` a third
-    element, the final stop table (stop_nodes, stop_scores, stop_valid).
-    Moves the model and the tables there once.  `eval_fn.steps` is the
-    number of steps the last call's loop ran."""
+    one): episodes -> (path_nodes, path_len); with objects then the
+    grounded object id per item (REVERIE / SOON, for RGS), and with
+    `detailed` last the final stop table (stop_nodes, stop_scores,
+    stop_valid).  Moves the model and the tables there once.
+    `eval_fn.steps` is the number of steps the last call's loop ran."""
     dev = resolve_device(device)
     model.to(dev).eval()
     tables = tables.to(dev)
+    use_obj = cfg.model.obj_feat_size > 0 and tables.obj_feat is not None
 
     def eval_fn(ep: EpisodeBatch):
         res = rollout_duet(model, tables, ep.to(dev), cfg, early_exit=True)
         eval_fn.steps = res.steps
+        out = (res.path_nodes, res.path_len)
+        if use_obj:
+            out = out + (res.pred_obj,)
         if detailed:
-            return res.path_nodes, res.path_len, (
-                res.stop_nodes, res.stop_scores, res.stop_valid)
-        return res.path_nodes, res.path_len
+            out = out + ((res.stop_nodes, res.stop_scores, res.stop_valid),)
+        return out
 
     return eval_fn

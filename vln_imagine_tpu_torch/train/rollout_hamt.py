@@ -31,9 +31,17 @@ Semantics kept from the JAX package:
   each half's own mean, with negatives from the same half
   (`contrastive_alignment_loss(groups=...)`).  Each half's losses are
   those of the two separate rollouts it replaces.
-
-Not ported yet: r2r_back's two phases and REVERIE objects (ROADMAP Queue 1
-item 4).
+- r2r_back (Seq2SeqBackAgent, agent_r2rback.py:100-276): the first stop
+  records the midstop and the episode goes on; the second stop ends it.
+  Rewards target the midstop until the first stop and the goal after it;
+  under RL, a first stop 3 m or more from the midstop ends the item
+- CVDN (cfg.dataset 'cvdn'): the teacher follows the shortest path to the
+  goal (cvdn/env.py:213-219) instead of the annotated path
+- REVERIE objects (NavRefCMTAgent, reverie/agent.py:141-165, 271-304): the
+  grounding CE is supervised on the step the teacher stops (at the goal
+  viewpoint) and added as og_loss / batch, unweighted by train_ml
+  (:449); the predicted object is recorded on the step an item stops,
+  the forced stop at T-1 included
 """
 
 from __future__ import annotations
@@ -44,11 +52,7 @@ import torch
 
 from vln_imagine_tpu_torch.config import Config
 from vln_imagine_tpu_torch.envx import env as envx
-from vln_imagine_tpu_torch.envx.tables import (
-    EpisodeBatch,
-    WorldTables,
-    require_r2r_episodes,
-)
+from vln_imagine_tpu_torch.envx.tables import EpisodeBatch, WorldTables
 from vln_imagine_tpu_torch.models.bert import Critic
 from vln_imagine_tpu_torch.models.hamt import HamtModel
 from vln_imagine_tpu_torch.ops.dropout import Rng
@@ -67,6 +71,9 @@ class RolloutResult(NamedTuple):
     actions: torch.Tensor | None    # [T, B]
     entropy_sum: torch.Tensor       # scalar, 'sample' / 'mixed' (log metric)
     steps: int                      # steps the loop ran
+    midstop: torch.Tensor           # [B] i32 declared midstop (r2r_back; -1 none)
+    og_loss: torch.Tensor           # scalar REVERIE grounding CE
+    pred_obj: torch.Tensor          # [B] i32 predicted object id at stop (-1)
 
 
 def sample_categorical(logp: torch.Tensor,
@@ -178,10 +185,6 @@ def rollout_hamt(model: HamtModel, tables: WorldTables, ep: EpisodeBatch,
     training = train_ml is not None or train_rl
     if early_exit and training:
         raise ValueError("early_exit is for inference rollouts only")
-    if cfg.dataset != "r2r":
-        raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported "
-                                  "yet: ROADMAP Queue 1 item 4")
-    require_r2r_episodes(ep)
     if train_rl and critic is None:
         raise ValueError("train_rl needs the critic")
     drop = None if deterministic else rng
@@ -199,6 +202,12 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
     ignore = tcfg.ignoreid
     dev = ep.scan.device
     zero = torch.zeros((), device=dev)
+    scan = ep.scan.long()
+    two_phase = cfg.dataset == "r2r_back" and ep.midstop is not None
+    use_obj = (mcfg.obj_feat_size > 0 and tables.obj_feat is not None
+               and ep.gt_obj_id is not None)
+    # CVDN/NDH supervises with the shortest path to the goal
+    shortest = cfg.dataset == "cvdn"
 
     # ---- per-episode prologue (once; agent_cmt.py:392-496) -----------------
     txt_embeds = model.language(ep.txt_ids, ep.txt_mask, drop)
@@ -224,29 +233,38 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
     st = envx.reset(tables, ep, T)
     if train_rl:
         dtw_row = envx.dtw_init(tables, ep)
-        last_dist = envx.distance_to_goal(tables, ep, st.node)
+        last_dist = (tables.dist[scan, st.node.long(), ep.midstop.long()]
+                     if two_phase else envx.distance_to_goal(tables, ep, st.node))
         last_ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
+    first_ended = torch.zeros((B,), dtype=torch.bool, device=dev)
+    midstop_pred = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    obj_pred = torch.full((B,), -1, dtype=torch.int32, device=dev)
 
     def visual_forward(st, h_buf, h_len):
         obs = envx.observe_hamt(tables, ep, st, mcfg.angle_feat_size)
         if ecfg.ob_type == "cand":
             # candidates + [STOP] only (agent_cmt.py:502 _candidate_variable)
             obs = obs._replace(valid=obs.valid & (obs.nav_types != 0))
+        obj_kw = {}
+        if use_obj:
+            obj_kw = dict(obj_img_feats=obs.obj_img, obj_ang_feats=obs.obj_ang,
+                          obj_valid=obs.obj_valid, obj_pos_feats=obs.obj_pos)
         h_mask = slots[None, :] < h_len[:, None]
         out = model.visual(txt_embeds, ep.txt_mask, h_buf, h_mask,
                            obs.img, obs.ang, obs.nav_types, obs.valid,
                            imagine_embeds=imagine_embeds,
-                           imagine_mask=ep.imagine_mask, rng=drop)
+                           imagine_mask=ep.imagine_mask, rng=drop, **obj_kw)
         return obs, out
 
-    ml_acc = ent_acc = zero
+    ml_acc = og_acc = ent_acc = zero
     ys = {k: [] for k in ("logits", "actions", "logp", "entropy", "state",
                           "reward", "mask")}
     t = 0
     for t in range(T):
         obs, out = visual_forward(st, hist_buf, hist_len)
         act_logits = out.act_logits
-        teacher = (envx.teacher_hamt(tables, ep, st, t, ignore)
+        teacher = (envx.teacher_hamt(tables, ep, st, t, ignore,
+                                     shortest_teacher=shortest)
                    if feedback in ("teacher", "mixed") or train_ml is not None
                    else None)
 
@@ -288,6 +306,28 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
         is_stop = stop_sel | st.ended
         a_env = torch.where(is_stop, K, a_t).to(torch.int32)
 
+        if use_obj:
+            # ref CE when the teacher stops here (= at the goal viewpoint,
+            # reverie/agent.py:150-158); the predicted object is recorded
+            # the step the item stops, the forced stop at T-1 included
+            gt_match = (obs.obj_ids == ep.gt_obj_id[:, None]) & obs.obj_valid
+            og_logp = torch.log_softmax(torch.where(
+                obs.obj_valid, out.obj_logits, LOGIT_NEG_INF).float(), dim=-1)
+            if train_ml is not None:
+                sup = (teacher == obs.stop_slot) & ~st.ended & gt_match.any(1)
+                if il_m is not None:
+                    sup = sup & il_m  # grounding CE covers the IL half only
+                gt_k = torch.argmax(gt_match.to(torch.int32), dim=1)
+                og_ce = -og_logp.gather(1, gt_k[:, None])[:, 0]
+                og_acc = og_acc + torch.sum(torch.where(sup, og_ce, 0.0))
+            best_id = envx._take(obs.obj_ids, torch.argmax(og_logp, dim=1))
+            stopping = stop_sel | ((t == T - 1) & ~st.ended)
+            obj_pred = torch.where(stopping & obs.obj_valid.any(1), best_id,
+                                   obj_pred)
+        if two_phase:
+            midstop_pred = torch.where(stop_sel & ~first_ended, st.node,
+                                       midstop_pred)
+
         # history token for time t (appended before the env transition)
         hist_img, pano_img, pano_ang, prev_ang = envx.history_inputs(
             tables, ep, st, torch.where(is_stop, -1, a_env),
@@ -301,16 +341,28 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
 
         ended_pre = st.ended
         st = envx.step_hamt(tables, ep, st, a_env)
+        if two_phase:
+            # the first stop records the midstop and goes on (:275-276)
+            st = st.replace(ended=ended_pre | (stop_sel & first_ended))
         moved = ~is_stop & ~ended_pre
 
         if train_rl:
-            # reward shaping on the updated pose (agent_cmt.py:615-653)
-            dist = envx.distance_to_goal(tables, ep, st.node)
+            # reward shaping on the updated pose (agent_cmt.py:615-653);
+            # r2r_back targets the midstop first, then the goal
+            if two_phase:
+                phase_goal = torch.where(first_ended, ep.goal, ep.midstop)
+                dist = tables.dist[scan, st.node.long(), phase_goal.long()]
+            else:
+                dist = envx.distance_to_goal(tables, ep, st.node)
             new_row = envx.dtw_push(tables, ep, dtw_row, st.node)
             dtw_row = torch.where(moved[:, None], new_row, dtw_row)
             ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
             reward = shaped_reward(dist, ndtw, last_dist, last_ndtw, is_stop,
                                    ended_pre)
+            if two_phase:
+                # failing to reach the midstop ends the episode (:252)
+                st = st.replace(ended=st.ended
+                                | (stop_sel & ~first_ended & (dist >= 3.0)))
             last_dist = torch.where(ended_pre, last_dist, dist)
             last_ndtw = torch.where(moved, ndtw, last_ndtw)
             mask = torch.where(ended_pre, 0.0, 1.0)
@@ -321,6 +373,7 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
             ys["logp"].append(logp_a)
             ys["entropy"].append(entropy)
             ys["state"].append(out.state)
+        first_ended = first_ended | stop_sel
 
         if not early_exit:
             ys["logits"].append(act_logits)
@@ -330,13 +383,17 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
 
     loss = (mcfg.cosine_weight * aux_loss if mcfg.use_cosine_aux_loss
             else zero)
-    ml_loss = rl_loss = zero
+    ml_loss = rl_loss = og_loss = zero
     if train_ml is not None:
         # per-rollout normalisation (agent_cmt.py:747): a fused batch's CE
         # divides by the IL half's size
         n_il = B if il_m is None else torch.clamp(il_m.sum(), min=1)
         ml_loss = ml_acc * train_ml / n_il
         loss = loss + ml_loss
+        if use_obj:
+            # ref_loss / batch, unweighted by ml_weight (reverie/agent.py:449)
+            og_loss = og_acc / n_il
+            loss = loss + og_loss
 
     if train_rl:
         # the final state's value, under stop-gradient
@@ -357,22 +414,30 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
         path_nodes=st.path_nodes, path_len=st.path_len,
         logits=torch.stack(ys["logits"]) if ys["logits"] else None,
         actions=torch.stack(ys["actions"]) if ys["actions"] else None,
-        entropy_sum=ent_acc, steps=t + 1)
+        entropy_sum=ent_acc, steps=t + 1, midstop=midstop_pred,
+        og_loss=og_loss, pred_obj=obj_pred)
 
 
 def make_eval_fn(model: HamtModel, tables: WorldTables, cfg: Config,
                  device=None):
     """Greedy-eval rollout on `device` (the card unless the caller names
-    one): episodes -> (path_nodes, path_len).  Moves the model and the
-    tables there once.  `eval_fn.steps` is the number of steps the last
-    call's loop ran."""
+    one): episodes -> (path_nodes, path_len), and a third element where
+    the task scores one: the grounded object id per item (REVERIE / SOON,
+    for RGS) or the declared midstop node (r2r_back, -1 when never
+    declared).  Moves the model and the tables there once.
+    `eval_fn.steps` is the number of steps the last call's loop ran."""
     dev = resolve_device(device)
     model.to(dev).eval()
     tables = tables.to(dev)
+    use_obj = cfg.model.obj_feat_size > 0 and tables.obj_feat is not None
 
     def eval_fn(ep: EpisodeBatch):
         res = rollout_hamt(model, tables, ep.to(dev), cfg, early_exit=True)
         eval_fn.steps = res.steps
+        if use_obj:
+            return res.path_nodes, res.path_len, res.pred_obj
+        if cfg.dataset == "r2r_back":
+            return res.path_nodes, res.path_len, res.midstop
         return res.path_nodes, res.path_len
 
     return eval_fn

@@ -14,8 +14,10 @@ runs.  The navigator and the critic each have their own optimizer
 (train/optim.py, any of `cfg.train.optim`): the navigator's clips at 40 and
 carries the 3-stage imagination warm-up, the critic's does neither.
 
-Not ported yet: CVDN's shortest-path teacher (ROADMAP Queue 1 item 4) and
-the ViT of `e2e_imagination` (item 5).
+The eval step returns a third element for the tasks that score one: the
+grounded object (REVERIE / SOON) or the declared midstop (r2r_back).
+
+Not ported yet: the ViT of `e2e_imagination` (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -126,7 +128,8 @@ class HamtTrainer:
             max_grad_norm=None)
 
     def make_eval_step(self):
-        """episodes -> (path_nodes, path_len), greedy with early exit."""
+        """episodes -> (path_nodes, path_len), greedy with early exit, and
+        `pred_obj` (objects) or `midstop` (r2r_back) as a third element."""
         return make_eval_fn(self.model, self.tables, self.cfg, self.device)
 
     def make_train_step(self, feedback: str = "sample"):
@@ -142,8 +145,10 @@ class HamtTrainer:
         fused = (feedback == "sample" and tcfg.ml_weight != 0
                  and tcfg.fused_sample_rollout)
         # teacher-forced rollouts end with the annotated path, so they need
-        # only max_gt_path_len steps
-        t_il = min(cfg.env.max_gt_path_len, cfg.env.max_action_len)
+        # only max_gt_path_len steps; cvdn's shortest-path teacher is not
+        # bounded by the annotated length
+        t_il = (cfg.env.max_action_len if cfg.dataset == "cvdn"
+                else min(cfg.env.max_gt_path_len, cfg.env.max_action_len))
         dev = self.device
 
         def run(ep, **kw):

@@ -15,8 +15,10 @@ clip at 40 and the 3-stage imagination warm-up, whose groups
 (`contrastive_alignment_model.image_proj.*`, `imagine_embeddings.*`, the
 rest) the DUET keys share with HAMT.
 
-Not ported yet: REVERIE/SOON objects (ROADMAP Queue 1 item 4) and the ViT
-of `e2e_imagination` (item 5).
+With objects (REVERIE / SOON) the eval step also returns the grounded
+object per item.
+
+Not ported yet: the ViT of `e2e_imagination` (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -64,8 +66,8 @@ class DuetTrainer:
 
     def make_eval_step(self, detailed: bool = False):
         """episodes -> (path_nodes, path_len), greedy with early exit; with
-        `detailed` also the final stop table (stop_nodes, stop_scores,
-        stop_valid) as a third element (--detailed_output,
+        objects then `pred_obj`, and with `detailed` last the final stop
+        table (stop_nodes, stop_scores, stop_valid) (--detailed_output,
         agent.py:597-601)."""
         return make_eval_fn(self.model, self.tables, self.cfg, self.device,
                             detailed=detailed)
@@ -87,8 +89,10 @@ class DuetTrainer:
             raise ValueError(
                 "train_alg='rl' needs a nonzero discount: set "
                 "cfg.train.gamma (HAMT uses 0.9)")
-        # teacher-forced rollouts end with the annotated path
-        t_il = min(cfg.env.max_gt_path_len, cfg.env.max_action_len)
+        # teacher-forced rollouts end with the annotated path (cvdn's
+        # supervision is not bounded by it)
+        t_il = (cfg.env.max_action_len if cfg.dataset == "cvdn"
+                else min(cfg.env.max_gt_path_len, cfg.env.max_action_len))
         dev = self.device
         student_fb = "expl_sample" if tcfg.expl_sample else "sample"
 
