@@ -124,7 +124,36 @@ failed check exits non-zero:
                 written in the ReturnBack layout (`write_run_files`), the
                 view features in memory in the HDF5 reader's place;
                 `cli_phase`'s gates.
-20. kernels     every kernel against its plain PyTorch version on the card:
+20. vit_extract `FeatureExtractor` (ViT-B/16 at 224, bf16) over 4 batches
+                of 64 host images: 12 K1 a batch, images/s from the host
+                arrays and device ms a batch, peak memory; the f32 class
+                token of 4 images, card vs CPU, within VIT_TOL.
+21. e2e_finetune the ViT in the fine-tune step (`e2e_imagination`) at the
+                released configs, B 8, 20 imaginations an item (160 images
+                a rollout): HAMT 'sample' frozen and trainable, DUET DAgger
+                trainable (`variant_steps` with K1 24 and, trainable, K4 24
+                a step from the ViT beside the K2 / K3 of the formulas; the
+                ViT bitwise unchanged when frozen, moved when trainable);
+                HAMT e2e greedy eval at B 64 (1,280 images, K1 9 + 12 + 18
+                a step).
+22. e2e_train_parity one f32 teacher step with the ViT trainable, B 2,
+                card vs CPU (`f32_parity`, with the ViT's qkv gradient).
+23. hamt_pretrain `HamtPretrainer` at hamt_r2r_config, B 16, image_prob_size
+                1000: a warm-up round, then one step of each of the six
+                tasks with K2 / K3 from `pretrain_calls`, ms a step, peak
+                memory; `validate` on a held-out split (K1 only); each
+                task's f32 loss and gradients, B 2, card vs CPU.
+24. e2e_pretrain `E2EPretrainer` with ViT-B/16 224 in the step, B 2,
+                max_hist_len 15 (1,080 panorama views a step without
+                autograd; `SyntheticPanoramas` makes the bank from a seed):
+                one step of each task, K1 / K4 from the ViT calls, K2 / K3
+                from `pretrain_calls`, each ViT call's autograd state.
+25. pretrain_cli `scripts.pretrain --agent hamt --synthetic --steps 4
+                --log-steps 2 --valid-steps 2` with no --device, then with
+                `--e2e` (32 px, B 2), each writing `model_step_4`; then
+                `scripts.train --synthetic --iters 2 --init-from-pretrain`
+                the feature run's snapshot, which transfers leaves.
+26. kernels     every kernel against its plain PyTorch version on the card:
                 K1 at every (Lq, Lk) of the eval path, B 8 and 64, and of
                 the teacher step, B 8; K2 (both bit sources), K3 (both) and
                 K4 at every training shape, B 8; every kernel also at the
@@ -141,7 +170,9 @@ failed check exits non-zero:
                 150/150 and 151/101, REVERIE-DUET's 70/70 and 71/201,
                 NavRef's 87/87 and 87/60, RxR's 270/67 and 67/270, CVDN's
                 100/100), and at 70/70 with one item's object keys all
-                masked (`NO_OBJECTS_SHAPE`).
+                masked (`NO_OBJECTS_SHAPE`); K1 (B 64) and K4 (B 8) at the
+                ViT's 197/197 with no bias (`VIT_SHAPE`), q/k/v views of one
+                packed qkv product.
                 Kernel, plain and library times
                 (CUDA-graph replays between CUDA events) beside the least
                 time the card could take.  Two K2 calls, and two K3 calls,
@@ -250,6 +281,8 @@ VARIANT_SHAPES = [(150, 150, "pad"), (151, 101, "mask"), (70, 70, "pad"),
 # REVERIE-DUET's pano encoder with one item's 20 object keys all masked
 # (its views stay valid)
 NO_OBJECTS_SHAPE = (70, 70, "no_objects")
+# the ViT-B/16's self-attention at 224 px: [CLS] + 14 x 14 patches, no bias
+VIT_SHAPE = (197, 197)
 DUET_TEXT_CALLS = 9
 DUET_STEP_CALLS = {(50, 50): 2, (97, 220): 4, (97, 97): 4, (51, 220): 4,
                    (51, 51): 4}
@@ -265,7 +298,14 @@ REPRESENTATIVE = {  # the summary line's case per kernel
 DROPOUT = 0.1  # attention_probs_dropout_prob of the released config
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries `at_s`, the run's seconds when
+    the phase ended."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1291,20 +1331,20 @@ def duet_details(d, log: Path) -> dict:
 # each runs one warm-up step and times the rest.  The first entry is the
 # released recipe, timed in the same phase as the variants
 HAMT_VARIANTS = (
-    ("released", "train", {}, 4),
-    ("fused_sample_rollout", "train", {"fused_sample_rollout": True}, 4),
-    ("aux_infonce", "model", {"aux_loss_type": "infonce"}, 4),
-    ("aux_margin", "model", {"aux_loss_type": "margin"}, 4),
-    ("imagine_encoder", "model", {"bypass_imag_encoder": False}, 4),
+    ("released", "train", {}, 3),
+    ("fused_sample_rollout", "train", {"fused_sample_rollout": True}, 3),
+    ("aux_infonce", "model", {"aux_loss_type": "infonce"}, 3),
+    ("aux_margin", "model", {"aux_loss_type": "margin"}, 3),
+    ("imagine_encoder", "model", {"bypass_imag_encoder": False}, 3),
     # the critic's optimizer is the plain one: Lookahead syncs at step 6
     ("optim_rangerlars", "train", {"optim": "rangerlars"}, 6),
 )
 DUET_VARIANTS = (
-    ("released", "train", {}, 4),
-    ("rl", "train", {"train_alg": "rl", "gamma": 0.9}, 4),
-    ("expert_ndtw", "train", {"expert_policy": "ndtw"}, 4),
-    ("expl_sample", "train", {"expl_sample": True}, 4),
-    ("act_visited_nodes", "train", {"act_visited_nodes": True}, 4),
+    ("released", "train", {}, 3),
+    ("rl", "train", {"train_alg": "rl", "gamma": 0.9}, 3),
+    ("expert_ndtw", "train", {"expert_policy": "ndtw"}, 3),
+    ("expl_sample", "train", {"expl_sample": True}, 3),
+    ("act_visited_nodes", "train", {"act_visited_nodes": True}, 3),
 )
 DUET_EVAL_BATCH = 64
 
@@ -1335,11 +1375,13 @@ def plain_split(model, before) -> tuple[list, list]:
     return moved, still
 
 
-def variant_steps(torch, make_trainer, ep, steps, want):
+def variant_steps(torch, make_trainer, ep, steps, want, k1_k4=(0, 0),
+                  split=None):
     """Build a trainer on the card, run `steps` train steps (the first a
     warm-up) and gate each: finite metrics, grad_norm > 0, K2 / K3 launches
-    = `want` (K1, K4 none), stage-1 semantics (`plain_split` where the
-    recipe has no warm-up), the critic moved (when there is one).  Returns
+    = `want` and K1 / K4 = `k1_k4` (the ViT's, under e2e_imagination),
+    stage-1 semantics (`plain_split` where the recipe has no warm-up; or
+    `split(model, before)`), the critic moved (when there is one).  Returns
     (trainer, record)."""
     from vln_imagine_tpu_torch.ops import attention
     from vln_imagine_tpu_torch.train.optim import label_hamt_param
@@ -1370,12 +1412,13 @@ def variant_steps(torch, make_trainer, ep, steps, want):
         check(all(math.isfinite(v) for v in m.values()), f"metrics {m}")
         check(m["grad_norm"] > 0, f"grad_norm {m['grad_norm']}")
     k2, k3 = want
+    expected = {"attention_fwd": k1_k4[0], "attention_dropout_fwd": k2,
+                "attention_dropout_bwd": k3, "attention_bwd": k1_k4[1]}
     for c in counts:
-        check(c == {"attention_fwd": 0, "attention_dropout_fwd": k2,
-                    "attention_dropout_bwd": k3, "attention_bwd": 0},
-              f"launches per step {c}, expected K2 {k2} and K3 {k3} only")
+        check(c == expected, f"launches per step {c}, expected {expected}")
     m = trainer.cfg.model
-    moved, still = (stage1_split(label_hamt_param, trainer.model, model0)
+    moved, still = (split(trainer.model, model0) if split is not None
+                    else stage1_split(label_hamt_param, trainer.model, model0)
                     if m.imagine_enc_pano and m.use_cosine_aux_loss
                     else plain_split(trainer.model, model0))
     if critic0 is not None:
@@ -1386,8 +1429,7 @@ def variant_steps(torch, make_trainer, ep, steps, want):
         "setup_s": setup_s, "step_ms": statistics.median(times),
         "step_ms_all": times, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "metrics": metrics[-1], "launches_per_step": counts[-1],
-        "expected_per_step": {"attention_dropout_fwd": k2,
-                              "attention_dropout_bwd": k3},
+        "expected_per_step": expected,
         "params_moved": len(moved), "params_unchanged": len(still)}
 
 
@@ -1576,7 +1618,7 @@ VARIANT_PRESETS = (
     ("r4r_duet", "r4r_config", ("duet",), 0, True),
     ("r4r_hamt", "r4r_config", ("hamt",), 0, True),
 )
-VARIANT_TRAIN_STEPS = 3  # one warm-up and two timed
+VARIANT_TRAIN_STEPS = 2  # one warm-up and one timed
 
 
 def variant_cfg(preset: str, args: tuple, name: str):
@@ -1950,11 +1992,557 @@ def r2r_back_scores(d, log: Path) -> dict:
     return {"val_metrics": score}
 
 
+# ------------------------------------------------ the ViT and pre-training
+VIT_BATCH = 64       # images a FeatureExtractor batch (and K1's ViT case)
+VIT_BATCHES = 4      # batches timed in vit_extract
+VIT_TOL = 1e-4       # the f32 class token, card vs CPU
+PRETRAIN_BATCH = 16  # the released pre-training batch
+PRETRAIN_PROBS = 1000  # image_prob_size of the released model config
+E2E_PRETRAIN_BATCH = 2
+
+
+def vit_calls(cfg) -> int:
+    """Attention calls of one pass of the navigator's ViT (e2e_imagination;
+    the ViT has no dropout: K1 forward, K4 backward when it trains)."""
+    m = cfg.model
+    return (m.e2e_vit_layers if m.imagine_enc_pano
+            and m.e2e_imagination != "off" else 0)
+
+
+def pretrain_calls(cfg, task: str) -> tuple[int, int]:
+    """Attention calls of one pre-training task's step, forward (K2 in
+    training, K1 in validation) and backward: the language stack, the
+    history pano encoder over every step at once (three times for ITM: the
+    positive and its two order-shuffled negatives) and the cross-modal
+    layers (4 each) over text x [history; observation].  The backward
+    skips the last cross-modal layer's branch that no loss reads (its
+    cross- and self-attention): the visual one for mlm and sar (the text's
+    [CLS]), the language one for sprel and mrc; sap and itm read both."""
+    m = cfg.model
+    hist = 3 if task == "itm" else 1
+    fwd = m.num_l_layers + hist * m.num_pano_layers + 4 * m.num_x_layers
+    return fwd, fwd - (0 if task in ("sap", "itm") else 2)
+
+
+def e2e_episodes(world, cfg, batch: int, seed: int = 1, images=True):
+    """bench_episodes (another `seed`), with raw imagination images at the
+    ViT's size unless `images` is false."""
+    from vln_imagine_tpu_torch.envx import synthetic_episodes
+
+    return synthetic_episodes(
+        world, batch=batch, max_gt_path_len=cfg.env.max_gt_path_len,
+        max_instr_len=cfg.env.max_instr_len,
+        max_imaginations=cfg.model.max_imagination_len,
+        vocab_size=cfg.model.vocab_size, feat_dim=cfg.model.hidden_size,
+        seed=seed, imagine_image_size=(cfg.model.e2e_vit_image_size
+                                       if images else None))
+
+
+def vit_extract_phase(torch):
+    """`FeatureExtractor` at ViT-B/16 224, bf16, batches of 64 from host
+    arrays: 12 K1 a batch, images/s, peak memory; the f32 class token of 4
+    images, card vs CPU, within VIT_TOL."""
+    import copy
+
+    import numpy as np
+
+    from vln_imagine_tpu_torch.models.vit import (
+        FeatureExtractor,
+        ViTConfig,
+        VisionTransformer,
+    )
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.train.trainer import init_params
+
+    fresh_phase(torch)
+    cfg = ViTConfig()
+    t0 = time.perf_counter()
+    ext = FeatureExtractor.random_init(torch.Generator().manual_seed(0), cfg,
+                                       batch_size=VIT_BATCH, device="cuda")
+    images = np.random.default_rng(0).standard_normal(
+        (VIT_BATCH * VIT_BATCHES, 224, 224, 3), dtype=np.float32)
+    ext.extract(images[:VIT_BATCH])  # warm-up
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    t = time.perf_counter()
+    feats = ext.extract(images)  # returns host arrays: the device is done
+    host_s = time.perf_counter() - t
+    launches = attention.launch_counts()
+    want = {"attention_fwd": cfg.num_layers * VIT_BATCHES,
+            "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
+            "attention_bwd": 0}
+    check(launches == want, f"vit_extract launches {launches}, want {want}")
+    check(feats.shape == (len(images), 768) and np.isfinite(feats).all(),
+          f"features {feats.shape}")
+    x = torch.as_tensor(images[:VIT_BATCH], device="cuda")
+    times = []
+    with torch.no_grad():
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ext.model(x)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    del ext, x
+    # f32, card vs CPU, the same weights
+    vit = VisionTransformer(ViTConfig(compute_dtype="float32"))
+    init_params(vit, torch.Generator().manual_seed(1))
+    card = FeatureExtractor(copy.deepcopy(vit), device="cuda").extract(
+        images[:4])
+    cpu = FeatureExtractor(vit, device="cpu").extract(images[:4])
+    err = float(np.abs(card - cpu).max())
+    emit({"phase": "vit_extract", "config": "ViT-B/16 224",
+          "compute_dtype": cfg.compute_dtype, "batch": VIT_BATCH,
+          "images": len(images), "setup_s": setup_s,
+          "images_per_s": len(images) / host_s,
+          "batch_device_ms": statistics.median(times),
+          "batch_device_ms_all": times,
+          "device_images_per_s": VIT_BATCH / statistics.median(times) * 1e3,
+          "peak_mem_bytes": peak, "launches": launches,
+          "f32_cls_max_abs_err": err, "tol": VIT_TOL})
+    check(err <= VIT_TOL, f"f32 class token card vs CPU {err}")
+    return launches
+
+
+def e2e_cfg(cfg, mode: str, **train):
+    """`cfg` with the ViT in the loop; 'trainable' runs with the warm-up's
+    stage 1 of length 0, so that the ViT (in the "rest" group) trains from
+    the first step."""
+    from vln_imagine_tpu_torch.config import _replace
+
+    cfg = _replace(cfg, "model", e2e_imagination=mode)
+    if mode == "trainable":
+        train = dict(warmup_stage1_iters=0, **train)
+    return _replace(cfg, "train", **train) if train else cfg
+
+
+def vit_split(mode):
+    """The moved / unchanged split of an e2e train step: 'frozen' keeps
+    stage 1 (only the aux groups move) and the ViT bitwise; 'trainable'
+    moves every parameter with a gradient, the ViT's among them."""
+    from vln_imagine_tpu_torch.train.optim import label_hamt_param
+
+    def split(model, before):
+        if mode == "frozen":
+            moved, still = stage1_split(label_hamt_param, model, before)
+        else:
+            moved, still = plain_split(model, before)
+        vit = [n for n in before if n.startswith("imagine_vit.")]
+        check(vit and all((n in moved) == (mode == "trainable") for n in vit),
+              f"{mode} ViT: moved {[n for n in vit if n in moved][:3]}, "
+              f"unchanged {[n for n in vit if n in still][:3]}")
+        return moved, still
+
+    return split
+
+
+def e2e_finetune_phase(torch, cfg, dcfg, world):
+    """The ViT in the fine-tune loop (`e2e_imagination`) at the released
+    configs, full width, bf16: the HAMT 'sample' step frozen and trainable
+    and the DUET DAgger step trainable at batch 8 (20 imaginations an item:
+    160 images through the ViT a rollout, two rollouts a step), then HAMT
+    greedy eval at batch 64 (1,280 images).  Gates: `variant_steps`' (K1 =
+    12 a rollout, K4 = 12 a rollout when trainable, K2 / K3 from the
+    launch formulas; the ViT bitwise unchanged when frozen, moved when
+    trainable), valid walks and K1 = 9 + 12 + 18 a step in eval."""
+    import numpy as np
+
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.train.trainer import HamtTrainer
+    from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
+
+    runs = {}
+    for name, base, mode, cls, formula in (
+            ("hamt_frozen", cfg, "frozen", HamtTrainer,
+             train_launches_per_step),
+            ("hamt_trainable", cfg, "trainable", HamtTrainer,
+             train_launches_per_step),
+            ("duet_trainable", dcfg, "trainable", DuetTrainer,
+             duet_train_launches_per_step)):
+        c = e2e_cfg(base, mode)
+        ep = e2e_episodes(world, c, TRAIN_BATCH).to("cuda")
+        vit = 2 * vit_calls(c)  # IL / teacher-forced and RL / student
+        trainer, rec = variant_steps(
+            torch, lambda: cls(c, world, device="cuda"), ep, 3, formula(c),
+            k1_k4=(vit, vit if mode == "trainable" else 0),
+            split=vit_split(mode))
+        rec["vit_images_per_rollout"] = int(np.prod(
+            ep.imagine_images.shape[:2]))
+        runs[name] = rec
+        del trainer, ep
+        torch.cuda.empty_cache()
+
+    fresh_phase(torch)
+    c = e2e_cfg(cfg, "frozen")
+    per_episode, per_step = eval_calls(c)
+    trainer = HamtTrainer(c, world, device="cuda")
+    eval_step = trainer.make_eval_step()
+    ep_np = e2e_episodes(world, c, BATCHES[0])
+    ep = ep_np.to("cuda")
+    eval_step(ep)  # warm-up
+    torch.cuda.synchronize()
+    attention.reset_launch_counts()
+    t = time.perf_counter()
+    nodes, lens = eval_step(ep)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = attention.launch_counts()
+    nodes, lens = nodes.cpu().numpy(), lens.cpu().numpy()
+    check_walks(world, ep_np, nodes, lens, c.env.max_action_len + 1)
+    steps = min(int(lens.max()), c.env.max_action_len)
+    want = {"attention_fwd": per_episode + vit_calls(c) + per_step * steps,
+            "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
+            "attention_bwd": 0}
+    check(launches == want, f"e2e eval launches {launches}, want {want}")
+    runs["hamt_eval"] = {"batch": BATCHES[0], "steps": steps,
+                         "episodes_per_s": BATCHES[0] / dt,
+                         "episode_batch_ms": dt * 1e3,
+                         "vit_images": int(np.prod(ep_np.imagine_images.shape[:2])),
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                         "launches": launches}
+    del trainer, ep
+    torch.cuda.empty_cache()
+    emit({"phase": "e2e_finetune", "configs": "hamt_r2r_config / "
+          "duet_r2r_config + e2e_imagination", "compute_dtype":
+          cfg.model.compute_dtype, "vit": "ViT-B/16 224", "runs": runs})
+    return {k: max(r["launches_per_step"][k] if "launches_per_step" in r
+                   else r["launches"][k] for r in runs.values())
+            for k in launches}
+
+
+def e2e_train_parity_phase(torch, cfg, world):
+    """One HAMT teacher step with the ViT trainable, f32, batch 2 (40
+    images), card vs CPU (`f32_parity`), with the ViT's first qkv
+    gradient."""
+    from vln_imagine_tpu_torch.train.trainer import HamtTrainer
+
+    c = cfg_f32(e2e_cfg(cfg, "trainable"))
+
+    def vit_grad(tr):
+        return {"imagine_vit_qkv_grad":
+                tr.model.imagine_vit.blocks[0].attn.qkv.weight.grad}
+
+    return f32_parity(
+        torch, "e2e_train_parity",
+        lambda dev: (HamtTrainer(c, world, device=dev),
+                     e2e_episodes(world, c, 2)),
+        lambda tr: tr.make_train_step("teacher"),
+        ("loss", "grad_norm", "ml_loss", "aux_loss"), cfg.train.lr,
+        grads=vit_grad, batch=2, feedback="teacher",
+        e2e_imagination="trainable")
+
+
+def _grad_rel_err(torch, a, b) -> float:
+    """max |g_a - g_b| over every parameter, over max |g_b|."""
+    diff = max(float((x.grad.cpu() - y.grad).abs().max())
+               for x, y in zip(a.parameters(), b.parameters())
+               if y.grad is not None)
+    scale = max(float(y.grad.abs().max()) for y in b.parameters()
+                if y.grad is not None)
+    return diff / max(scale, 1e-30)
+
+
+def hamt_pretrain_phase(torch, cfg, world):
+    """`HamtPretrainer` at hamt_r2r_config, batch 16, image_prob_size 1000,
+    trajectories of the bench episodes: one step of each of the six tasks
+    after a warm-up round, each with K2 / K3 = its attention calls
+    (`pretrain_calls`); `validate` on a held-out split (K1 only); then each
+    task's f32 loss and gradients at batch 2, dropout off, card vs CPU
+    within TRAIN_TOL."""
+    import copy
+
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.pretrain.data import TrajectoryBatcher
+    from vln_imagine_tpu_torch.pretrain.hamt_model import (
+        TASKS,
+        HamtPretrainModel,
+    )
+    from vln_imagine_tpu_torch.pretrain.trainer import (
+        TASK_ARGS,
+        HamtPretrainer,
+    )
+    from vln_imagine_tpu_torch.train.trainer import init_params
+
+    fresh_phase(torch)
+    t0 = time.perf_counter()
+    pt = HamtPretrainer(cfg, world, bench_episodes(world, cfg, 64),
+                        image_prob_size=PRETRAIN_PROBS, device="cuda")
+    pt.add_validation_split("val_unseen", world,
+                            e2e_episodes(world, cfg, 32, seed=2,
+                                         images=False), seed=1)
+    state = pt.init_state()
+    for task in TASKS:  # warm-up round
+        state, _ = pt.train_step(state, task,
+                                 pt.batcher.task_batch(task, PRETRAIN_BATCH))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    tasks = {}
+    for task in TASKS:
+        batch = pt.batcher.task_batch(task, PRETRAIN_BATCH)
+        attention.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = pt.train_step(state, task, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        k2, k3 = pretrain_calls(cfg, task)
+        want = {"attention_fwd": 0, "attention_dropout_fwd": k2,
+                "attention_dropout_bwd": k3, "attention_bwd": 0}
+        got = attention.launch_counts()
+        check(got == want, f"pretrain {task} launches {got}, want {want}")
+        check(math.isfinite(float(m["loss"])), f"pretrain {task} loss")
+        tasks[task] = {"step_ms": ms, "loss": float(m["loss"]),
+                       "launches": got}
+    peak = torch.cuda.max_memory_allocated()
+    attention.reset_launch_counts()
+    t = time.perf_counter()
+    val = pt.validate(state, batch_size=8, num_batches=2)
+    val_s = time.perf_counter() - t
+    val_launches = attention.launch_counts()
+    want = {"attention_fwd": 2 * sum(pretrain_calls(cfg, t)[0]
+                                     for t in TASKS),
+            "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
+            "attention_bwd": 0}
+    check(val_launches == want, f"validate launches {val_launches}")
+    check(all(math.isfinite(v["loss"]) for v in val.values()), f"val {val}")
+    launches = {k: max(max(r["launches"][k] for r in tasks.values()),
+                       val_launches[k]) for k in val_launches}
+    del pt
+    torch.cuda.empty_cache()
+
+    # f32, dropout off, the same weights and batches on both sides
+    c32 = cfg_f32(cfg)
+    cpu = HamtPretrainModel(c32.model, image_prob_size=PRETRAIN_PROBS)
+    init_params(cpu, torch.Generator().manual_seed(3))
+    card = copy.deepcopy(cpu).cuda()
+    batcher = TrajectoryBatcher(
+        world, bench_episodes(world, cfg, 8),
+        max_hist_len=cfg.env.max_action_len,
+        angle_feat_size=cfg.model.angle_feat_size,
+        image_prob_size=PRETRAIN_PROBS, vocab_size=cfg.model.vocab_size,
+        seed=4)
+    parity = {}
+    attention.reset_launch_counts()
+    for task in TASKS:
+        batch = batcher.task_batch(task, 2)
+        out = []
+        for model, dev in ((card, "cuda"), (cpu, "cpu")):
+            model.zero_grad(set_to_none=True)
+            s, n, _ = getattr(model, f"forward_{task}")(
+                *(torch.as_tensor(batch[k]).to(dev) for k in TASK_ARGS[task]))
+            (s / max(int(n), 1)).backward()
+            out.append(float(s.detach()))
+        rel = abs(out[0] - out[1]) / max(abs(out[1]), 1e-30)
+        grad = _grad_rel_err(torch, card, cpu)
+        parity[task] = {"loss_sum_card": out[0], "loss_sum_cpu": out[1],
+                        "loss_rel_err": rel, "grad_rel_err": grad}
+        check(rel <= TRAIN_TOL and grad <= TRAIN_TOL,
+              f"pretrain f32 {task}: loss {rel}, gradients {grad}")
+    f32_launches = attention.launch_counts()
+    check(f32_launches["attention_fwd"] > 0 and f32_launches["attention_bwd"]
+          > 0 and f32_launches["attention_dropout_fwd"] == 0,
+          f"pretrain f32 launches {f32_launches}")
+    emit({"phase": "hamt_pretrain", "config": "hamt_r2r_config",
+          "compute_dtype": cfg.model.compute_dtype, "batch": PRETRAIN_BATCH,
+          "image_prob_size": PRETRAIN_PROBS, "setup_s": setup_s,
+          "tasks": tasks, "peak_mem_bytes": peak, "validate": val,
+          "validate_s": val_s, "validate_launches": val_launches,
+          "f32_parity": parity, "f32_launches": f32_launches,
+          "tol": TRAIN_TOL})
+    return launches
+
+
+class SyntheticPanoramas:
+    """A raw panorama bank indexed as RawPanoramaBank ([scan, node] ->
+    [V, h, w, 3], [scan, node, view] -> [h, w, 3]), made from a seed: 36
+    base views drawn once, each node's a scaled and shifted copy.  The full
+    bench world at 224 px would be 4.2 GB of f32 pixels."""
+
+    def __init__(self, shape, size: int, seed: int):
+        import numpy as np
+
+        self.shape = tuple(shape) + (size, size, 3)
+        rng = np.random.default_rng(seed)
+        self.base = rng.standard_normal((shape[2], size, size, 3),
+                                        dtype=np.float32)
+        self.scale = rng.uniform(0.5, 1.5, shape[:2]).astype(np.float32)
+        self.shift = rng.uniform(-0.5, 0.5, shape[:2]).astype(np.float32)
+
+    def __getitem__(self, key):
+        s, n = int(key[0]), int(key[1])
+        views = self.base if len(key) == 2 else self.base[int(key[2])]
+        return views * self.scale[s, n] + self.shift[s, n]
+
+
+def e2e_pretrain_phase(torch, cfg, world):
+    """`E2EPretrainer` at hamt_r2r_config with ViT-B/16 224 in the step,
+    batch 2, max_hist_len 15: per step 1,080 history panorama views through
+    the ViT with no autograd, the history views and observations with it.
+    A warm-up step, then one step of each task.  Gates: per task K1 = 12 a
+    ViT call (three with observations, else two), K4 = 12 a ViT call with
+    autograd, K2 / K3 = the task's backbone calls; the panorama call runs
+    with autograd off and returns no graph; finite losses."""
+    import numpy as np
+
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.models.vit import ViTConfig
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.pretrain.hamt_model import TASKS
+    from vln_imagine_tpu_torch.pretrain.trainer import (
+        E2E_TASK_ARGS,
+        E2EPretrainer,
+    )
+
+    fresh_phase(torch)
+    t0 = time.perf_counter()
+    S, N, V = np.asarray(world.feat).shape[:3]
+    vit_cfg = ViTConfig(compute_dtype=cfg.model.compute_dtype)
+    pt = E2EPretrainer(cfg, world, bench_episodes(world, cfg, 64),
+                       SyntheticPanoramas((S, N, V), vit_cfg.image_size, 5),
+                       vit_config=vit_cfg, image_prob_size=PRETRAIN_PROBS,
+                       device="cuda")
+    calls = []
+    forward = pt.model.vit.forward
+
+    def recorded(images):
+        out = forward(images)
+        calls.append((images.shape[0], torch.is_grad_enabled(),
+                      out[0].requires_grad))
+        return out
+
+    pt.model.vit.forward = recorded
+    state = pt.init_state()
+    state, _ = pt.train_step(state, "mlm", pt.batcher.task_batch(
+        "mlm", E2E_PRETRAIN_BATCH))  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    tasks = {}
+    T = cfg.env.max_action_len
+    for task in TASKS:
+        batch = pt.batcher.task_batch(task, E2E_PRETRAIN_BATCH)
+        calls.clear()
+        attention.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = pt.train_step(state, task, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        got = attention.launch_counts()
+        obs = "ob_images" in E2E_TASK_ARGS[task]
+        k2, k3 = pretrain_calls(cfg, task)
+        want = {"attention_fwd": vit_cfg.num_layers * (3 if obs else 2),
+                "attention_dropout_fwd": k2, "attention_dropout_bwd": k3,
+                "attention_bwd": vit_cfg.num_layers * (2 if obs else 1)}
+        check(got == want, f"e2e pretrain {task} launches {got}, want {want}")
+        pano = E2E_PRETRAIN_BATCH * T * V
+        check(calls[1] == (pano, False, False) and all(
+            g and r for _, g, r in calls[:1] + calls[2:]),
+            f"e2e pretrain {task} ViT calls {calls}")
+        check(math.isfinite(float(m["loss"])), f"e2e pretrain {task} loss")
+        tasks[task] = {"step_ms": ms, "loss": float(m["loss"]),
+                       "vit_calls": [{"images": b, "autograd": g}
+                                     for b, g, _ in calls],
+                       "launches": got}
+    peak = torch.cuda.max_memory_allocated()
+    del pt.model.vit.forward
+    del pt
+    torch.cuda.empty_cache()
+    emit({"phase": "e2e_pretrain", "config": "hamt_r2r_config + ViT-B/16 224",
+          "compute_dtype": cfg.model.compute_dtype,
+          "batch": E2E_PRETRAIN_BATCH, "max_hist_len": T,
+          "pano_images_per_step": E2E_PRETRAIN_BATCH * T * V,
+          "setup_s": setup_s, "tasks": tasks, "peak_mem_bytes": peak})
+    return {k: max(r["launches"][k] for r in tasks.values())
+            for k in tasks["mlm"]["launches"]}
+
+
+def pretrain_cli_phase(torch, scratch: Path):
+    """The pre-training CLI on the card as a user runs it, with no
+    --device: `--agent hamt --synthetic --steps 4 --log-steps 2
+    --valid-steps 2`, then the same with `--e2e` (at 32 px and batch 2: the
+    synthetic bank of its world at 224 px would be 4.2 GB); each writes
+    `model_step_4`.  Then the train CLI `--synthetic --iters 2
+    --log-every 1 --init-from-pretrain` the feature run's snapshot, which
+    must transfer leaves."""
+    import contextlib
+    import io
+    import re
+
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.scripts import pretrain as pcli
+    from vln_imagine_tpu_torch.scripts import train as tcli
+
+    fresh_phase(torch)
+    base = ["--agent", "hamt", "--synthetic", "--steps", "4", "--log-steps",
+            "2", "--valid-steps", "2"]
+    runs = {}
+    for name, extra in (("features", []),
+                        ("e2e", ["--e2e", "--image-size", "32",
+                                 "--batch-size", "2"])):
+        log = scratch / name
+        attention.reset_launch_counts()
+        t = time.perf_counter()
+        pt, state = pcli.main(base + extra + ["--log-dir", str(log)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = attention.launch_counts()
+        record = (log / "pretrain.txt").read_text()
+        losses = [float(x) for x in re.findall(r"loss=([^\s,]+)", record)]
+        check(pt.device.type == "cuda" and state.step == 4,
+              f"pretrain CLI {name}: {pt.device}, step {state.step}")
+        for f in ("model_step_2", "model_step_4", "train_state_4"):
+            check((log / f).is_file(), f"pretrain CLI {name} wrote no {f}")
+        check("valid @ step 4" in record and losses
+              and all(math.isfinite(x) for x in losses),
+              f"pretrain CLI {name} record")
+        check(launches["attention_dropout_fwd"] > 0
+              and launches["attention_dropout_bwd"] > 0
+              and launches["attention_fwd"] > 0
+              and (launches["attention_bwd"] > 0) == (name == "e2e"),
+              f"pretrain CLI {name} launches {launches}")
+        runs[name] = {"seconds": seconds, "launches": launches,
+                      "hidden_size": pt.cfg.model.hidden_size,
+                      "valid_losses": losses}
+        del pt
+        torch.cuda.empty_cache()
+    out = io.StringIO()
+    attention.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        d = tcli.main(["--synthetic", "--iters", "2", "--log-every", "1",
+                       "--init-from-pretrain",
+                       str(scratch / "features" / "model_step_4"),
+                       "--log-dir", str(scratch / "finetune")])
+    torch.cuda.synchronize()
+    m = re.search(r"\((\d+) leaves transferred", out.getvalue())
+    check(m is not None and int(m.group(1)) > 0 and d.device.type == "cuda",
+          f"--init-from-pretrain: {out.getvalue()[-500:]}")
+    runs["finetune"] = {"leaves_transferred": int(m.group(1)),
+                        "launches": attention.launch_counts()}
+    del d
+    torch.cuda.empty_cache()
+    emit({"phase": "pretrain_cli", "argv": " ".join(base), "runs": runs,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    return {k: max(r["launches"][k] for r in runs.values())
+            for k in runs["e2e"]["launches"]}
+
+
 # --------------------------------------------------------------- phase 6
 def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen, D=HEAD_DIM):
     from vln_imagine_tpu_torch.ops.masks import extend_neg_mask
 
     dev, H = "cuda", HEADS
+    if bias_kind == "none":  # the ViT: q, k, v views of one [B, L, 3, H, D]
+        qkv = torch.randn(B, lq, 3 * H * D, device=dev, generator=gen).to(
+            dtype).unflatten(-1, (3, H, D))
+        do = torch.randn(B, lq, H, D, device=dev, generator=gen).to(dtype)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do, None
     # q from one packed [B, Lq, 3*H*D] product, k/v from another: strided
     # views with row stride 2304, as MHAttention hands them to the kernels
     qx = torch.randn(B, lq, 3 * H * D, device=dev, generator=gen).to(dtype)
@@ -2066,9 +2654,9 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
     elt = q.element_size()
     qkv_bytes = (B * lq + 2 * B * lk) * HEADS * D * elt
     o_bytes = B * lq * HEADS * D * elt
-    bias_bytes = bias.numel() * 4
+    bias_bytes = 0 if bias is None else bias.numel() * 4
     mn = B * HEADS * lq * lk * D
-    mask = bias.to(dtype)
+    mask = None if bias is None else bias.to(dtype)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if kernel in ("attention_fwd", "attention_dropout_fwd"):
         bound = _bound(qkv_bytes + o_bytes + bias_bytes, 4 * mn, dtype_name)
@@ -2128,12 +2716,13 @@ def kernels_phase(torch, parent=None):
     fresh_phase(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
-    for B in BATCHES:  # K1: the eval path's batches
+    for B in BATCHES:  # K1: the eval path's batches, timed in bf16
         for lq, lk in SHAPES:
             for dt in ("bfloat16", "float32"):
                 for bk in ("mask", "per_head"):
                     cases.append(kernel_case(torch, "attention_fwd", B, lq, lk,
-                                             dt, bk, gen, timed=True,
+                                             dt, bk, gen,
+                                             timed=dt == "bfloat16",
                                              parent=parent))
     for lq, lk in TRAIN_SHAPES[len(SHAPES):]:  # K1 in a teacher step
         for dt in ("bfloat16", "float32"):
@@ -2208,6 +2797,12 @@ def kernels_phase(torch, parent=None):
         for kernel in ("attention_fwd", "attention_bwd"):  # the f32 steps'
             cases.append(kernel_case(torch, kernel, TRAIN_BATCH, lq, lk,
                                      "float32", bk, gen))
+    for dt in ("bfloat16", "float32"):  # the ViT's 197/197, no bias
+        cases.append(kernel_case(torch, "attention_fwd", VIT_BATCH, *VIT_SHAPE,
+                                 dt, "none", gen, timed=dt == "bfloat16"))
+        cases.append(kernel_case(torch, "attention_bwd", TRAIN_BATCH,
+                                 *VIT_SHAPE, dt, "none", gen,
+                                 timed=dt == "bfloat16"))
     lq, lk, bk = NO_OBJECTS_SHAPE
     for dt in ("bfloat16", "float32"):
         for kernel, bits in (("attention_fwd", None),
@@ -2371,6 +2966,14 @@ def main() -> None:
     path_launches["variant_driver"] = variant_driver_phase(torch)
     with scratch_dir() as tmp:
         path_launches["train_cli_r2r_back"] = r2r_back_cli(torch, Path(tmp))
+    path_launches["vit_extract"] = vit_extract_phase(torch)
+    path_launches["e2e_finetune"] = e2e_finetune_phase(torch, cfg, dcfg, world)
+    path_launches["e2e_train_parity"] = e2e_train_parity_phase(torch, cfg,
+                                                               world)
+    path_launches["hamt_pretrain"] = hamt_pretrain_phase(torch, cfg, world)
+    path_launches["e2e_pretrain"] = e2e_pretrain_phase(torch, cfg, world)
+    with scratch_dir() as tmp:
+        path_launches["pretrain_cli"] = pretrain_cli_phase(torch, Path(tmp))
     cases = kernels_phase(torch, parent)
 
     summary = []

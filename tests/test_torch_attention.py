@@ -915,3 +915,53 @@ def test_kernels_at_the_imagination_encoder_shape_on_card(cuda, dtype):
             assert torch.isfinite(a).all(), name
             torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol,
                                        msg=f"{name} fully masked item")
+
+
+# The ViT's attention (models/vit.py): 197 tokens (a [CLS] and 14 x 14
+# patches at 224 px), no bias, q/k/v views of one packed qkv projection.
+def _vit_qkv(cuda, B, dtype, seed):
+    """q, k, v as the ViT block makes them: strided views of one packed
+    [B, 197, 3, 12, 64] projection."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(B, 197, 3 * 768, device=cuda, generator=g).to(dtype)
+    qkv = qkv.unflatten(-1, (3, 12, 64))
+    do = torch.randn(B, 197, 12, 64, device=cuda, generator=g).to(dtype)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_attention_kernels_match_plain_on_card(cuda, dtype):
+    tol = CARD_F32_TOL if dtype == torch.float32 else BF16_TOL
+    q, k, v, do = _vit_qkv(cuda, 16, dtype, 197)
+    before = (attention_fwd.launches, attention_bwd.launches)
+    out = fused_attention(q, k, v, None, 0.125)
+    dq, dk, dv, db = attention_bwd(q, k, v, None, do, 0.125)
+    torch.cuda.synchronize()
+    assert (attention_fwd.launches, attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert db is None
+    torch.testing.assert_close(out.float(), attention_reference(
+        q, k, v, None, 0.125).float(), rtol=tol, atol=tol)
+    for got, want in zip((dq, dk, dv), attention_bwd_reference(
+            q, k, v, None, do, 0.125)[:3]):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_vit_on_card_matches_cpu(cuda):
+    """A full-width ViT (2 layers) in f32: the card (K1) against the CPU."""
+    from vln_imagine_tpu_torch.models.vit import ViTConfig, VisionTransformer
+    from vln_imagine_tpu_torch.train.trainer import init_params
+
+    cfg = ViTConfig(image_size=32, patch_size=16, hidden_size=768,
+                    num_layers=2, num_heads=12, compute_dtype="float32")
+    vit = VisionTransformer(cfg)
+    init_params(vit, torch.Generator().manual_seed(11))
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (4, 32, 32, 3)).astype(np.float32))
+    with torch.no_grad():
+        want, _ = vit(x)
+        got, _ = vit.to(cuda)(x.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

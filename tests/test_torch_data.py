@@ -378,13 +378,21 @@ def test_submission_json_equals_the_jax_writer(tmp_path):
 
 # ------------------------------------------------- refused and needed inputs
 def test_raw_imagination_images_are_refused():
+    """Raw imagination images (ROADMAP Queue 1 item 5), once refused here,
+    are ported: they reach EpisodeBatch.imagine_images as in the JAX
+    package."""
     g = random_scan_graph(np.random.default_rng(0), "sc", 6)
     items = [{"instr_id": "1_0", "scan": "sc", "path": g.node_ids[:2],
               "instr_encoding": [1, 2]}]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        A.episodes_from_annotations(
-            items, [g], A.AuxMetadata(), 8, 4, 2,
-            imagine_images=np.zeros((1, 2, 4, 4, 3), np.float32))
+    imgs = np.random.default_rng(1).standard_normal(
+        (1, 2, 4, 4, 3)).astype(np.float32)
+    ep, ids = A.episodes_from_annotations(items, [g], A.AuxMetadata(), 8, 4,
+                                          2, imagine_images=imgs)
+    jep, jids = JA.episodes_from_annotations(items, [g], JA.AuxMetadata(), 8,
+                                             4, 2, imagine_images=imgs)
+    assert ids == jids
+    _assert_episodes_equal(ep, jep)
+    np.testing.assert_array_equal(ep.imagine_images, imgs)
 
 
 def test_hdf5_stores_name_h5py_when_it_is_missing(monkeypatch):

@@ -13,7 +13,7 @@
   `latest_dict` bitwise; bucketed validation equals sequential and
   pipelined equals synchronous, item for item; the augmented-split
   alternation trains; VLN_PROFILE_DIR writes a trace; unported branches
-  raise, naming their ROADMAP item, and item 4's branches run.
+  raise, naming their ROADMAP item, and the branches of items 4 and 5 run.
 """
 
 import dataclasses
@@ -238,12 +238,32 @@ def test_profile_dir_traces_the_first_interval(tmp_path, monkeypatch):
     ("model", {"e2e_imagination": "frozen"}, 5),
 ])
 def test_unported_branches_raise(tmp_path, part, over, item):
-    """Items 5-7 raise, naming their ROADMAP item.  Item 4 (the task
-    variants) is ported: its dataset and its episodes, once refused here,
-    now build a driver that trains and validates."""
+    """Item 7 raises, naming its ROADMAP item.  Items 4 and 5 are ported:
+    the task variants' dataset and episodes, and `e2e_imagination` with
+    episodes that carry raw images, once refused here, now build a driver
+    that trains and validates.  `init_from_pretrain` (item 6) reads the
+    port's pre-training snapshots; one that shares no parameter with the
+    navigator raises."""
     d = _driver(tmp_path)
     cfg = (d.cfg.replace(dataset=over) if part == "dataset"
            else _replace(d.cfg, part, **over))
+    if item == 5:
+        def with_images(split, seed):
+            ep = split.episodes
+            hw = cfg.model.e2e_vit_image_size
+            imgs = np.random.default_rng(seed).standard_normal(
+                ep.imagine_mask.shape + (hw, hw, 3)).astype(np.float32)
+            return SplitData(split.name, dataclasses.replace(
+                ep, imagine_images=imgs), split.instr_ids)
+        d2 = FinetuneDriver(cfg, d.tables, with_images(d.train_split, 0),
+                            [with_images(d.val_splits[0], 1)],
+                            str(tmp_path / "e2e"), device="cpu")
+        d2.setup()
+        assert hasattr(d2.trainer.model, "imagine_vit")
+        logs = d2.train_interval(1)
+        assert all(math.isfinite(v) for v in logs.values()), logs
+        assert 0.0 <= d2.validate(d2.val_splits[0])["sr"] <= 100.0
+        return
     if part == "dataset":
         # r2r_back episodes (a midstop per item), under both configs
         ep = dataclasses.replace(d.train_split.episodes,
@@ -262,7 +282,9 @@ def test_unported_branches_raise(tmp_path, part, over, item):
         FinetuneDriver(cfg, d.tables, d.train_split, d.val_splits,
                        str(tmp_path / "x"), device="cpu")
     if part == "mesh":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        torch.save({"unrelated.weight": torch.zeros(2)},
+                   tmp_path / "model_step_10")
+        with pytest.raises(ValueError, match="no parameter subtree"):
             d.init_from_pretrain(str(tmp_path / "model_step_10"))
 
 

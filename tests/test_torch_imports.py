@@ -53,7 +53,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "utils.logger", "data.annotations", "data.features",
                 "data.tokenizer", "data.nlp_tools", "eval.submission",
                 "train.optim", "ckpt.manager", "ckpt.transfer", "driver",
-                "scripts.train"):
+                "scripts.train", "models.vit", "native", "pretrain.data",
+                "pretrain.hamt_model", "pretrain.hamt_e2e", "pretrain.trainer",
+                "scripts.pretrain", "scripts.extract_features"):
         assert f"vln_imagine_tpu_torch.{mod}" in report["modules"], mod
 
 
@@ -79,5 +81,22 @@ def test_entry_points_raise_without_device_or_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FinetuneDriver(cfg, world, split, [], str(tmp_path))
     assert FinetuneDriver(cfg, world, split, [], str(tmp_path),
+                          device="cpu").device.type == "cpu"
+    from vln_imagine_tpu_torch.models.vit import (
+        FeatureExtractor,
+        ViTConfig,
+        VisionTransformer,
+    )
+    from vln_imagine_tpu_torch.pretrain.trainer import HamtPretrainer
+    vit = VisionTransformer(ViTConfig(image_size=16, patch_size=8,
+                                      hidden_size=32, num_layers=1,
+                                      num_heads=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FeatureExtractor(vit)
+    assert FeatureExtractor(vit, device="cpu").device.type == "cpu"
+    ep = synthetic_episodes(world, batch=2, max_gt_path_len=6, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HamtPretrainer(cfg, world, ep, image_prob_size=8)
+    assert HamtPretrainer(cfg, world, ep, image_prob_size=8,
                           device="cpu").device.type == "cpu"
 

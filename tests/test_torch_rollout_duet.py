@@ -370,9 +370,21 @@ def test_deferred_branches_run(part, kw, call):
 def test_deferred_options_raise(part, kw, call):
     """What the port leaves for later raises where it is reached.  Objects
     (`obj_feat_size`, ROADMAP Queue 1 item 4) are ported: the model builds
-    its grounding head and, on a world without objects, evaluates as R2R."""
+    its grounding head and, on a world without objects, evaluates as R2R.
+    So is `e2e_imagination` (item 5): the model builds its ViT and, with
+    raw imagination images, evaluates."""
     cfg = _with(tiny_test_config("duet"), part, **kw)
     world, ep = _world_ep(synthetic_world, synthetic_episodes, cfg)
+    if kw.get("e2e_imagination"):
+        tr = DuetTrainer(cfg, world, device="cpu")
+        assert hasattr(tr.model, "imagine_vit")
+        hw = cfg.model.e2e_vit_image_size
+        ep = dataclasses.replace(ep, imagine_images=np.random.default_rng(
+            0).standard_normal(np.shape(ep.imagine_mask) + (hw, hw, 3)
+                               ).astype(np.float32))
+        paths, lens = tr.make_eval_step()(ep)
+        assert (lens >= 1).all() and (paths[:, 0] == ep.to("cpu").start_node).all()
+        return
     if kw.get("obj_feat_size"):
         tr = DuetTrainer(cfg, world, device="cpu")
         assert hasattr(tr.model, "og_head")

@@ -22,6 +22,7 @@ the CPU:
 import json
 import math
 import os
+import re
 import sys
 
 import h5py
@@ -38,6 +39,30 @@ from vln_imagine_tpu_torch.train.trainer import HamtTrainer
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _pretrain_snapshot(log_dir, step: int) -> str:
+    """A `model_step_<step>` of the port's HAMT pre-trainer at the tiny
+    config, untrained."""
+    from vln_imagine_tpu_torch.pretrain.trainer import (
+        HamtPretrainer,
+        PretrainState,
+    )
+
+    cfg = tiny_test_config("hamt")
+    world, _ = synthetic_world(num_scans=1, num_nodes=12,
+                               max_candidates=cfg.env.max_candidates,
+                               views=cfg.env.views,
+                               feat_dim=cfg.model.image_feat_size, seed=0)
+    ep = synthetic_episodes(world, batch=2,
+                            max_gt_path_len=cfg.env.max_gt_path_len,
+                            max_instr_len=cfg.env.max_instr_len,
+                            max_imaginations=cfg.model.max_imagination_len,
+                            vocab_size=cfg.model.vocab_size,
+                            feat_dim=cfg.model.hidden_size, seed=1)
+    pt = HamtPretrainer(cfg, world, ep, image_prob_size=8, device="cpu")
+    os.makedirs(log_dir, exist_ok=True)
+    return pt.save(PretrainState(step), str(log_dir))
 
 
 # ------------------------------------------------------ twins of test_train_cli
@@ -82,17 +107,28 @@ def test_no_lang_ca_guards():
     (["--obj-features", "obj.hdf5"], 4),
     (["--dataset", "cvdn"], 4),
 ])
-def test_unported_flags_exit_naming_their_item(flags, item, tmp_path):
-    """Items 5-7 exit, naming their ROADMAP item.  Item 4 (the task
-    variants) is ported: its flags, once refused here, now run (the
-    synthetic world has no object store, so `--obj-features` is not read)."""
+def test_unported_flags_exit_naming_their_item(flags, item, tmp_path, capsys):
+    """Item 7 exits, naming its ROADMAP item.  Items 4-6 are ported: their
+    flags, once refused here, now run (the synthetic world has no object
+    store, so `--obj-features` is not read; `--e2e-imagination` gives the
+    synthetic episodes raw images; `--init-from-pretrain` reads a snapshot
+    of the port's pre-trainer written here)."""
     argv = ["--synthetic", "--device", "cpu"] + flags
-    if item == 4:
+    if item == 6:
+        argv[-1] = _pretrain_snapshot(tmp_path / "pretrain", step=10)
+    if item in (4, 5, 6):
         d = cli.main(argv + ["--iters", "1", "--log-every", "1",
                              "--log-dir", str(tmp_path)])
         assert d.cfg.dataset == (flags[1] if flags[0] == "--dataset"
                                  else "r2r")
         assert os.path.exists(tmp_path / "ckpts" / "latest_dict")
+        if item == 5:
+            assert d.cfg.model.e2e_imagination == "frozen"
+            assert hasattr(d.trainer.model, "imagine_vit")
+        if item == 6:
+            n = int(re.search(r"\((\d+) leaves transferred",
+                              capsys.readouterr().out).group(1))
+            assert n > 0
         return
     with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 item {item}$"):
         cli.main(argv)

@@ -21,6 +21,16 @@ Conversion rules:
 - nn.Sequential heads map by index (NextActionPrediction net.{0,2,4},
   ClsPrediction net.{0,2,3}, the critic's state2value.{0,3} <-> fc0 / fc1:
   `critic_state_dict_from_flax`, `critic_flax_from_state_dict`)
+- the ViT (timm vit_base_patch16_224 keys, `vit_torch_to_flax_path`): conv
+  weight [O, I, kh, kw] <-> flax Conv kernel [kh, kw, I, O]; `cls_token`
+  and `pos_embed` as they are.  Inside a navigator it sits under
+  `imagine_vit`, inside E2E pre-training under `vit`
+- the HAMT pre-training heads (agent "hamt_pretrain"): the MLM head as
+  `mlm_head.predictions.*` (decoder tied to the word embeddings), the
+  action head as the fine-tune model's `next_action`, and the other heads
+  (`regress_action`, `sprel_head`, `image_classifier`, `itm_head`) under
+  their flax names (dense0, LayerNorm, dense1); agent "hamt_e2e_pretrain"
+  is `vit` + `head_model` (that tree)
 """
 
 from __future__ import annotations
@@ -98,6 +108,8 @@ def hamt_torch_to_flax_path(key: str) -> str | None:
     key is intentionally dropped (unused heads etc.)."""
     key = re.sub(r"^module\.", "", key)
     key = re.sub(r"^(bert|vln_bert)\.", "", key)
+    if key.startswith("imagine_vit."):
+        return _nested("imagine_vit", vit_torch_to_flax_path, key)
 
     for pat, repl in _EMBEDDINGS:
         if re.match(pat, key):
@@ -244,6 +256,8 @@ def duet_torch_to_flax_path(key: str) -> str | None:
     converters split into query/key/value."""
     key = re.sub(r"^module\.", "", key)
     key = re.sub(r"^(bert|vln_bert)\.", "", key)
+    if key.startswith("imagine_vit."):
+        return _nested("imagine_vit", vit_torch_to_flax_path, key)
 
     for pat, repl in _EMBEDDINGS:
         if re.match(pat, key):
@@ -320,6 +334,72 @@ def duet_torch_to_flax_path(key: str) -> str | None:
     return _mlm_head_path(key)
 
 
+_VIT_BLOCK = [
+    (r"^norm(1|2)\.(weight|bias)$", r"norm\1/\2"),
+    (r"^attn\.qkv\.(weight|bias)$", r"qkv/\1"),
+    (r"^attn\.proj\.(weight|bias)$", r"proj/\1"),
+    (r"^mlp\.fc(1|2)\.(weight|bias)$", r"fc\1/\2"),
+]
+
+
+def vit_torch_to_flax_path(key: str) -> str | None:
+    """timm vit_base_patch16_224 key -> flax path of the JAX package's
+    VisionTransformer, or None for the classification head.  The patch
+    conv maps to a `__conv_` marked leaf that the converters transpose."""
+    key = re.sub(r"^module\.", "", key)
+    if key in ("cls_token", "pos_embed"):
+        return key
+    m = re.match(r"^patch_embed\.proj\.(weight|bias)$", key)
+    if m:
+        return f"patch_embed/__conv_{m.group(1)}"
+    m = re.match(r"^blocks\.(\d+)\.(.*)$", key)
+    if m:
+        for pat, repl in _VIT_BLOCK:
+            if re.match(pat, m.group(2)):
+                return f"block_{m.group(1)}/" + re.sub(pat, repl, m.group(2))
+        return None
+    m = re.match(r"^norm\.(weight|bias)$", key)
+    if m:
+        return f"norm/{m.group(1)}"
+    return None  # head / pre_logits: unused for features
+
+
+def _nested(prefix: str, inner, key: str) -> str | None:
+    """`prefix.` + an inner model's key -> `prefix/` + its flax path."""
+    if not key.startswith(prefix + "."):
+        return None
+    path = inner(key[len(prefix) + 1:])
+    return None if path is None else f"{prefix}/{path}"
+
+
+_PRETRAIN_HEADS = ("regress_action", "sprel_head", "image_classifier",
+                   "itm_head")
+
+
+def hamt_pretrain_torch_to_flax_path(key: str) -> str | None:
+    """HamtPretrainModel key -> flax path: the shared backbone and
+    next_action as the fine-tune model, the MLM head as a BERT checkpoint's
+    (`_mlm_head_path`), and the other heads by their flax names."""
+    key = re.sub(r"^module\.", "", key)
+    m = re.match(rf"^({'|'.join(_PRETRAIN_HEADS)})\.(dense0|dense1)"
+                 r"\.(weight|bias)$", key)
+    if m:
+        return f"{m.group(1)}/{m.group(2)}/{m.group(3)}"
+    m = re.match(rf"^({'|'.join(_PRETRAIN_HEADS)})\.LayerNorm"
+                 r"\.(weight|bias)$", key)
+    if m:
+        return f"{m.group(1)}/LayerNorm/ln/{m.group(2)}"
+    return hamt_torch_to_flax_path(key)
+
+
+def hamt_e2e_pretrain_torch_to_flax_path(key: str) -> str | None:
+    """HamtE2EPretrainModel key: `vit.*` (the ViT) or `head_model.*` (a
+    HamtPretrainModel)."""
+    key = re.sub(r"^module\.", "", key)
+    return (_nested("vit", vit_torch_to_flax_path, key)
+            or _nested("head_model", hamt_pretrain_torch_to_flax_path, key))
+
+
 def strip_reference_prefixes(state_dict: dict) -> dict:
     """Released checkpoints wrap NavCMT as `module.vln_bert.*` (DDP +
     VLNBertCMT); pre-train inits use `bert.*`.  Returns the port's keys."""
@@ -327,7 +407,10 @@ def strip_reference_prefixes(state_dict: dict) -> dict:
             for k, v in state_dict.items()}
 
 
-_TO_FLAX = {"hamt": hamt_torch_to_flax_path, "duet": duet_torch_to_flax_path}
+_TO_FLAX = {"hamt": hamt_torch_to_flax_path, "duet": duet_torch_to_flax_path,
+            "vit": vit_torch_to_flax_path,
+            "hamt_pretrain": hamt_pretrain_torch_to_flax_path,
+            "hamt_e2e_pretrain": hamt_e2e_pretrain_torch_to_flax_path}
 _FLAX_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight",
                        "embedding": "weight"}
 _HEAD_INDEX = {"hamt": {"dense0": "net.0", "LayerNorm": "net.2",
@@ -359,31 +442,70 @@ _PANO_QKV = re.compile(r"(pano_encoder/layer_(\d+))/self_attn/(query|key|value)"
                        r"/(kernel|bias)")
 
 
+_VIT_MODS = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1",
+             "fc2": "mlp.fc2"}
+
+
+def _vit_flax_to_torch(path: str) -> str:
+    """Inverse of `vit_torch_to_flax_path`, checked against it."""
+    *mods, leaf = path.split("/")
+    if not mods:
+        key = leaf
+    elif mods == ["patch_embed"]:
+        key = "patch_embed.proj." + ("weight" if leaf == "kernel" else leaf)
+    else:
+        mods = [re.sub(r"^block_(\d+)$", r"blocks.\1", _VIT_MODS.get(m, m))
+                for m in mods]
+        key = ".".join(mods + [_FLAX_LEAF_TO_TORCH.get(leaf, leaf)])
+    want = vit_torch_to_flax_path(key)
+    if want is not None:
+        want = want.replace("__conv_weight", "kernel").replace(
+            "__conv_bias", "bias")
+        if want.endswith("/weight"):
+            want = want[:-len("weight")] + leaf
+    if want != path:
+        raise KeyError(f"no ViT key maps to flax path {path!r} (tried {key!r})")
+    return key
+
+
 def flax_to_torch_key(path: str, agent: str = "hamt") -> str:
-    """Inverse of `hamt_torch_to_flax_path` / `duet_torch_to_flax_path` for a
-    flax leaf path (slash-separated, leaf `kernel`/`scale`/`embedding`/
-    `bias`/...).  The result is checked against the forward map, so the two
-    cannot drift."""
+    """Inverse of `hamt_torch_to_flax_path` / `duet_torch_to_flax_path` (and
+    of the ViT and pre-training maps, `_TO_FLAX`) for a flax leaf path
+    (slash-separated, leaf `kernel`/`scale`/`embedding`/`bias`/...).  The
+    result is checked against the forward map, so the two cannot drift."""
+    top, _, rest = path.partition("/")
+    if agent == "vit":
+        return _vit_flax_to_torch(path)
+    if agent == "hamt_e2e_pretrain":
+        inner = "vit" if top == "vit" else "hamt_pretrain"
+        return f"{top}." + flax_to_torch_key(rest, inner)
+    if top == "imagine_vit" and agent in ("hamt", "duet"):
+        return "imagine_vit." + _vit_flax_to_torch(rest)
+    # the pre-training model's backbone and next_action are HAMT's
+    base = "hamt" if agent == "hamt_pretrain" else agent
     *mods, leaf = path.split("/")
     mods = [m for m in mods if m != "ln"]
     top = mods[0]
     layer = "layer"
     if m := re.fullmatch(r"lang_layer_(\d+)", top):
-        mods = ["lang_encoder" if agent == "duet" else "encoder", "layer",
+        mods = ["lang_encoder" if base == "duet" else "encoder", "layer",
                 m.group(1)] + mods[1:]
     elif m := re.fullmatch(r"x_layer_(\d+)", top):
         mods = ["encoder", "x_layers", m.group(1)] + mods[1:]
-    elif agent == "duet" and top in ("local_encoder", "global_encoder"):
+    elif base == "duet" and top in ("local_encoder", "global_encoder"):
         n = re.fullmatch(r"x_layer_(\d+)", mods[1]).group(1)
         mods = [top, "encoder", "x_layers", n] + mods[2:]
-    elif agent == "duet" and top in _DUET_TOP:
+    elif base == "duet" and top in _DUET_TOP:
         mods = _DUET_TOP[top].split(".") + [
             "self_attn.out_proj" if m == "out_proj" else m for m in mods[1:]]
         layer = "layers"
     elif top == "image_proj":
         mods = ["contrastive_alignment_model"] + mods
-    elif top in _HEADS[agent]:
-        mods = [top, _HEAD_INDEX[agent][mods[1]]] + mods[2:]
+    elif top in _HEADS[base]:
+        mods = [top, _HEAD_INDEX[base][mods[1]]] + mods[2:]
+    elif top == "mlm_head":  # a BERT checkpoint's BertLMPredictionHead
+        mods = [top, "predictions"] + (["transform"] if len(mods) > 1
+                                       else []) + mods[1:]
     mods = [re.sub(r"^layer_(\d+)$", rf"{layer}.\1", m) for m in mods]
     key = ".".join(mods + [_FLAX_LEAF_TO_TORCH.get(leaf, leaf)])
     want = "/".join(path.split("/")[:-1]
@@ -415,7 +537,7 @@ def _in_proj_key(layer: str) -> str:
 
 def state_dict_from_flax(params: dict, agent: str = "hamt") -> dict[str, Any]:
     """JAX package params (`{"params": tree}` or the tree itself, numpy
-    leaves) of `agent` ("hamt" or "duet") -> the port's state_dict of torch
+    leaves) of `agent` (a key of `_TO_FLAX`) -> the port's state_dict of torch
     tensors.  DUET's pano encoder query/key/value kernels and biases are
     stacked into torch's `in_proj_weight` [3H, H] / `in_proj_bias` [3H]."""
     tree = params.get("params", params)
@@ -423,7 +545,8 @@ def state_dict_from_flax(params: dict, agent: str = "hamt") -> dict[str, Any]:
     for path, value in _flax_leaves(tree):
         v = np.asarray(value, np.float32)
         if path.endswith("/kernel"):
-            v = v.T
+            # conv [kh, kw, I, O] -> [O, I, kh, kw]; dense [in, out] -> [out, in]
+            v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
         m = _PANO_QKV.fullmatch(path) if agent == "duet" else None
         if m:
             qkv.setdefault(m.group(2), {})[(m.group(3), m.group(4))] = v
@@ -458,14 +581,18 @@ def flax_from_state_dict(state_dict: dict, agent: str = "hamt") -> dict:
                     node = node.setdefault(p, {})
                 node[leaf] = part.T if leaf == "kernel" else part
             continue
-        base, leaf = path.rsplit("/", 1)
-        if leaf == "weight":
+        base, _, leaf = path.rpartition("/")
+        if leaf == "__conv_weight":
+            leaf, v = "kernel", v.transpose(2, 3, 1, 0)
+        elif leaf == "__conv_bias":
+            leaf = "bias"
+        elif leaf == "weight":
             if base.endswith("/ln") or v.ndim == 1:
                 leaf = "scale"
             else:
                 leaf, v = "kernel", v.T
         node = params
-        for part in base.split("/"):
+        for part in base.split("/") if base else ():
             node = node.setdefault(part, {})
         node[leaf] = v
     return {"params": params}

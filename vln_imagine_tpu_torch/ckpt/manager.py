@@ -178,3 +178,38 @@ def load_reference_pretrain(path: str, agent: str = "hamt") -> dict:
     skipped = [k for k in sd if _KEY_MAPS[agent](k) is None]
     return {"state_dict": {k: v for k, v in sd.items() if k not in skipped},
             "skipped": skipped}
+
+
+def load_pretrain_init(path: str, agent: str = "hamt",
+                       source: str = "auto") -> dict:
+    """BERT weights (a Hugging Face bert-base-uncased state_dict) -> the
+    pre-training model's keys, for STARTING HAMT pre-training (the
+    reference's --init_pretrained surgery, main_r2r.py:131-147) ->
+    {'state_dict', 'skipped', 'source'}; graft with
+    ckpt.transfer.init_finetune_from_pretrain.  The DUET sources ('lxmert',
+    'bert-verbatim', and 'bert' for DUET) come with DUET pre-training."""
+    if agent != "hamt" or source in ("lxmert", "bert-verbatim"):
+        raise NotImplementedError(
+            f"the {agent} pre-training init from {source!r} weights is not "
+            "ported yet: ROADMAP Queue 1 item 6 (DUET pre-training)")
+    from vln_imagine_tpu_torch.ckpt.convert import (
+        hamt_pretrain_torch_to_flax_path,
+    )
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    if source == "auto" and any("encoder.x_layers" in k for k in sd):
+        raise NotImplementedError(
+            "LXMERT weights initialize DUET pre-training, which is not "
+            "ported yet: ROADMAP Queue 1 item 6")
+    sd = strip_reference_prefixes(sd)
+    # xlm-roberta-base ships ONE token-type row; the second is for image
+    # embeddings: duplicate it (train_r2r.py:115-118)
+    tt = next((k for k in sd
+               if k.endswith("embeddings.token_type_embeddings.weight")), None)
+    if tt is not None and sd[tt].shape[0] == 1:
+        sd[tt] = torch.cat([sd[tt]] * 2, 0)
+    skipped = [k for k in sd if hamt_pretrain_torch_to_flax_path(k) is None]
+    return {"state_dict": {k: v for k, v in sd.items() if k not in skipped},
+            "skipped": skipped, "source": "bert"}

@@ -8,8 +8,8 @@ tools that PRODUCE those JSONs live in data/nlp_tools.py; this module only
 consumes their output and emits EpisodeBatch arrays.
 
 The port's own copy of the JAX package's module; its arrays and index
-streams equal that package's.  Not ported yet: raw imagination images
-(`imagine_images`, ROADMAP Queue 1 item 5).
+streams equal that package's, raw imagination images (`imagine_images`)
+included.
 """
 
 from __future__ import annotations
@@ -241,10 +241,6 @@ def episodes_from_annotations(
     NDH sampled-goal path opts into (goals there are resampled per call and
     scored via end_panos, so a rare clip degrades supervision, not eval)."""
     import warnings
-    if imagine_images is not None:
-        raise NotImplementedError(
-            "raw imagination images (e2e_imagination) are not ported yet: "
-            "ROADMAP Queue 1 item 5")
     scan_index = {g.scan_id: s for s, g in enumerate(graphs)}
     id_maps = {g.scan_id: g.id_to_index for g in graphs}
     B = len(items)
@@ -324,7 +320,8 @@ def episodes_from_annotations(
         scan=scan, start_node=start, start_heading=heading,
         gt_path=gt_path, gt_len=gt_len, txt_ids=txt_ids, txt_mask=txt_mask,
         imagine_feats=imagine_feats, imagine_mask=imagine_mask,
-        np_weights=np_w, midstop=midstop, gt_obj_id=gt_obj)
+        np_weights=np_w, midstop=midstop, gt_obj_id=gt_obj,
+        imagine_images=imagine_images)
     return ep, instr_ids
 
 

@@ -12,8 +12,9 @@ host lookups.
 
 The port's own copy of the JAX package's module.  h5py is optional: an HDF5
 store used without it raises ImportError; `build_object_tables` reads any
-object with `ObjectFeatureDB.load_feature`'s signature.  Not ported yet:
-the raw image banks (ROADMAP Queue 1 item 5).
+object with `ObjectFeatureDB.load_feature`'s signature.  The raw image
+banks (`RawPanoramaBank`, `RawImaginationImageBank`) feed the ViT in the
+loop: E2E pre-training and `e2e_imagination`.
 """
 
 from __future__ import annotations
@@ -87,6 +88,62 @@ def build_feature_table(
         for i, vp in enumerate(g.node_ids):
             out[s, i] = db.get_image_feature(g.scan_id, vp)[:, :feat_dim]
     return out
+
+
+class RawPanoramaBank:
+    """Raw (preprocessed) panorama views aligned with the compiled world's
+    node indexing: one mmap'd .npy [S, N, V, h, w, 3] float32.  Replaces the
+    reference's LMDB raw-image store for the six E2E image pre-train tasks
+    (pretrain_src/data/image_data.py); batch assembly is zero-copy slicing.
+    Any array-like with the same indexing (e.g. an in-memory array for
+    tests) works wherever a bank is accepted."""
+
+    def __init__(self, array_path: str, image_size: int):
+        self.arr = np.load(array_path, mmap_mode="r")
+        if self.arr.ndim != 6 or self.arr.shape[3] != image_size:
+            raise ValueError(f"expected [S, N, V, {image_size}, {image_size}, "
+                             f"3], got {self.arr.shape}")
+        self.image_size = image_size
+
+    def __getitem__(self, key):
+        return np.asarray(self.arr[key])
+
+    @property
+    def shape(self):
+        return self.arr.shape
+
+
+class RawImaginationImageBank:
+    """Raw imagination images keyed by instr_id, for the ViT in the step
+    (ModelConfig.e2e_imagination): one mmap'd .npy of preprocessed float32
+    images [N, h, w, 3] and an instr_id -> row-range index, in place of the
+    reference's LMDB raw-image store (pretrain_src/data/image_data.py)."""
+
+    def __init__(self, array_path: str, index: dict[str, tuple[int, int]],
+                 image_size: int):
+        self.arr = np.load(array_path, mmap_mode="r")
+        if self.arr.ndim != 4 or self.arr.shape[1] != image_size:
+            raise ValueError(f"expected [N, {image_size}, {image_size}, 3], "
+                             f"got {self.arr.shape}")
+        self.index = index
+        self.image_size = image_size
+
+    def get_images(self, instr_id: str) -> np.ndarray:
+        lo, hi = self.index[instr_id]
+        return np.asarray(self.arr[lo:hi])
+
+    def batch_images(self, instr_ids: Iterable[str],
+                     generated_flags: dict[str, list[str]],
+                     max_imaginations: int) -> tuple[np.ndarray, np.ndarray]:
+        """(images [B, I, H, W, 3], mask [B, I]) with the same sub-instruction
+        slot scatter as build_imagination_arrays."""
+        instr_ids = list(instr_ids)
+        hw = self.image_size
+        imgs = np.zeros((len(instr_ids), max_imaginations, hw, hw, 3),
+                        np.float32)
+        mask = _scatter_by_flags(instr_ids, generated_flags, max_imaginations,
+                                 self.get_images, imgs)
+        return imgs, mask
 
 
 def _scatter_by_flags(instr_ids, generated_flags, max_imaginations,

@@ -21,9 +21,9 @@ into `detail_<split>.json` (main_nav.py:384).  Validation scores each
 task variant by its own metrics (variants.py): REVERIE / SOON by object
 navigation and grounding (RGS, RGSPL, `predObjId` in the submission),
 r2r_back by the declared midstop, CVDN by goal progress over the split's
-`end_panos`.  Not ported yet, and refused with NotImplementedError: a
-device mesh (ROADMAP Queue 1 item 7), `e2e_imagination` (item 5) and the
-JAX pre-trainer's snapshots (`init_from_pretrain`, item 6).
+`end_panos`.  `init_from_pretrain` grafts a snapshot of the port's
+pre-trainer (pretrain/trainer.py) into the navigator.  Not ported yet, and
+refused with NotImplementedError: a device mesh (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -79,7 +79,6 @@ def refuse_unported(cfg: Config) -> None:
     unported = [
         (cfg.mesh.data_parallelism != 0, "a device mesh (data parallelism)",
          7),
-        (cfg.model.e2e_imagination != "off", "e2e_imagination", 5),
     ]
     for bad, what, item in unported:
         if bad:
@@ -252,9 +251,33 @@ class FinetuneDriver:
                 "skipped": loaded["skipped"]}
 
     def init_from_pretrain(self, path: str) -> dict:
-        raise NotImplementedError(
-            "the pre-training snapshots (scripts/pretrain.py) are not ported "
-            "yet: ROADMAP Queue 1 item 6")
+        """Initialize the navigator from a pre-training snapshot
+        (`model_step_<N>`, the port's pre-trainer's `torch.save` of its
+        model's state_dict: the reference's ModelSaver file,
+        pretrain_src/utils/save.py:23-46, consumed at fine-tune model
+        construction, vlnbert_init.py:20-31).  Shared submodules take the
+        pre-trained values; fine-tune-only modules (imagination, critic,
+        aux head) stay at init.  Returns {'transferred', 'missing'}."""
+        from vln_imagine_tpu_torch.ckpt.convert import (
+            flax_from_state_dict,
+            state_dict_from_flax,
+        )
+        from vln_imagine_tpu_torch.ckpt.transfer import (
+            init_finetune_from_pretrain,
+        )
+
+        agent = self.cfg.agent
+        snapshot = torch.load(path, map_location="cpu", weights_only=True)
+        model = self.trainer.model
+        new_params, transferred, missing = init_finetune_from_pretrain(
+            flax_from_state_dict(model.state_dict(), agent),
+            flax_from_state_dict(snapshot, "hamt_pretrain"
+                                 if agent == "hamt" else agent))
+        if transferred == 0:
+            raise ValueError(f"no parameter subtree of '{path}' matched the "
+                             f"{agent} fine-tune model")
+        model.load_state_dict(state_dict_from_flax(new_params, agent))
+        return {"transferred": transferred, "missing": missing}
 
     # ----------------------------------------------------------------- train
     def train_interval(self, n_iters: int) -> dict:

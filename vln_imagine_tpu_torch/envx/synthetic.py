@@ -8,8 +8,7 @@ suite and the throughput benchmark.
 
 The port's own copy of the JAX package's generator: the same numpy RNG
 calls in the same order, so both packages build bit-identical tables from a
-seed.  Raw imagination images (`imagine_image_size`) wait for the ViT
-slice (ROADMAP Queue 1 item 5).
+seed, raw imagination images (`imagine_image_size`) included.
 """
 
 from __future__ import annotations
@@ -118,10 +117,12 @@ def synthetic_episodes(
     feat_dim: int | None = None,
     seed: int = 0,
     min_hops: int = 2,
+    imagine_image_size: int | None = None,
 ) -> EpisodeBatch:
     """Sample R2R-like episodes: (start, goal) pairs a few hops apart, the
     ground-truth path from the next-hop table, random instruction tokens,
-    imagination features, and noun-phrase weight rows."""
+    imagination features, and noun-phrase weight rows; with
+    `imagine_image_size` also raw imagination images for e2e_imagination."""
     rng = np.random.default_rng(seed)
     S = world.num_scans
     node_valid = np.asarray(world.node_valid)
@@ -193,6 +194,13 @@ def synthetic_episodes(
                                                             goals[b]]]
             gt_obj_id[b] = vis[rng.integers(0, len(vis))] if len(vis) else 0
 
+    imagine_images = None
+    if imagine_image_size is not None:
+        hw = imagine_image_size
+        imagine_images = rng.standard_normal(
+            (batch, I, hw, hw, 3)).astype(np.float32)
+        imagine_images *= imagine_mask[:, :, None, None, None]
+
     return EpisodeBatch(
         scan=scans.astype(np.int32),
         start_node=starts.astype(np.int32),
@@ -205,4 +213,5 @@ def synthetic_episodes(
         imagine_mask=imagine_mask,
         np_weights=np_weights,
         gt_obj_id=gt_obj_id,
+        imagine_images=imagine_images,
     )

@@ -103,6 +103,9 @@ class EpisodeBatch(_Arrays):
     np_weights: Any     # [B, I, L] f32 noun-phrase mean weights
     midstop: Optional[Any] = None    # [B] i32 r2r_back turn-around node
     gt_obj_id: Optional[Any] = None  # [B] i32 REVERIE/SOON target object
+    # raw (preprocessed) imagination images [B, I, Hp, Wp, 3] f32, read in
+    # place of imagine_feats when ModelConfig.e2e_imagination != 'off'
+    imagine_images: Optional[Any] = None
 
     @property
     def batch(self) -> int:

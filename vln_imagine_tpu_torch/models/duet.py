@@ -30,8 +30,11 @@ Object tokens reach the pano encoder through the view embedding:
 `obj_feat_size != image_feat_size` as the JAX package does, are never
 applied (they keep a released checkpoint's keys).
 
-Not ported yet: the in-model ViT (`e2e_imagination`), `lang2visn_stack`
-and its `use_lang2visn_attn` blocks.
+Under `e2e_imagination` the imagine mode embeds raw imagination images
+with the in-model ViT (`imagine_vit`, models/vit.py), as HAMT's does.
+
+Not ported yet: `lang2visn_stack` and its `use_lang2visn_attn` blocks (the
+DUET pre-training slice, ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -58,6 +61,10 @@ from vln_imagine_tpu_torch.models.hamt import (
     ContrastiveAlignment,
     _stop_gradient,
     align_imagination,
+)
+from vln_imagine_tpu_torch.models.vit import (
+    extract_imagine_features,
+    make_imagine_vit,
 )
 from vln_imagine_tpu_torch.ops.dropout import dropout
 from vln_imagine_tpu_torch.ops.masks import extend_neg_mask, mask_logits
@@ -144,9 +151,6 @@ class DuetModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, feat_dropout: float = 0.4):
         super().__init__()
-        if cfg.e2e_imagination != "off":
-            raise NotImplementedError(
-                "e2e_imagination is not ported yet: ROADMAP Queue 1 item 5")
         if cfg.imagine_enc_pano and not cfg.bypass_imag_encoder:
             # the DUET reference ships only the bypass embeddings
             # (vilmodel.py:562), and so does the JAX package
@@ -172,6 +176,8 @@ class DuetModel(nn.Module):
             self.imagine_embeddings = BypassImagineEmbeddings(cfg)
             if cfg.use_cosine_aux_loss or cfg.no_loss_test:
                 self.contrastive_alignment_model = ContrastiveAlignment(cfg)
+            if cfg.e2e_imagination != "off":
+                self.imagine_vit = make_imagine_vit(cfg)
 
     def drop_env(self, feats, rng):
         """The VLNBert wrapper's env-feature dropout (models/model.py)."""
@@ -186,6 +192,11 @@ class DuetModel(nn.Module):
                                      extend_neg_mask(txt_mask), rng)
 
     def imagine(self, imagine_feats, rng=None):
+        """imagine_feats: [B, I, H] features, or under e2e_imagination raw
+        images [B, I, Hp, Wp, 3] for the in-model ViT."""
+        if self.config.e2e_imagination != "off":
+            imagine_feats = extract_imagine_features(
+                self.imagine_vit, imagine_feats, self.config)
         return self.imagine_embeddings(self.drop_env(imagine_feats, rng))
 
     def align_with_contrastive_loss(self, txt_embeds, txt_mask, imagine_embeds,

@@ -27,7 +27,10 @@ gradients (`fix_lang_embedding`, `fix_hist_embedding`, and
 `fix_imagine_embeds` / `fix_obs_embedding`) run their branch under
 `torch.no_grad()`, so no residuals are kept for layers that get no gradient.
 
-Not ported yet: the ViT (ROADMAP Queue 1 item 5).
+Under `e2e_imagination` ('frozen' or 'trainable') the imagine mode takes
+raw imagination images [B, I, Hp, Wp, 3] and embeds them with the in-model
+ViT (`imagine_vit`, models/vit.py) before the imagination embeddings;
+'frozen' runs the ViT without autograd.
 """
 
 from __future__ import annotations
@@ -50,6 +53,10 @@ from vln_imagine_tpu_torch.models.bert import (
     MLPProjectionHead,
     NextActionPrediction,
     compute_dtype,
+)
+from vln_imagine_tpu_torch.models.vit import (
+    extract_imagine_features,
+    make_imagine_vit,
 )
 from vln_imagine_tpu_torch.ops.dropout import dropout
 from vln_imagine_tpu_torch.ops.masks import extend_neg_mask, mask_logits
@@ -314,9 +321,6 @@ class HamtModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, feat_dropout: float = 0.4):
         super().__init__()
-        if cfg.e2e_imagination != "off":
-            raise NotImplementedError(
-                "e2e_imagination is not ported yet: ROADMAP Queue 1 item 5")
         self.config = cfg
         self.feat_dropout = feat_dropout
         self.embeddings = BertEmbeddings(cfg)
@@ -328,6 +332,8 @@ class HamtModel(nn.Module):
                                        else ImagineEmbeddings(cfg))
             if cfg.use_cosine_aux_loss or cfg.no_loss_test:
                 self.contrastive_alignment_model = ContrastiveAlignment(cfg)
+            if cfg.e2e_imagination != "off":
+                self.imagine_vit = make_imagine_vit(cfg)
         self.encoder = HamtEncoder(cfg)
         self.next_action = NextActionPrediction(cfg)
         if cfg.obj_feat_size > 0:
@@ -377,7 +383,12 @@ class HamtModel(nn.Module):
                                         pano_ang_feats, rng)
 
     def imagine(self, imagine_feats, imagine_mask=None, rng=None):
+        """imagine_feats: [B, I, H] features, or under e2e_imagination raw
+        images [B, I, Hp, Wp, 3] for the in-model ViT."""
         with _stop_gradient(self.config.fix_imagine_embeds):
+            if self.config.e2e_imagination != "off":
+                imagine_feats = extract_imagine_features(
+                    self.imagine_vit, imagine_feats, self.config)
             feats = self.drop_env(imagine_feats, rng)
             if self.config.bypass_imag_encoder:
                 return self.imagine_embeddings(feats)

@@ -132,7 +132,8 @@ def parse_args(argv=None):
                         "format (agent_cmt.py:837-875); loads weights, "
                         "keeps the optimizer state fresh")
     p.add_argument("--init-from-pretrain",
-                   help="model_step_<N> snapshot from scripts/pretrain.py; "
+                   help="model_step_<N> snapshot of the port's pre-training "
+                        "CLI (scripts/pretrain.py); "
                         "grafts the shared submodules into the fine-tune "
                         "model (vlnbert_init.py:20-31 init chain)")
     p.add_argument("--bert-ckpt-file",
@@ -161,8 +162,6 @@ def refuse_unported(args) -> None:
     whose branch the port does not have yet."""
     unported = [
         (args.mesh_data, "--mesh-data", 7),
-        (args.e2e_imagination != "off", "--e2e-imagination", 5),
-        (args.init_from_pretrain, "--init-from-pretrain", 6),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -217,7 +216,10 @@ def build_synthetic(cfg):
             max_instr_len=cfg.env.max_instr_len,
             max_imaginations=cfg.model.max_imagination_len,
             vocab_size=cfg.model.vocab_size,
-            feat_dim=cfg.model.hidden_size, seed=seed)
+            feat_dim=cfg.model.hidden_size, seed=seed,
+            imagine_image_size=(cfg.model.e2e_vit_image_size
+                                if cfg.model.e2e_imagination != "off"
+                                else None))
         return SplitData(name, ep, [f"{name}_{i}" for i in range(n)])
 
     return world, split("train", 64, 1), [split("val_seen", 16, 2),
@@ -304,6 +306,20 @@ def build_real(cfg, args):
     imag_db = (ImaginationImageFeaturesDB(args.imagine_features,
                                           cfg.model.hidden_size)
                if args.imagine_features else None)
+    image_bank = None
+    if cfg.model.e2e_imagination != "off":
+        import json
+
+        from vln_imagine_tpu_torch.data.features import (
+            RawImaginationImageBank,
+        )
+        if not (args.imagine_image_bank and args.imagine_image_index):
+            raise SystemExit("--e2e-imagination needs --imagine-image-bank "
+                             "and --imagine-image-index")
+        with open(args.imagine_image_index) as f:
+            index = {k: tuple(v) for k, v in json.load(f).items()}
+        image_bank = RawImaginationImageBank(
+            args.imagine_image_bank, index, cfg.model.e2e_vit_image_size)
 
     def make_split(name):
         items = all_items[name]
@@ -317,8 +333,12 @@ def build_real(cfg, args):
                 use_player_path=(name == "train"))
             return SplitData(name, ep, ids, end_panos=end_panos)
         instr_ids = [it["instr_id"] for it in items]
-        imagine = mask_override = None
-        if imag_db is not None and not cfg.model.imagination_data_v2:
+        imagine = images = mask_override = None
+        if image_bank is not None and meta.generated_flags:
+            images, _ = image_bank.batch_images(
+                instr_ids, meta.generated_flags,
+                cfg.model.max_imagination_len)
+        elif imag_db is not None and not cfg.model.imagination_data_v2:
             # v1: densely packed features, first-n mask, no flag JSON
             imagine, mask_override = build_imagination_arrays_v1(
                 imag_db, instr_ids, cfg.model.max_imagination_len,
@@ -330,8 +350,8 @@ def build_real(cfg, args):
         ep, ids = episodes_from_annotations(
             items, graphs, meta, cfg.env.max_instr_len,
             cfg.env.max_gt_path_len, cfg.model.max_imagination_len, imagine,
-            imagine_mask_override=mask_override, obj_id_fn=obj_id_fn,
-            imagine_feat_dim=cfg.model.hidden_size)
+            imagine_images=images, imagine_mask_override=mask_override,
+            obj_id_fn=obj_id_fn, imagine_feat_dim=cfg.model.hidden_size)
         return SplitData(name, ep, ids)
 
     train = make_split(args.splits[0])
@@ -456,6 +476,12 @@ def main(argv=None):
         print(f"initialized from reference checkpoint "
               f"{args.init_from_reference} (epoch {info['epoch']}, "
               f"{len(info['skipped'])} keys skipped)")
+    if args.init_from_pretrain:
+        info = driver.init_from_pretrain(args.init_from_pretrain)
+        print(f"initialized from pretrain snapshot "
+              f"{args.init_from_pretrain} ({info['transferred']} leaves "
+              f"transferred, {len(info['missing'])} finetune-only modules "
+              f"at init)")
     if args.bert_ckpt_file:
         info = driver.init_from_bert_ckpt(args.bert_ckpt_file)
         print(f"initialized from torch pretrain checkpoint "

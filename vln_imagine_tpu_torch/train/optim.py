@@ -1,6 +1,6 @@
 """Optimizers of the train steps: global-norm clipping, then one of the
 reference's optimizer family over parameter groups with step-indexed
-learning rates.
+learning rates; and the pre-training optimizer (`pretrain_optimizer`).
 
 The port of `vln_imagine_tpu/train/optim.py` (the fine-tune optimizers).
 The reference builds a 3-group torch optimizer over {contrastive alignment
@@ -75,8 +75,10 @@ class ParamGroup:
     `unfreeze_step` on (optax `freeze_until`).  A parameter's moments are
     created at its first gradient: a parameter that never had one has zero
     moments, for which every transform's update is exactly zero, so it is
-    skipped.  `state` keys the moments (a tuple in `MOMENTS[optim]` order)
-    by the parameter's index in `params`, so that they can be saved."""
+    skipped, unless weight decay moves it (optax decays every parameter it
+    is given, a zero gradient or not).  `state` keys the moments (a tuple
+    in `MOMENTS[optim]` order) by the parameter's index in `params`, so
+    that they can be saved."""
 
     MOMENTS = {"adam": ("mu", "nu"), "adamw": ("mu", "nu"),
                "radam": ("mu", "nu"), "ralamb": ("mu", "nu"),
@@ -86,9 +88,14 @@ class ParamGroup:
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  lr: Callable[[int], float], weight_decay: float = 0.0,
-                 unfreeze_step: int = 0, optim: str = "adamw"):
+                 unfreeze_step: int = 0, optim: str = "adamw",
+                 b2: float | None = None, eps: float | None = None):
         if optim not in OPTIMS:
             raise ValueError(f"optimizer {optim!r}; one of {OPTIMS}")
+        if b2 is not None:
+            self.b2 = b2
+        if eps is not None:
+            self.eps = eps
         self.params = list(params)
         self.lr, self.weight_decay = lr, weight_decay
         self.unfreeze_step = unfreeze_step
@@ -145,7 +152,7 @@ class ParamGroup:
         step_size = -self.lr(self.count)
         for i, p in enumerate(self.params):
             g = p.grad
-            if g is None and i not in self.state:
+            if g is None and i not in self.state and not self.weight_decay:
                 continue
             if g is None:
                 g = torch.zeros_like(p)
@@ -330,3 +337,51 @@ def plain_optimizer(params, base_lr: float, optim: str = "adamw",
     return GroupedOptimizer(
         [ParamGroup(params, lambda count: base_lr, weight_decay, optim=optim)],
         max_grad_norm, lookahead=optim == "rangerlars")
+
+
+def warmup_linear_schedule(base_lr: float, warmup_steps: int,
+                           total_steps: int) -> Callable[[int], float]:
+    """Pre-training lr: linear warm-up then linear decay
+    (pretrain_src/optim/sched.py:15-30), in f32 as the JAX package
+    computes it; 0 at count 0."""
+    def schedule(count: int) -> float:
+        c = torch.tensor(float(count))
+        if count < warmup_steps:
+            return float(base_lr * c / max(warmup_steps, 1))
+        return float(base_lr * torch.clamp(
+            (total_steps - c) / max(1, total_steps - warmup_steps), min=0.0))
+
+    return schedule
+
+
+def no_decay_parameter(model: torch.nn.Module, name: str) -> bool:
+    """Whether `name` is exempt from weight decay: biases and LayerNorm
+    weights (the leaves the JAX package's mask finds by their flax names
+    `bias` and `scale`; in torch a LayerNorm's and a Linear's weights share
+    one name, so the module type decides)."""
+    from vln_imagine_tpu_torch.models.bert import LayerNormF32
+
+    owner, _, leaf = name.rpartition(".")
+    return leaf == "bias" or (
+        leaf == "weight"
+        and isinstance(model.get_submodule(owner), LayerNormF32))
+
+
+def pretrain_optimizer(model: torch.nn.Module, base_lr: float,
+                       warmup_steps: int, total_steps: int,
+                       weight_decay: float = 0.01,
+                       max_grad_norm: float = 5.0) -> GroupedOptimizer:
+    """clip_by_global_norm(max_grad_norm) -> Adam (b2 0.98, eps 1e-6) ->
+    decoupled weight decay on every parameter but the biases and LayerNorm
+    weights (pretrain_src/optim/misc.py:12-37) -> the warm-up-linear lr,
+    as the JAX package's optax chain, which moves a parameter without a
+    gradient as a zero gradient moves it."""
+    sched = warmup_linear_schedule(base_lr, warmup_steps, total_steps)
+    decay, no_decay = [], []
+    for name, p in model.named_parameters():
+        (no_decay if no_decay_parameter(model, name) else decay).append(p)
+    return GroupedOptimizer([
+        ParamGroup(decay, sched, weight_decay, optim="adam", b2=0.98,
+                   eps=1e-6),
+        ParamGroup(no_decay, sched, 0.0, optim="adam", b2=0.98, eps=1e-6),
+    ], max_grad_norm)

@@ -79,6 +79,7 @@ from vln_imagine_tpu_torch.ops.masks import LOGIT_NEG_INF
 from vln_imagine_tpu_torch.platform import resolve_device
 from vln_imagine_tpu_torch.train.rollout_hamt import (
     a2c_loss,
+    imagination_input,
     sample_categorical,
     sample_uniform,
     shaped_reward,
@@ -244,7 +245,7 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
     aux_loss = zero
     imagine_embeds = None
     if mcfg.imagine_enc_pano:
-        imagine_embeds = model.imagine(ep.imagine_feats, drop)
+        imagine_embeds = model.imagine(imagination_input(ep, mcfg), drop)
         if mcfg.use_cosine_aux_loss:
             aux_loss, imagine_embeds = model.align_with_contrastive_loss(
                 txt_embeds, ep.txt_mask, imagine_embeds, ep.imagine_mask,

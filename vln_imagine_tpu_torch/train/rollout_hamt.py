@@ -159,6 +159,24 @@ def _select_action(logits, valid, teacher, feedback: str, rng: Rng | None,
     return a.to(torch.int32), chosen, entropy
 
 
+def imagination_input(ep: EpisodeBatch, mcfg):
+    """What the imagine mode takes: raw images under e2e_imagination, else
+    the precomputed features; raises when the episodes lack them."""
+    e2e = mcfg.e2e_imagination != "off"
+    x = ep.imagine_images if e2e else ep.imagine_feats
+    if x is None:
+        if e2e:
+            raise ValueError(
+                "e2e_imagination is on but EpisodeBatch.imagine_images is "
+                "None: load raw images (RawImaginationImageBank / "
+                "synthetic_episodes(imagine_image_size=...))")
+        raise ValueError(
+            "imagine_enc_pano is on but EpisodeBatch.imagine_feats is None: "
+            "load precomputed imagination features "
+            "(ImaginationImageFeaturesDB) or disable imagination")
+    return x
+
+
 def rollout_hamt(model: HamtModel, tables: WorldTables, ep: EpisodeBatch,
                  cfg: Config, rng: Rng | None = None, critic: Critic | None = None,
                  feedback: str = "argmax", train_ml: float | None = None,
@@ -214,7 +232,8 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
     aux_loss = zero
     imagine_embeds = None
     if mcfg.imagine_enc_pano:
-        imagine_embeds = model.imagine(ep.imagine_feats, ep.imagine_mask, drop)
+        imagine_embeds = model.imagine(imagination_input(ep, mcfg),
+                                       ep.imagine_mask, drop)
         if mcfg.use_cosine_aux_loss:
             # a fused batch: each half normalised alone, negatives from its
             # own half (one alignment call per rollout in the reference)

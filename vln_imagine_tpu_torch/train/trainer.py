@@ -17,7 +17,9 @@ carries the 3-stage imagination warm-up, the critic's does neither.
 The eval step returns a third element for the tasks that score one: the
 grounded object (REVERIE / SOON) or the declared midstop (r2r_back).
 
-Not ported yet: the ViT of `e2e_imagination` (ROADMAP Queue 1 item 5).
+Under `e2e_imagination` the model holds the imagination ViT
+(models/vit.py): 'frozen' keeps it out of the optimizer, 'trainable' trains
+it with the rest of the navigator.
 """
 
 from __future__ import annotations
@@ -51,16 +53,16 @@ _TRUNC_STD = 0.87962566103423978
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """flax's default initializers, drawn from `generator` in module order:
-    Dense kernels lecun_normal (the packed q/k/v projection of DUET's pano
-    encoder too), biases 0, embeddings N(0, 1/dim), LayerNorm 1 and 0, the
-    history [CLS] token 0."""
+    Dense and Conv kernels lecun_normal (the packed q/k/v projection of
+    DUET's pano encoder too), biases 0, embeddings N(0, 1/dim), LayerNorm 1
+    and 0, the [CLS] tokens 0, the ViT's position embeddings N(0, 0.02)."""
     def lecun_normal(weight):
-        std = 1.0 / math.sqrt(weight.shape[1]) / _TRUNC_STD
+        std = 1.0 / math.sqrt(weight[0].numel()) / _TRUNC_STD
         nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
                               generator=generator)
 
     for mod in model.modules():
-        if isinstance(mod, nn.Linear):
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
             lecun_normal(mod.weight)
             if mod.bias is not None:
                 mod.bias.zero_()
@@ -76,21 +78,28 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     for name, p in model.named_parameters():
         if name.endswith("cls_token"):
             p.zero_()
+        elif name.endswith("pos_embed"):
+            p.normal_(0.0, 0.02, generator=generator)
 
 
 def model_optimizer(cfg: Config, model: nn.Module):
     """The navigator's optimizer: the 3-stage imagination warm-up when the
     recipe asks for it (variant4 with the cosine alignment on), else plain
-    Adam; both clip at `max_grad_norm`."""
+    Adam; both clip at `max_grad_norm`.  A 'frozen' e2e ViT is in no group
+    (the JAX package's `freeze_module`: no update, so no weight decay
+    either); a 'trainable' one falls in the warm-up's "rest" group."""
     tcfg, mcfg = cfg.train, cfg.model
+    named = [(n, p) for n, p in model.named_parameters()
+             if not (mcfg.e2e_imagination == "frozen"
+                     and n.startswith("imagine_vit."))]
     if (tcfg.experimental_warmup and tcfg.experimental_warmup_type == "variant4"
             and mcfg.imagine_enc_pano and mcfg.use_cosine_aux_loss):
         return warmup_variant4_optimizer(
-            model.named_parameters(), tcfg.lr, tcfg.iters, tcfg.optim,
+            named, tcfg.lr, tcfg.iters, tcfg.optim,
             tcfg.max_grad_norm, stage1_iters=tcfg.warmup_stage1_iters,
             stage2_iters=tcfg.warmup_stage2_iters,
             weight_decay=tcfg.weight_decay)
-    return plain_optimizer(model.parameters(), tcfg.lr, tcfg.optim,
+    return plain_optimizer([p for _, p in named], tcfg.lr, tcfg.optim,
                            tcfg.max_grad_norm, weight_decay=tcfg.weight_decay)
 
 

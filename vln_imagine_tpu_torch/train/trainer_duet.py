@@ -18,7 +18,8 @@ rest) the DUET keys share with HAMT.
 With objects (REVERIE / SOON) the eval step also returns the grounded
 object per item.
 
-Not ported yet: the ViT of `e2e_imagination` (ROADMAP Queue 1 item 5).
+Under `e2e_imagination` the model holds the imagination ViT, kept out of
+the optimizer when 'frozen' (train/trainer.py:model_optimizer).
 """
 
 from __future__ import annotations
