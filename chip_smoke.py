@@ -148,12 +148,25 @@ failed check exits non-zero:
                 autograd; `SyntheticPanoramas` makes the bank from a seed):
                 one step of each task, K1 / K4 from the ViT calls, K2 / K3
                 from `pretrain_calls`, each ViT call's autograd state.
-25. pretrain_cli `scripts.pretrain --agent hamt --synthetic --steps 4
-                --log-steps 2 --valid-steps 2` with no --device, then with
-                `--e2e` (32 px, B 2), each writing `model_step_4`; then
+25. duet_pretrain `DuetPretrainer` at duet_r2r_config with
+                `use_lang2visn_attn`, B 64, image_prob_size 1000, the bench
+                episodes as trajectories: after a warm-up round one step of
+                each of mlm, mrc and sap (K2 = K3 = 27, 19, 27 from
+                `duet_pretrain_calls`: mrc and og skip the global branch),
+                the host's batch assembly and the device's busy time (one
+                more step under torch.profiler) beside the step, peak
+                memory; `validate` (K1 only); og at the REVERIE-DUET preset
+                on the bench world with 20 objects a node, B 8, and its
+                `validate`; each task's f32 loss and gradients at B 2, card
+                (K1, K4 with dBias into sprel_linear) vs CPU.
+26. pretrain_cli `scripts.pretrain --synthetic --steps 4 --log-steps 2
+                --valid-steps 2` with no --device: `--agent hamt`, the same
+                with `--e2e` (32 px, B 2), and `--agent duet` (the DUET
+                preset, B 64), each writing `model_step_4`; then
                 `scripts.train --synthetic --iters 2 --init-from-pretrain`
-                the feature run's snapshot, which transfers leaves.
-26. kernels     every kernel against its plain PyTorch version on the card:
+                the HAMT feature run's snapshot and, `--agent duet`, the
+                DUET run's: each transfers leaves.
+27. kernels     every kernel against its plain PyTorch version on the card:
                 K1 at every (Lq, Lk) of the eval path, B 8 and 64, and of
                 the teacher step, B 8; K2 (both bit sources), K3 (both) and
                 K4 at every training shape, B 8; every kernel also at the
@@ -172,7 +185,11 @@ failed check exits non-zero:
                 100/100), and at 70/70 with one item's object keys all
                 masked (`NO_OBJECTS_SHAPE`); K1 (B 64) and K4 (B 8) at the
                 ViT's 197/197 with no bias (`VIT_SHAPE`), q/k/v views of one
-                packed qkv product.
+                packed qkv product; at DUET pre-training's shapes
+                (`DUET_PRETRAIN_SHAPES`: lang2visn's 200/97 and 200/51, K1
+                at B 64, K2 / K3 at B 8 and 64; `PANO_ROWS_SHAPE`: every
+                kernel at 50/50 over 960 rows, two thirds of them with
+                every key masked at -1e9).
                 Kernel, plain and library times
                 (CUDA-graph replays between CUDA events) beside the least
                 time the card could take.  Two K2 calls, and two K3 calls,
@@ -283,6 +300,13 @@ VARIANT_SHAPES = [(150, 150, "pad"), (151, 101, "mask"), (70, 70, "pad"),
 NO_OBJECTS_SHAPE = (70, 70, "no_objects")
 # the ViT-B/16's self-attention at 224 px: [CLS] + 14 x 14 patches, no bias
 VIT_SHAPE = (197, 197)
+# DUET pre-training's new calls: MLM's lang2visn, the 200 text queries over
+# the global branch's 97 and the local branch's 51 keys (-10000 key mask);
+# and the pano encoder over every step of 64 end-aligned trajectories of 15
+# steps, 960 rows of 50/50 with the -1e9 key padding, the padding steps'
+# rows (two thirds) with every key masked
+DUET_PRETRAIN_SHAPES = [(200, 97, "mask"), (200, 51, "mask")]
+PANO_ROWS, PANO_ROWS_SHAPE = 960, (50, 50, "pad_rows")
 DUET_TEXT_CALLS = 9
 DUET_STEP_CALLS = {(50, 50): 2, (97, 220): 4, (97, 97): 4, (51, 220): 4,
                    (51, 51): 4}
@@ -2466,11 +2490,12 @@ def e2e_pretrain_phase(torch, cfg, world):
 def pretrain_cli_phase(torch, scratch: Path):
     """The pre-training CLI on the card as a user runs it, with no
     --device: `--agent hamt --synthetic --steps 4 --log-steps 2
-    --valid-steps 2`, then the same with `--e2e` (at 32 px and batch 2: the
-    synthetic bank of its world at 224 px would be 4.2 GB); each writes
-    `model_step_4`.  Then the train CLI `--synthetic --iters 2
-    --log-every 1 --init-from-pretrain` the feature run's snapshot, which
-    must transfer leaves."""
+    --valid-steps 2`, the same with `--e2e` (at 32 px and batch 2: the
+    synthetic bank of its world at 224 px would be 4.2 GB), and with
+    `--agent duet` (the DUET preset: mlm / mrc / sap at batch 64); each
+    writes `model_step_4`.  Then the train CLI `--synthetic --iters 2
+    --log-every 1 --init-from-pretrain` the HAMT feature run's snapshot
+    and, `--agent duet`, the DUET run's: each must transfer leaves."""
     import contextlib
     import io
     import re
@@ -2480,12 +2505,13 @@ def pretrain_cli_phase(torch, scratch: Path):
     from vln_imagine_tpu_torch.scripts import train as tcli
 
     fresh_phase(torch)
-    base = ["--agent", "hamt", "--synthetic", "--steps", "4", "--log-steps",
-            "2", "--valid-steps", "2"]
+    base = ["--synthetic", "--steps", "4", "--log-steps", "2",
+            "--valid-steps", "2"]
     runs = {}
-    for name, extra in (("features", []),
-                        ("e2e", ["--e2e", "--image-size", "32",
-                                 "--batch-size", "2"])):
+    for name, extra in (("features", ["--agent", "hamt"]),
+                        ("e2e", ["--agent", "hamt", "--e2e", "--image-size",
+                                 "32", "--batch-size", "2"]),
+                        ("duet", ["--agent", "duet"])):
         log = scratch / name
         attention.reset_launch_counts()
         t = time.perf_counter()
@@ -2508,29 +2534,277 @@ def pretrain_cli_phase(torch, scratch: Path):
               and (launches["attention_bwd"] > 0) == (name == "e2e"),
               f"pretrain CLI {name} launches {launches}")
         runs[name] = {"seconds": seconds, "launches": launches,
+                      "agent": pt.cfg.agent, "tasks": pt.cfg.pretrain.tasks,
+                      "batch": pt.cfg.pretrain.batch_size,
                       "hidden_size": pt.cfg.model.hidden_size,
                       "valid_losses": losses}
         del pt
         torch.cuda.empty_cache()
-    out = io.StringIO()
-    attention.reset_launch_counts()
-    with contextlib.redirect_stdout(out):
-        d = tcli.main(["--synthetic", "--iters", "2", "--log-every", "1",
-                       "--init-from-pretrain",
-                       str(scratch / "features" / "model_step_4"),
-                       "--log-dir", str(scratch / "finetune")])
-    torch.cuda.synchronize()
-    m = re.search(r"\((\d+) leaves transferred", out.getvalue())
-    check(m is not None and int(m.group(1)) > 0 and d.device.type == "cuda",
-          f"--init-from-pretrain: {out.getvalue()[-500:]}")
-    runs["finetune"] = {"leaves_transferred": int(m.group(1)),
-                        "launches": attention.launch_counts()}
-    del d
-    torch.cuda.empty_cache()
+    check(runs["duet"]["batch"] == DUET_PRETRAIN_BATCH
+          and runs["duet"]["tasks"] == DUET_PRETRAIN_TASKS,
+          f"the DUET preset: {runs['duet']}")
+    for name, agent, source in (("finetune", "hamt", "features"),
+                                ("finetune_duet", "duet", "duet")):
+        out = io.StringIO()
+        attention.reset_launch_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            d = tcli.main(["--agent", agent, "--synthetic", "--iters", "2",
+                           "--log-every", "1", "--init-from-pretrain",
+                           str(scratch / source / "model_step_4"),
+                           "--log-dir", str(scratch / name)])
+        torch.cuda.synchronize()
+        m = re.search(r"\((\d+) leaves transferred", out.getvalue())
+        check(m is not None and int(m.group(1)) > 0
+              and d.device.type == "cuda",
+              f"--init-from-pretrain ({agent}): {out.getvalue()[-500:]}")
+        runs[name] = {"seconds": time.perf_counter() - t,
+                      "leaves_transferred": int(m.group(1)),
+                      "launches": attention.launch_counts()}
+        del d
+        torch.cuda.empty_cache()
     emit({"phase": "pretrain_cli", "argv": " ".join(base), "runs": runs,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     return {k: max(r["launches"][k] for r in runs.values())
             for k in runs["e2e"]["launches"]}
+
+
+# ------------------------------------------------------ DUET pre-training
+DUET_PRETRAIN_TASKS = ("mlm", "mrc", "sap")  # r2r_pretrain.json, 1:1:1
+DUET_PRETRAIN_BATCH = 64  # the released DUET pre-training batch
+DUET_OG_BATCH = 8
+DUET_OG_OBJECTS = 20  # REVERIE's objects a node (variants phase)
+
+
+def duet_pretrain_calls(cfg, task: str) -> int:
+    """Attention calls of one DUET pre-training step of `task`, forward (K2
+    in training, K1 in validation) and backward alike: the language stack,
+    the pano encoder over every step of every trajectory at once, and the
+    cross-modal layers (a cross- and a self-attention each) in both
+    branches for mlm (the language queries each, lang2visn) and sap, in the
+    local branch alone for mrc and og, which do not read the global one."""
+    m = cfg.model
+    branches = 2 if task in ("mlm", "sap") else 1
+    return m.num_l_layers + m.num_pano_layers + 2 * branches * m.num_x_layers
+
+
+def duet_pretrain_cfg(cfg, tasks: tuple, batch: int):
+    from vln_imagine_tpu_torch.config import _replace
+
+    return _replace(cfg, "pretrain", tasks=tasks,
+                    mix_ratio=(1,) * len(tasks), batch_size=batch)
+
+
+def device_busy_ms(torch, fn):
+    """One call of `fn` under torch.profiler: (its result, the device busy
+    ms: the union of the traced kernels' and copies' intervals)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vln_imagine_tpu_torch.eval.trace import _busy_us
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(device), "the profiler recorded no device activity")
+    return out, _busy_us((e.time_range.start, e.time_range.end)
+                         for e in device) / 1e3
+
+
+def duet_pretrain_steps(torch, pt, state, batch: int):
+    """One counted, timed step of each of `pt`'s tasks (its batch made on
+    the host first), then one more under the profiler for the device's
+    busy time.  Gates: K2 = K3 = `duet_pretrain_calls`, K1 / K4 none,
+    finite losses, a count > 0."""
+    from vln_imagine_tpu_torch.ops import attention
+
+    tasks = {}
+    for task in pt.cfg.pretrain.tasks:
+        t = time.perf_counter()
+        b = pt.batcher.task_batch(task, batch)
+        host_ms = (time.perf_counter() - t) * 1e3
+        attention.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = pt.train_step(state, task, b)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        got = attention.launch_counts()
+        k = duet_pretrain_calls(pt.cfg, task)
+        want = {"attention_fwd": 0, "attention_dropout_fwd": k,
+                "attention_dropout_bwd": k, "attention_bwd": 0}
+        check(got == want, f"duet pretrain {task} launches {got}, want {want}")
+        check(math.isfinite(float(m["loss"])) and int(m["n"]) > 0,
+              f"duet pretrain {task}: loss {m['loss']}, n {m['n']}")
+        b = pt.batcher.task_batch(task, batch)
+        (state, _), busy = device_busy_ms(
+            torch, lambda: pt.train_step(state, task, b))
+        tasks[task] = {
+            "host_batch_ms": host_ms, "step_ms": step_ms,
+            "device_busy_ms": busy,
+            "host_share": host_ms / (host_ms + step_ms),
+            "device_share": busy / (host_ms + step_ms),
+            "batch_bytes": sum(v.nbytes for v in b.values()),
+            "loss": float(m["loss"]), "n": int(m["n"]), "launches": got}
+    return state, tasks
+
+
+def duet_pretrain_parity(torch, cfg, world, ep, tasks, image_prob_size):
+    """Each task's f32 loss and gradients at batch 2, every dropout off:
+    the model on the card (K1, K4 with dBias into sprel_linear) against the
+    same weights on the CPU, on the same batch, within TRAIN_TOL."""
+    import copy
+    import dataclasses
+
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.pretrain.duet_data import (
+        DuetTrajectoryBatcher,
+    )
+    from vln_imagine_tpu_torch.pretrain.duet_model import DuetPretrainModel
+    from vln_imagine_tpu_torch.pretrain.trainer import DUET_TASK_ARGS
+    from vln_imagine_tpu_torch.train.trainer import init_params
+
+    c32 = cfg_f32(cfg)
+    cpu = DuetPretrainModel(
+        dataclasses.replace(c32.model, use_lang2visn_attn=True),
+        image_prob_size=image_prob_size, tasks=tasks)
+    init_params(cpu, torch.Generator().manual_seed(3))
+    card = copy.deepcopy(cpu).cuda()
+    batcher = DuetTrajectoryBatcher(
+        world, ep, max_hist_len=cfg.env.max_action_len,
+        max_gmap_nodes=cfg.env.max_gmap_nodes,
+        angle_feat_size=cfg.model.angle_feat_size,
+        image_prob_size=image_prob_size, vocab_size=cfg.model.vocab_size,
+        seed=4)
+    out = {}
+    attention.reset_launch_counts()
+    for task in tasks:
+        for _ in range(50):  # og: a batch in which a target object shows
+            batch = batcher.task_batch(task, 2)
+            if task != "og" or (batch["obj_labels"] >= 0).any():
+                break
+        losses, counts = [], []
+        for model, dev in ((card, "cuda"), (cpu, "cpu")):
+            model.zero_grad(set_to_none=True)
+            s, n, _ = getattr(model, f"forward_{task}")(
+                *(torch.as_tensor(batch[k]).to(dev)
+                  for k in DUET_TASK_ARGS[task]))
+            (s / max(int(n), 1)).backward()
+            losses.append(float(s.detach()))
+            counts.append(int(n))
+        rel = abs(losses[0] - losses[1]) / max(abs(losses[1]), 1e-30)
+        grad = _grad_rel_err(torch, card, cpu)
+        out[task] = {"loss_sum_card": losses[0], "loss_sum_cpu": losses[1],
+                     "n": counts[1], "loss_rel_err": rel,
+                     "grad_rel_err": grad}
+        check(counts[0] == counts[1] > 0 and losses[1] > 0,
+              f"duet pretrain f32 {task}: n {counts}, loss {losses}")
+        check(rel <= TRAIN_TOL and grad <= TRAIN_TOL,
+              f"duet pretrain f32 {task}: loss {rel}, gradients {grad}")
+        if task == "sap":  # the graph bias trains sprel_linear via dBias
+            g = card.bert.global_encoder.sprel_linear.weight.grad
+            w = cpu.bert.global_encoder.sprel_linear.weight.grad
+            err = float((g.cpu() - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+            out[task]["sprel_grad_rel_err"] = err
+            check(float(w.abs().max()) > 0 and err <= TRAIN_TOL,
+                  f"duet pretrain f32 sap: sprel_linear gradient {err}")
+    launches = attention.launch_counts()
+    check(launches["attention_fwd"] > 0 and launches["attention_bwd"] > 0
+          and launches["attention_dropout_fwd"] == 0
+          and launches["attention_dropout_bwd"] == 0,
+          f"duet pretrain f32 launches {launches}")
+    return out, launches
+
+
+def duet_pretrain_phase(torch, dcfg, world):
+    """`DuetPretrainer` at duet_r2r_config (`use_lang2visn_attn` on),
+    batch 64, image_prob_size 1000, the bench episodes as trajectories:
+    after a warm-up round one timed step of each of mlm, mrc and sap
+    (`duet_pretrain_steps`: K2 / K3 from `duet_pretrain_calls`, the host's
+    batch assembly beside the step, the device's busy time), `validate` on
+    a held-out split (K1 only); then og at the REVERIE-DUET preset on the
+    bench world with 20 objects a node, batch 8, and its `validate`; each
+    task's f32 loss and gradients at batch 2 card vs CPU."""
+    from vln_imagine_tpu_torch.config import reverie_config
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.pretrain.trainer import DuetPretrainer
+
+    fresh_phase(torch)
+    t0 = time.perf_counter()
+    cfg = duet_pretrain_cfg(dcfg, DUET_PRETRAIN_TASKS, DUET_PRETRAIN_BATCH)
+    pt = DuetPretrainer(cfg, world, bench_episodes(world, cfg, 64),
+                        image_prob_size=PRETRAIN_PROBS, device="cuda")
+    pt.add_validation_split("val_unseen", world,
+                            e2e_episodes(world, cfg, 32, seed=2,
+                                         images=False), seed=1)
+    state = pt.init_state()
+    for task in DUET_PRETRAIN_TASKS:  # warm-up round
+        state, _ = pt.train_step(state, task, pt.batcher.task_batch(
+            task, DUET_PRETRAIN_BATCH))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    state, tasks = duet_pretrain_steps(torch, pt, state, DUET_PRETRAIN_BATCH)
+    peak = torch.cuda.max_memory_allocated()
+    attention.reset_launch_counts()
+    t = time.perf_counter()
+    val = pt.validate(state, batch_size=DUET_PRETRAIN_BATCH, num_batches=1)
+    val_s = time.perf_counter() - t
+    val_launches = attention.launch_counts()
+    want = {"attention_fwd": sum(duet_pretrain_calls(cfg, t)
+                                 for t in DUET_PRETRAIN_TASKS),
+            "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
+            "attention_bwd": 0}
+    check(val_launches == want, f"duet validate launches {val_launches}")
+    check(all(math.isfinite(v["loss"]) for v in val.values()), f"val {val}")
+    del pt
+    torch.cuda.empty_cache()
+
+    # og: REVERIE-DUET's preset on the bench world with objects
+    rcfg = reverie_config("duet")
+    ocfg = duet_pretrain_cfg(rcfg, ("og",), DUET_OG_BATCH)
+    oworld, _ = variant_world(rcfg, DUET_OG_OBJECTS)
+    ops = DuetPretrainer(ocfg, oworld, bench_episodes(oworld, rcfg, 64),
+                         image_prob_size=PRETRAIN_PROBS, device="cuda")
+    ostate = ops.init_state()
+    ostate, _ = ops.train_step(ostate, "og", ops.batcher.task_batch(
+        "og", DUET_OG_BATCH))  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ostate, og = duet_pretrain_steps(torch, ops, ostate, DUET_OG_BATCH)
+    tasks.update(og)
+    og_peak = torch.cuda.max_memory_allocated()
+    attention.reset_launch_counts()
+    oval = ops.validate(ostate, batch_size=DUET_OG_BATCH, num_batches=2)
+    oval_launches = attention.launch_counts()
+    check(oval_launches["attention_fwd"] == 2 * duet_pretrain_calls(ocfg, "og")
+          and math.isfinite(oval["og"]["loss"]),
+          f"og validate {oval} launches {oval_launches}")
+    del ops
+    torch.cuda.empty_cache()
+
+    parity, f32_launches = duet_pretrain_parity(
+        torch, cfg, world, bench_episodes(world, cfg, 8), DUET_PRETRAIN_TASKS,
+        PRETRAIN_PROBS)
+    og_parity, og_launches = duet_pretrain_parity(
+        torch, ocfg, oworld, bench_episodes(oworld, rcfg, 8), ("og",),
+        PRETRAIN_PROBS)
+    parity.update(og_parity)
+    f32_launches = {k: v + og_launches[k] for k, v in f32_launches.items()}
+    emit({"phase": "duet_pretrain", "config": "duet_r2r_config + "
+          "use_lang2visn_attn (og: reverie_config('duet'))",
+          "compute_dtype": cfg.model.compute_dtype,
+          "batch": DUET_PRETRAIN_BATCH, "og_batch": DUET_OG_BATCH,
+          "image_prob_size": PRETRAIN_PROBS, "setup_s": setup_s,
+          "tasks": tasks, "peak_mem_bytes": peak, "og_peak_mem_bytes": og_peak,
+          "validate": {**val, **oval}, "validate_s": val_s,
+          "validate_launches": val_launches, "f32_parity": parity,
+          "f32_launches": f32_launches, "tol": TRAIN_TOL})
+    runs = [r["launches"] for r in tasks.values()] + [
+        val_launches, oval_launches, f32_launches]
+    return {k: max(r[k] for r in runs) for k in val_launches}
 
 
 # --------------------------------------------------------------- phase 6
@@ -2565,6 +2839,9 @@ def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen, D=HEAD_DIM):
             bias = extend_neg_mask(keep)
         elif bias_kind == "no_objects":  # item 0's 20 object keys masked
             keep[0, -20:] = False
+            bias = torch.where(keep, 0.0, -1e9)[:, None, None, :]
+        elif bias_kind == "pad_rows":  # padding steps: two thirds of the
+            keep[:2 * B // 3] = False  # rows have every key masked
             bias = torch.where(keep, 0.0, -1e9)[:, None, None, :]
     return q, k, v, do, bias
 
@@ -2703,7 +2980,12 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
                     parent_ms_all=times[1:3])
     else:
         case["ms"] = time_ms(torch, run)
-    case["plain_ms"] = time_ms(torch, plain)
+    # the plain dropout versions make the Philox mask in int64 ops: past
+    # 10M scores a call (B 64 over 200 queries, the 960 pano rows) it takes
+    # 13 to 48 ms, so it is replayed fewer times
+    slow_plain = bits is not None and B * HEADS * lq * lk > 10_000_000
+    case["plain_ms"] = time_ms(torch, plain, **(
+        {"iters": 4, "repeats": 3} if slow_plain else {}))
     if kernel in ("attention_fwd", "attention_dropout_fwd"):
         case["library_ms"] = time_ms(torch, library)
     else:
@@ -2811,6 +3093,27 @@ def kernels_phase(torch, parent=None):
                              ("attention_bwd", None)):
             cases.append(kernel_case(torch, kernel, TRAIN_BATCH, lq, lk, dt,
                                      bk, gen, bits=bits))
+    for lq, lk, bk in DUET_PRETRAIN_SHAPES:  # lang2visn
+        for dt in ("bfloat16", "float32"):
+            timed = dt == "bfloat16"
+            cases.append(kernel_case(torch, "attention_fwd",
+                                     DUET_PRETRAIN_BATCH, lq, lk, dt, bk, gen,
+                                     timed=timed))
+            for B in (TRAIN_BATCH, DUET_PRETRAIN_BATCH)[:2 if timed else 1]:
+                for kernel in ("attention_dropout_fwd",
+                               "attention_dropout_bwd"):
+                    cases.append(kernel_case(torch, kernel, B, lq, lk, dt, bk,
+                                             gen, bits="philox", timed=timed))
+            cases.append(kernel_case(torch, "attention_bwd", TRAIN_BATCH, lq,
+                                     lk, dt, bk, gen))
+    lq, lk, bk = PANO_ROWS_SHAPE  # the pano encoder over whole trajectories
+    for dt in ("bfloat16", "float32"):
+        for kernel, bits in (("attention_fwd", None),
+                             ("attention_dropout_fwd", "philox"),
+                             ("attention_dropout_bwd", "philox"),
+                             ("attention_bwd", None)):
+            cases.append(kernel_case(torch, kernel, PANO_ROWS, lq, lk, dt, bk,
+                                     gen, bits=bits, timed=dt == "bfloat16"))
     emit({"phase": "kernels", "cases": cases,
           "duet_weighted": duet_weighted(cases),
           "fwd_deterministic": determinism(torch, gen, "attention_dropout_fwd"),
@@ -2972,6 +3275,7 @@ def main() -> None:
                                                                world)
     path_launches["hamt_pretrain"] = hamt_pretrain_phase(torch, cfg, world)
     path_launches["e2e_pretrain"] = e2e_pretrain_phase(torch, cfg, world)
+    path_launches["duet_pretrain"] = duet_pretrain_phase(torch, dcfg, world)
     with scratch_dir() as tmp:
         path_launches["pretrain_cli"] = pretrain_cli_phase(torch, Path(tmp))
     cases = kernels_phase(torch, parent)

@@ -917,6 +917,54 @@ def test_kernels_at_the_imagination_encoder_shape_on_card(cuda, dtype):
                                        msg=f"{name} fully masked item")
 
 
+# DUET pre-training's new calls: MLM's lang2visn, 200 text queries over the
+# global branch's 97 and the local branch's 51 keys (-10000 key mask); and
+# the pano encoder over every step of whole trajectories, 50/50 with the
+# -1e9 key padding, where two thirds of the rows are padding steps with
+# every key masked
+DUET_PRETRAIN_CASES = [(200, 97, "mask"), (200, 51, "mask"),
+                       (50, 50, "pad_rows")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,kind", DUET_PRETRAIN_CASES)
+def test_kernels_at_duet_pretraining_shapes_on_card(cuda, lq, lk, kind,
+                                                    dtype):
+    """K1-K4 against plain at DUET pre-training's shapes; the fully masked
+    rows at -1e9 give what the plain version gives there (uniform weights
+    over the masked keys, as the JAX package's softmax), and finite."""
+    q, k, v, bias, do = _card_case(cuda, lq, lk, False, dtype, lq * 23 + lk)
+    if kind == "pad_rows":
+        g = torch.Generator(device="cuda").manual_seed(lq)
+        keep = torch.rand(q.shape[0], lk, device=cuda, generator=g) < 0.8
+        keep[:2 * q.shape[0] // 3] = False
+        bias = torch.where(keep, 0.0, -1e9)[:, None, None, :]
+    seed, tol = 2 ** 41 + 3, (CARD_F32_TOL if dtype == torch.float32
+                              else BF16_TOL)
+    before = launch_counts()
+    got = {"k1": (attention_fwd(q, k, v, bias, 0.125),),
+           "k2": (attention_dropout_fwd(q, k, v, bias, 0.125, 0.1, seed,
+                                        "philox"),),
+           "k3": attention_dropout_bwd(q, k, v, bias, do, 0.125, 0.1, seed,
+                                       "philox")[:3],
+           "k4": attention_bwd(q, k, v, bias, do, 0.125)[:3]}
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert all(after[n] == before[n] + 1 for n in after)
+    want = {"k1": (attention_reference(q, k, v, bias, 0.125),),
+            "k2": (attention_dropout_reference(q, k, v, bias, 0.125, 0.1,
+                                               seed, "philox"),),
+            "k3": attention_bwd_reference(q, k, v, bias, do, 0.125, 0.1, seed,
+                                          "philox")[:3],
+            "k4": attention_bwd_reference(q, k, v, bias, do, 0.125)[:3]}
+    for name in got:
+        for a, b in zip(got[name], want[name]):
+            assert torch.isfinite(a).all(), name
+            torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol,
+                                       msg=f"{name} {lq}x{lk} {kind}")
+
+
 # The ViT's attention (models/vit.py): 197 tokens (a [CLS] and 14 x 14
 # patches at 224 px), no bias, q/k/v views of one packed qkv projection.
 def _vit_qkv(cuda, B, dtype, seed):

@@ -288,8 +288,9 @@ def test_transfer_to_finetune_matches_jax(tmp_path):
 def test_bert_init_matches_jax(tmp_path, models):
     """`load_pretrain_init` (source 'bert'): a Hugging Face BERT layout
     (`bert.*` and `cls.predictions.*` keys) grafted into the pre-training
-    model as the JAX package grafts it; the DUET sources raise, naming
-    their ROADMAP item."""
+    model as the JAX package grafts it; the DUET sources load
+    (tests/test_torch_duet_pretrain_init.py holds them against the JAX
+    package), LXMERT for DUET alone."""
     jmodel, params, port, _, _ = models
     rng = np.random.default_rng(0)
     sd = {}
@@ -314,18 +315,47 @@ def test_bert_init_matches_jax(tmp_path, models):
     pl = dict(_leaves(pnew["params"]))
     for p, w in _leaves(new["params"]):
         np.testing.assert_array_equal(pl[p], w, err_msg=p)
-    for source in ("lxmert", "bert-verbatim"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            load_pretrain_init(str(tmp_path / "bert.pth"), source=source)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        load_pretrain_init(str(tmp_path / "bert.pth"), agent="duet")
+    verbatim = load_pretrain_init(str(tmp_path / "bert.pth"),
+                                  source="bert-verbatim")
+    assert verbatim["source"] == j_load_init(
+        str(tmp_path / "bert.pth"), agent="hamt",
+        source="bert-verbatim")["source"] == "bert-verbatim"
+    assert verbatim["state_dict"].keys() == got["state_dict"].keys()
+    with pytest.raises(ValueError, match="DUET"):
+        load_pretrain_init(str(tmp_path / "bert.pth"), source="lxmert")
+    duet = load_pretrain_init(str(tmp_path / "bert.pth"), agent="duet")
+    assert duet["source"] == "bert"
+    assert any(k.startswith("bert.lang_encoder.layer.")
+               for k in duet["state_dict"])
 
 
 def test_duet_pretrainer_names_its_item():
+    """A `DuetPretrainer` builds (the language side for MLM) and its
+    `init_state` draws the JAX package's size-2 probe batches, one a task:
+    the next batch is a fresh batcher's after those draws."""
+    from vln_imagine_tpu_torch.pretrain.duet_data import (
+        DuetTrajectoryBatcher,
+    )
     from vln_imagine_tpu_torch.pretrain.trainer import DuetPretrainer
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        DuetPretrainer(tiny_test_config("duet"), None, None)
+    cfg = _replace(tiny_test_config("duet"), "pretrain",
+                   tasks=("mlm", "mrc", "sap"), mix_ratio=(1, 1, 1))
+    world, ep = _world_ep(seed=4)
+    pt = DuetPretrainer(cfg, world, ep, image_prob_size=P, device="cpu")
+    assert pt.model.config.use_lang2visn_attn
+    assert hasattr(pt.model.bert.local_encoder.encoder.x_layers[0],
+                   "lang_self_att")
+    fresh = DuetTrajectoryBatcher(
+        world, ep, max_hist_len=cfg.env.max_action_len,
+        max_gmap_nodes=cfg.env.max_gmap_nodes,
+        angle_feat_size=cfg.model.angle_feat_size, image_prob_size=P,
+        vocab_size=cfg.model.vocab_size, seed=cfg.pretrain.seed,
+        mlm_prob=cfg.pretrain.mlm_prob)
+    assert pt.init_state().step == 0
+    for t in cfg.pretrain.tasks:
+        fresh.task_batch(t, 2)
+    _assert_batches_equal(pt.batcher.task_batch("sap", 3),
+                          fresh.task_batch("sap", 3), "after the probes")
 
 
 def test_save_resume_round_trip(tmp_path):

@@ -10,9 +10,11 @@ pretrain`) on the CPU:
   shape-mismatch error;
 - `--resume` continues from a snapshot to the budget;
 - `--init-ckpt` (BERT layout) transfers leaves into the pre-training model;
-- `--agent duet` exits naming its ROADMAP item; no CUDA and no `--device`
-  exits; `--synthetic` takes the tiny preset off the card and the released
-  one on it.
+- `--agent duet`: a synthetic run from an LXMERT file, its snapshot into
+  DUET fine-tuning, the DUET preset (the JAX package's
+  test_duet_preset_overrides); `--agent duet --e2e` exits; no CUDA and no
+  `--device` exits; `--synthetic` takes the tiny preset off the card and
+  the released one on it.
 """
 
 import math
@@ -185,9 +187,69 @@ def test_init_ckpt_bert(tmp_path, capsys):
     assert n == len(sd)
 
 
-def test_duet_and_no_device_exit(monkeypatch, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 6$"):
-        cli.main(["--agent", "duet", "--synthetic", "--device", "cpu"])
+def test_duet_and_no_device_exit(monkeypatch, tmp_path, capsys):
+    """`--agent duet` runs: a synthetic run on the CPU trains, validates
+    each task and writes its snapshots, an LXMERT file initializes it, and
+    the snapshot feeds DUET fine-tuning; `--e2e` stays HAMT's alone.  No
+    CUDA and no `--device` exits."""
+    from tests.test_pretrain_init import _embeddings, _lxrtx_layer
+    from vln_imagine_tpu_torch.config import tiny_test_config
+    from vln_imagine_tpu_torch.scripts import train as tcli
+
+    m = tiny_test_config("duet").model
+    rng = np.random.default_rng(0)
+    sd = _embeddings(rng, "bert.embeddings", m.hidden_size, m.vocab_size,
+                     m.max_position_embeddings)
+    for i in range(m.num_x_layers):
+        sd.update(_lxrtx_layer(rng, f"bert.encoder.x_layers.{i}",
+                               m.hidden_size, m.intermediate_size))
+    torch.save(sd, tmp_path / "model_LXRT.pth")
+    log = tmp_path / "duet"
+    pt, state = cli.main(["--agent", "duet", "--synthetic", "--steps", "2",
+                          "--log-steps", "1", "--valid-steps", "2",
+                          "--batch-size", "2", "--image-prob-size", "8",
+                          "--device", "cpu", "--init-ckpt",
+                          str(tmp_path / "model_LXRT.pth"),
+                          "--init-pretrained", "lxmert", "--log-dir",
+                          str(log)])
+    n = int(re.search(r"from lxmert weights .*: (\d+) leaves transferred",
+                      capsys.readouterr().out).group(1))
+    assert n > 0 and state.step == 2
+    assert pt.cfg.pretrain.tasks == ("mlm", "mrc", "sap")
+    record = (log / "pretrain.txt").read_text()
+    assert "valid @ step 2" in record
+    losses = _losses(record)
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
+    d = tcli.main(["--agent", "duet", "--synthetic", "--iters", "1",
+                   "--device", "cpu", "--init-from-pretrain",
+                   str(log / "model_step_2"), "--log-dir",
+                   str(tmp_path / "ft")])
+    assert d.cfg.agent == "duet"
+    assert re.search(r"\((\d+) leaves transferred",
+                     capsys.readouterr().out)
+    with pytest.raises(SystemExit, match="HAMT image pre-training"):
+        cli.main(["--agent", "duet", "--synthetic", "--e2e", "--device",
+                  "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         cli.main(["--synthetic", "--log-dir", str(tmp_path)])
+
+
+def test_duet_preset_overrides():
+    """`--agent duet` takes the DUET task mix (r2r_pretrain.json:43-50:
+    mlm / mrc / sap 1:1:1, batch 64, 100,000 steps) on the released DUET
+    preset, as the JAX script does; the CLI's flags override it."""
+    on_card = cli.config(cli.parse_args(["--agent", "duet", "--synthetic"]),
+                         torch.device("cuda"))
+    assert on_card.agent == "duet" and on_card.model.hidden_size == 768
+    assert on_card.model.num_x_layers == 4
+    p = on_card.pretrain
+    assert (p.tasks, p.mix_ratio, p.batch_size, p.num_train_steps) == (
+        ("mlm", "mrc", "sap"), (1, 1, 1), 64, 100_000)
+    over = cli.config(cli.parse_args(
+        ["--agent", "duet", "--synthetic", "--tasks", "mlm", "og",
+         "--batch-size", "8", "--steps", "10"]), torch.device("cpu"))
+    assert over.model.hidden_size == 64
+    p = over.pretrain
+    assert (p.tasks, p.mix_ratio, p.batch_size, p.num_train_steps) == (
+        ("mlm", "og"), (1, 1), 8, 10)

@@ -372,7 +372,10 @@ def test_deferred_options_raise(part, kw, call):
     (`obj_feat_size`, ROADMAP Queue 1 item 4) are ported: the model builds
     its grounding head and, on a world without objects, evaluates as R2R.
     So is `e2e_imagination` (item 5): the model builds its ViT and, with
-    raw imagination images, evaluates."""
+    raw imagination images, evaluates.  So is `use_lang2visn_attn` (item
+    6): the navigator holds the JAX package's leaf set, in which the
+    language-side blocks never appear (only pre-training's MLM reaches
+    them), and evaluates."""
     cfg = _with(tiny_test_config("duet"), part, **kw)
     world, ep = _world_ep(synthetic_world, synthetic_episodes, cfg)
     if kw.get("e2e_imagination"):
@@ -382,6 +385,14 @@ def test_deferred_options_raise(part, kw, call):
         ep = dataclasses.replace(ep, imagine_images=np.random.default_rng(
             0).standard_normal(np.shape(ep.imagine_mask) + (hw, hw, 3)
                                ).astype(np.float32))
+        paths, lens = tr.make_eval_step()(ep)
+        assert (lens >= 1).all() and (paths[:, 0] == ep.to("cpu").start_node).all()
+        return
+    if kw.get("use_lang2visn_attn"):
+        tr = DuetTrainer(cfg, world, device="cpu")
+        plain = DuetModel(tiny_test_config("duet").model)
+        assert tr.model.state_dict().keys() == plain.state_dict().keys()
+        assert not any(".lang_" in k for k in tr.model.state_dict())
         paths, lens = tr.make_eval_step()(ep)
         assert (lens >= 1).all() and (paths[:, 0] == ep.to("cpu").start_node).all()
         return

@@ -31,6 +31,10 @@ Conversion rules:
   (`regress_action`, `sprel_head`, `image_classifier`, `itm_head`) under
   their flax names (dense0, LayerNorm, dense1); agent "hamt_e2e_pretrain"
   is `vit` + `head_model` (that tree)
+- the DUET pre-training model (agent "duet_pretrain"): the backbone under
+  `bert.` with the navigator's keys (the language-side x-layer blocks
+  included), `mlm_head.predictions.*`, the SAP and OG heads as the
+  navigator's, and `image_classifier` under its flax names
 """
 
 from __future__ import annotations
@@ -238,6 +242,29 @@ def _mlm_head_path(key: str) -> str | None:
     return None
 
 
+def lxmert_remap(state_dict: dict) -> dict:
+    """model_LXRT.pth -> GlocalTextPathCMT key space, the reference's LXMERT
+    init surgery (train_r2r.py:120-139): the language layers to
+    lang_encoder, the 5 LXMERT x-layers DUPLICATED into both the local and
+    the global cross-modal encoders, cls.predictions to mlm_head."""
+    out = {}
+    for k, v in state_dict.items():
+        k = k.replace("module.", "")
+        if "bert.encoder.layer" in k:
+            out[k.replace("bert.encoder.layer",
+                          "bert.lang_encoder.layer")] = v
+        elif "bert.encoder.x_layers" in k:
+            out[k.replace("bert.encoder.x_layers",
+                          "bert.local_encoder.encoder.x_layers")] = v
+            out[k.replace("bert.encoder.x_layers",
+                          "bert.global_encoder.encoder.x_layers")] = v
+        elif "cls.predictions" in k:
+            out[k.replace("cls.predictions", "mlm_head.predictions")] = v
+        else:
+            out[k] = v
+    return out
+
+
 def bert_remap_for_duet(state_dict: dict) -> dict:
     """HF bert-base-uncased keys -> GlocalTextPathCMT key space.  The
     reference's 'bert' init branch copies HF names verbatim
@@ -400,6 +427,38 @@ def hamt_e2e_pretrain_torch_to_flax_path(key: str) -> str | None:
             or _nested("head_model", hamt_pretrain_torch_to_flax_path, key))
 
 
+# the DUET pre-training model's modules beside its `bert` backbone
+DUET_PRETRAIN_HEADS = ("mlm_head", "image_classifier", "global_sap_head",
+                       "local_sap_head", "sap_fuse_linear", "og_head")
+
+
+def duet_pretrain_torch_to_flax_path(key: str) -> str | None:
+    """DuetPretrainModel key -> flax path: `bert.*` and the SAP / OG heads
+    as the navigator's (`duet_torch_to_flax_path`), the MLM head as a BERT
+    checkpoint's, `image_classifier` by its flax names."""
+    key = re.sub(r"^module\.", "", key)
+    m = re.match(r"^image_classifier\.(dense0|dense1)\.(weight|bias)$", key)
+    if m:
+        return f"image_classifier/{m.group(1)}/{m.group(2)}"
+    m = re.match(r"^image_classifier\.LayerNorm\.(weight|bias)$", key)
+    if m:
+        return f"image_classifier/LayerNorm/ln/{m.group(1)}"
+    top = key.split(".")[0]
+    if top == "bert":
+        path = duet_torch_to_flax_path(key)
+        return (None if path is None
+                or path.split("/")[0] in DUET_PRETRAIN_HEADS else path)
+    return duet_torch_to_flax_path(key) if top in DUET_PRETRAIN_HEADS else None
+
+
+def duet_pretrain_key(key: str) -> str:
+    """A reference key (GlocalTextPathCMT names, `module.` / `bert.`
+    prefixed or not; `cls.predictions.*`) -> the DuetPretrainModel key."""
+    key = re.sub(r"^(bert|vln_bert)\.", "", re.sub(r"^module\.", "", key))
+    key = re.sub(r"^cls\.predictions\.", "mlm_head.predictions.", key)
+    return key if key.split(".")[0] in DUET_PRETRAIN_HEADS else "bert." + key
+
+
 def strip_reference_prefixes(state_dict: dict) -> dict:
     """Released checkpoints wrap NavCMT as `module.vln_bert.*` (DDP +
     VLNBertCMT); pre-train inits use `bert.*`.  Returns the port's keys."""
@@ -410,7 +469,8 @@ def strip_reference_prefixes(state_dict: dict) -> dict:
 _TO_FLAX = {"hamt": hamt_torch_to_flax_path, "duet": duet_torch_to_flax_path,
             "vit": vit_torch_to_flax_path,
             "hamt_pretrain": hamt_pretrain_torch_to_flax_path,
-            "hamt_e2e_pretrain": hamt_e2e_pretrain_torch_to_flax_path}
+            "hamt_e2e_pretrain": hamt_e2e_pretrain_torch_to_flax_path,
+            "duet_pretrain": duet_pretrain_torch_to_flax_path}
 _FLAX_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight",
                        "embedding": "weight"}
 _HEAD_INDEX = {"hamt": {"dense0": "net.0", "LayerNorm": "net.2",
@@ -481,8 +541,8 @@ def flax_to_torch_key(path: str, agent: str = "hamt") -> str:
         return f"{top}." + flax_to_torch_key(rest, inner)
     if top == "imagine_vit" and agent in ("hamt", "duet"):
         return "imagine_vit." + _vit_flax_to_torch(rest)
-    # the pre-training model's backbone and next_action are HAMT's
-    base = "hamt" if agent == "hamt_pretrain" else agent
+    # the pre-training models' backbones (and heads) are the navigators'
+    base = {"hamt_pretrain": "hamt", "duet_pretrain": "duet"}.get(agent, agent)
     *mods, leaf = path.split("/")
     mods = [m for m in mods if m != "ln"]
     top = mods[0]
@@ -507,6 +567,8 @@ def flax_to_torch_key(path: str, agent: str = "hamt") -> str:
         mods = [top, "predictions"] + (["transform"] if len(mods) > 1
                                        else []) + mods[1:]
     mods = [re.sub(r"^layer_(\d+)$", rf"{layer}.\1", m) for m in mods]
+    if agent == "duet_pretrain" and top not in DUET_PRETRAIN_HEADS:
+        mods = ["bert"] + mods
     key = ".".join(mods + [_FLAX_LEAF_TO_TORCH.get(leaf, leaf)])
     want = "/".join(path.split("/")[:-1]
                     + ["embedding" if leaf == "embedding" else
@@ -526,10 +588,11 @@ def _flax_leaves(tree: dict, prefix: str = ""):
             yield path, v
 
 
-def _in_proj_key(layer: str) -> str:
+def _in_proj_key(layer: str, agent: str = "duet") -> str:
     """The torch prefix of pano encoder layer `layer`'s packed projection."""
-    key = f"img_embeddings.pano_encoder.layers.{layer}.self_attn.in_proj_"
-    if duet_torch_to_flax_path(key + "weight") != \
+    key = ("bert." if agent == "duet_pretrain" else "") + \
+        f"img_embeddings.pano_encoder.layers.{layer}.self_attn.in_proj_"
+    if _TO_FLAX[agent](key + "weight") != \
             f"pano_encoder/layer_{layer}/__self_attn.in_proj_weight":
         raise KeyError(f"no in_proj key for pano encoder layer {layer}")
     return key
@@ -547,13 +610,14 @@ def state_dict_from_flax(params: dict, agent: str = "hamt") -> dict[str, Any]:
         if path.endswith("/kernel"):
             # conv [kh, kw, I, O] -> [O, I, kh, kw]; dense [in, out] -> [out, in]
             v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
-        m = _PANO_QKV.fullmatch(path) if agent == "duet" else None
+        m = (_PANO_QKV.fullmatch(path)
+             if agent in ("duet", "duet_pretrain") else None)
         if m:
             qkv.setdefault(m.group(2), {})[(m.group(3), m.group(4))] = v
             continue
         sd[flax_to_torch_key(path, agent)] = torch.tensor(v)
     for layer, parts in qkv.items():
-        key = _in_proj_key(layer)
+        key = _in_proj_key(layer, agent)
         for leaf, torch_leaf in (("kernel", "weight"), ("bias", "bias")):
             sd[key + torch_leaf] = torch.tensor(np.concatenate(
                 [parts[(name, leaf)] for name in ("query", "key", "value")]))

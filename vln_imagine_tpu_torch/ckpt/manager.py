@@ -182,34 +182,57 @@ def load_reference_pretrain(path: str, agent: str = "hamt") -> dict:
 
 def load_pretrain_init(path: str, agent: str = "hamt",
                        source: str = "auto") -> dict:
-    """BERT weights (a Hugging Face bert-base-uncased state_dict) -> the
-    pre-training model's keys, for STARTING HAMT pre-training (the
-    reference's --init_pretrained surgery, main_r2r.py:131-147) ->
-    {'state_dict', 'skipped', 'source'}; graft with
-    ckpt.transfer.init_finetune_from_pretrain.  The DUET sources ('lxmert',
-    'bert-verbatim', and 'bert' for DUET) come with DUET pre-training."""
-    if agent != "hamt" or source in ("lxmert", "bert-verbatim"):
-        raise NotImplementedError(
-            f"the {agent} pre-training init from {source!r} weights is not "
-            "ported yet: ROADMAP Queue 1 item 6 (DUET pre-training)")
+    """BERT or LXMERT weights -> the pre-training model's keys, for STARTING
+    pre-training (the reference's --init_pretrained surgery,
+    VLN-DUET/pretrain_src/train_r2r.py:110-139, VLN-HAMT main_r2r.py:
+    131-147) -> {'state_dict', 'skipped' (the source's keys no module
+    takes), 'source'}; graft with ckpt.transfer.init_finetune_from_pretrain
+    over `flax_from_state_dict(..., '<agent>_pretrain')`.
+
+    source: 'bert' (a Hugging Face bert-base-uncased state_dict), 'lxmert'
+    (model_LXRT.pth, DUET only: `lxmert_remap`), 'bert-verbatim' (DUET: the
+    HF names kept, so that only the embeddings match, as the reference's
+    bert branch copies them), or 'auto' (LXMERT by its `encoder.x_layers`
+    keys, else BERT).  For DUET 'bert' also remaps the language layers onto
+    lang_encoder (`bert_remap_for_duet`)."""
     from vln_imagine_tpu_torch.ckpt.convert import (
+        bert_remap_for_duet,
+        duet_pretrain_key,
+        duet_pretrain_torch_to_flax_path,
         hamt_pretrain_torch_to_flax_path,
+        lxmert_remap,
     )
 
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
-    if source == "auto" and any("encoder.x_layers" in k for k in sd):
-        raise NotImplementedError(
-            "LXMERT weights initialize DUET pre-training, which is not "
-            "ported yet: ROADMAP Queue 1 item 6")
-    sd = strip_reference_prefixes(sd)
+    if source == "auto":
+        source = ("lxmert" if any("encoder.x_layers" in k for k in sd)
+                  else "bert")
     # xlm-roberta-base ships ONE token-type row; the second is for image
     # embeddings: duplicate it (train_r2r.py:115-118)
     tt = next((k for k in sd
                if k.endswith("embeddings.token_type_embeddings.weight")), None)
     if tt is not None and sd[tt].shape[0] == 1:
+        sd = dict(sd)
         sd[tt] = torch.cat([sd[tt]] * 2, 0)
-    skipped = [k for k in sd if hamt_pretrain_torch_to_flax_path(k) is None]
-    return {"state_dict": {k: v for k, v in sd.items() if k not in skipped},
-            "skipped": skipped, "source": "bert"}
+    if agent == "duet":
+        if source == "lxmert":
+            sd = lxmert_remap(sd)
+        elif source == "bert-verbatim":
+            sd = {k.replace("module.", ""): v for k, v in sd.items()}
+        else:
+            sd = bert_remap_for_duet(sd)
+        keys = {k: duet_pretrain_key(k) for k in sd}
+        key_fn = duet_pretrain_torch_to_flax_path
+    elif source == "lxmert":
+        raise ValueError("LXMERT weights initialize DUET pre-training only "
+                         "(the DUET recipe, train_r2r.py:120-139)")
+    else:
+        keys = {k: re.sub(r"^(bert|vln_bert)\.", "",
+                          re.sub(r"^module\.", "", k)) for k in sd}
+        key_fn = hamt_pretrain_torch_to_flax_path
+    skipped = [k for k, mine in keys.items() if key_fn(mine) is None]
+    kept = set(keys) - set(skipped)
+    return {"state_dict": {keys[k]: v for k, v in sd.items() if k in kept},
+            "skipped": skipped, "source": source}

@@ -271,8 +271,7 @@ class FinetuneDriver:
         model = self.trainer.model
         new_params, transferred, missing = init_finetune_from_pretrain(
             flax_from_state_dict(model.state_dict(), agent),
-            flax_from_state_dict(snapshot, "hamt_pretrain"
-                                 if agent == "hamt" else agent))
+            flax_from_state_dict(snapshot, f"{agent}_pretrain"))
         if transferred == 0:
             raise ValueError(f"no parameter subtree of '{path}' matched the "
                              f"{agent} fine-tune model")

@@ -271,6 +271,11 @@ class BertEmbeddings(nn.Module):
              + self.token_type_embeddings(torch.zeros_like(input_ids)))
         return dropout(self.LayerNorm(x), self.rate, rng)
 
+    def token_type_embedding(self, token_type_ids):
+        """The token-type lookup alone, which the image embeddings add
+        (vilmodel_cmt.py:1074-1076)."""
+        return self.token_type_embeddings(token_type_ids)
+
 
 class LXRTXLayer(nn.Module):
     """HAMT bidirectional cross-modal layer (vilmodel_cmt.py:366-445):
@@ -311,24 +316,41 @@ class LXRTXLayer(nn.Module):
 
 class GraphLXRTXLayer(nn.Module):
     """DUET cross-modal layer (vilmodel.py:366-412): the visual stream
-    queries the language, then graph-biased self-attention + FFN.  The
-    language-side blocks of pre-training (`use_lang2visn_attn`) are not
-    ported yet."""
+    queries the language, then graph-biased self-attention + FFN; and, in
+    pre-training's MLM, the other direction (`lang2visn`): the language
+    queries the visual stream through the same `visual_attention`, then
+    language self-attention + FFN.
 
-    def __init__(self, cfg: ModelConfig):
+    flax creates a block's parameters at its first use, so the JAX
+    package's layer holds only the blocks its forwards reach: `lang` builds
+    the language-side blocks (pre-training with MLM), `visn` the
+    visual-side ones (every forward but MLM's).  The navigator has no
+    language side whatever `use_lang2visn_attn` says."""
+
+    def __init__(self, cfg: ModelConfig, lang: bool = False,
+                 visn: bool = True):
         super().__init__()
-        if cfg.use_lang2visn_attn:
-            raise NotImplementedError("use_lang2visn_attn is not ported yet")
         self.visual_attention = BertXAttention(cfg)
-        self.visn_self_att = BertAttention(cfg)
-        self.visn_inter = BertIntermediate(cfg)
-        self.visn_output = BertOutput(cfg)
+        if visn:
+            self.visn_self_att = BertAttention(cfg)
+            self.visn_inter = BertIntermediate(cfg)
+            self.visn_output = BertOutput(cfg)
+        if lang:
+            self.lang_self_att = BertAttention(cfg)
+            self.lang_inter = BertIntermediate(cfg)
+            self.lang_output = BertOutput(cfg)
 
     def forward(self, lang, lang_mask, visn, visn_mask, graph_sprels=None,
                 rng=None):
         visn_x = self.visual_attention(visn, lang, lang_mask, rng)
         visn_s = self.visn_self_att(visn_x, visn_mask, rng, bias=graph_sprels)
         return self.visn_output(self.visn_inter(visn_s), visn_s, rng)
+
+    def lang2visn(self, lang, lang_mask, visn, visn_mask, rng=None):
+        """forward_lang2visn (vilmodel.py:401-412)."""
+        lang_x = self.visual_attention(lang, visn, visn_mask, rng)
+        lang_s = self.lang_self_att(lang_x, lang_mask, rng)
+        return self.lang_output(self.lang_inter(lang_s), lang_s, rng)
 
 
 class PackedSelfAttention(nn.Module):

@@ -33,8 +33,10 @@ applied (they keep a released checkpoint's keys).
 Under `e2e_imagination` the imagine mode embeds raw imagination images
 with the in-model ViT (`imagine_vit`, models/vit.py), as HAMT's does.
 
-Not ported yet: `lang2visn_stack` and its `use_lang2visn_attn` blocks (the
-DUET pre-training slice, ROADMAP Queue 1 item 6).
+`CrossmodalEncoder.lang2visn_stack` is pre-training's direction (the
+language queries a branch, pretrain vilmodel.py:724-745); only
+`pretrain/duet_model.py` builds its language-side blocks, as only the JAX
+package's pre-training model reaches them.
 """
 
 from __future__ import annotations
@@ -71,11 +73,13 @@ from vln_imagine_tpu_torch.ops.masks import extend_neg_mask, mask_logits
 
 
 class CrossmodalEncoder(nn.Module):
-    """num_x_layers GraphLXRTXLayers (vilmodel.py:436-453)."""
+    """num_x_layers GraphLXRTXLayers (vilmodel.py:436-453); `lang` /
+    `visn` choose the layers' blocks (GraphLXRTXLayer)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, lang: bool = False,
+                 visn: bool = True):
         super().__init__()
-        self.x_layers = nn.ModuleList(GraphLXRTXLayer(cfg)
+        self.x_layers = nn.ModuleList(GraphLXRTXLayer(cfg, lang, visn)
                                       for _ in range(cfg.num_x_layers))
 
     def forward(self, txt_embeds, txt_mask, img_embeds, img_mask,
@@ -86,6 +90,16 @@ class CrossmodalEncoder(nn.Module):
                                graph_sprels, rng)
         return img_embeds
 
+    def lang2visn_stack(self, txt_embeds, txt_mask, img_embeds, img_mask,
+                        rng=None):
+        """The language stream queried through every layer against a fixed
+        visual stream (pretrain vilmodel.py:724-745)."""
+        ext_txt, ext_img = extend_neg_mask(txt_mask), extend_neg_mask(img_mask)
+        for layer in self.x_layers:
+            txt_embeds = layer.lang2visn(txt_embeds, ext_txt, img_embeds,
+                                         ext_img, rng)
+        return txt_embeds
+
 
 def _pos_embeddings(in_features: int, cfg: ModelConfig) -> nn.ModuleDict:
     """Linear -> LayerNorm, the reference's nn.Sequential `.0` / `.1`."""
@@ -95,9 +109,11 @@ def _pos_embeddings(in_features: int, cfg: ModelConfig) -> nn.ModuleDict:
 
 
 class ImageEmbeddings(nn.Module):
-    """View-feature embeddings + the pano encoder (vilmodel.py:455-526)."""
+    """View-feature embeddings + the pano encoder (vilmodel.py:455-526);
+    `objects=False` leaves out the object projection (pre-training has
+    none)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, objects: bool = True):
         super().__init__()
         H, dt = cfg.hidden_size, compute_dtype(cfg)
         self.img_linear = Dense(cfg.image_feat_size, H, dt)
@@ -107,7 +123,7 @@ class ImageEmbeddings(nn.Module):
         self.nav_type_embedding = Embed(3, H, dt)
         self.layer_norm = LayerNorm12(H)
         self.pano_encoder = PreNormEncoder(cfg, cfg.num_pano_layers)
-        if 0 < cfg.obj_feat_size != cfg.image_feat_size:
+        if objects and 0 < cfg.obj_feat_size != cfg.image_feat_size:
             # created and never applied, as in the JAX package
             self.obj_linear = Dense(cfg.obj_feat_size, H, dt)
             self.obj_layer_norm = LayerNorm12(H)
@@ -116,25 +132,29 @@ class ImageEmbeddings(nn.Module):
 class LocalEncoder(nn.Module):
     """The local (viewpoint) branch (vilmodel.py:528-560)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, lang: bool = False,
+                 visn: bool = True):
         super().__init__()
         self.vp_pos_embeddings = _pos_embeddings(2 * (cfg.angle_feat_size + 3),
                                                  cfg)
-        self.encoder = CrossmodalEncoder(cfg)
+        self.encoder = CrossmodalEncoder(cfg, lang, visn)
 
 
 class GlobalEncoder(nn.Module):
-    """The global (topological map) branch (vilmodel.py:923-1006)."""
+    """The global (topological map) branch (vilmodel.py:923-1006).  The
+    graph-bias projection biases the visual side's self-attention, so it
+    comes with that side."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, lang: bool = False,
+                 visn: bool = True):
         super().__init__()
         dt = compute_dtype(cfg)
         self.gmap_pos_embeddings = _pos_embeddings(cfg.angle_feat_size + 3, cfg)
         self.gmap_step_embeddings = Embed(cfg.max_action_steps,
                                           cfg.hidden_size, dt)
-        if cfg.graph_sprels:
+        if cfg.graph_sprels and visn:
             self.sprel_linear = Dense(1, 1, dt)
-        self.encoder = CrossmodalEncoder(cfg)
+        self.encoder = CrossmodalEncoder(cfg, lang, visn)
 
 
 class NavOut(NamedTuple):

@@ -20,6 +20,7 @@ seed.  Everything runs on the card unless the caller names a device.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Any
@@ -37,6 +38,11 @@ from vln_imagine_tpu_torch.pretrain.data import (
     PrefetchTrajectoryBatcher,
     TrajectoryBatcher,
 )
+from vln_imagine_tpu_torch.pretrain.duet_data import (
+    DuetTrajectoryBatcher,
+    PrefetchDuetTrajectoryBatcher,
+)
+from vln_imagine_tpu_torch.pretrain.duet_model import DuetPretrainModel
 from vln_imagine_tpu_torch.pretrain.hamt_model import HamtPretrainModel
 from vln_imagine_tpu_torch.train.optim import pretrain_optimizer
 
@@ -76,6 +82,26 @@ _E2E_RENAME = {"hist_img_fts": "hist_images",
                "ob_img_fts": "ob_images"}
 E2E_TASK_ARGS = {task: tuple(_E2E_RENAME.get(k, k) for k in args)
                  for task, args in TASK_ARGS.items()}
+
+
+DUET_TASK_ARGS = {
+    "mlm": ("txt_ids", "txt_masks", "txt_labels", "traj_img", "traj_loc",
+            "traj_nav", "traj_valid", "agg", "gmap_step_ids", "gmap_pos_fts",
+            "gmap_valid", "vp_pos_fts", "vp_valid"),
+    "mrc": ("txt_ids", "txt_masks", "traj_img", "traj_loc", "traj_nav",
+            "traj_valid", "agg", "gmap_step_ids", "gmap_pos_fts",
+            "gmap_valid", "gmap_pair_dists", "vp_pos_fts", "vp_valid",
+            "vp_view_mrc_masks", "vp_view_probs"),
+    "sap": ("txt_ids", "txt_masks", "traj_img", "traj_loc", "traj_nav",
+            "traj_valid", "agg", "gmap_step_ids", "gmap_pos_fts",
+            "gmap_valid", "gmap_pair_dists", "gmap_visited", "vp_pos_fts",
+            "vp_valid", "vp_nav_valid", "cand_to_gmap", "global_act_labels",
+            "local_act_labels"),
+    "og": ("txt_ids", "txt_masks", "traj_img", "traj_loc", "traj_nav",
+           "traj_valid", "agg", "gmap_step_ids", "gmap_pos_fts",
+           "gmap_valid", "gmap_pair_dists", "vp_pos_fts", "vp_valid",
+           "vp_obj_valid", "obj_labels"),
+}
 
 
 class BasePretrainer:
@@ -245,12 +271,39 @@ class HamtPretrainer(BasePretrainer):
         return TrajectoryBatcher(world, ep, **kw)
 
 
-class DuetPretrainer:
-    """DUET three-task pre-training: not ported yet."""
+class DuetPretrainer(BasePretrainer):
+    """DUET pre-training (VLN-DUET/pretrain_src/train_r2r.py:39-457,
+    config/r2r_pretrain.json: mlm / mrc / sap 1:1:1; og on REVERIE /
+    SOON).  The model carries the language-side x-layer blocks under MLM
+    (`use_lang2visn_attn`, pretrain config/r2r_model_config.json:32); with
+    `feature_bank` the batcher reads the features through the asynchronous
+    prefetcher (the reference's PrefetchLoader covers both stacks,
+    pretrain_src/data/loader.py:90)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DUET pre-training is not ported yet: ROADMAP Queue 1 item 6")
+    task_args = DUET_TASK_ARGS
+
+    def __init__(self, cfg: Config, world: WorldTables, ep: EpisodeBatch,
+                 image_prob_size: int = 64, seed: int | None = None,
+                 feature_bank=None, device=None):
+        mcfg = dataclasses.replace(cfg.model, use_lang2visn_attn=True)
+        model = DuetPretrainModel(mcfg, image_prob_size=image_prob_size,
+                                  tasks=tuple(cfg.pretrain.tasks))
+        super().__init__(cfg, model, device, seed)
+        self._image_prob_size = image_prob_size
+        self._feature_bank = feature_bank
+        self.batcher = self._make_batcher(world, ep, self.seed)
+
+    def _make_batcher(self, world: WorldTables, ep: EpisodeBatch, seed: int):
+        kw = dict(max_hist_len=self.cfg.env.max_action_len,
+                  max_gmap_nodes=self.cfg.env.max_gmap_nodes,
+                  angle_feat_size=self.cfg.model.angle_feat_size,
+                  image_prob_size=self._image_prob_size,
+                  vocab_size=self.cfg.model.vocab_size, seed=seed,
+                  mlm_prob=self.cfg.pretrain.mlm_prob)
+        if self._feature_bank is not None:
+            return PrefetchDuetTrajectoryBatcher(world, ep,
+                                                 self._feature_bank, **kw)
+        return DuetTrajectoryBatcher(world, ep, **kw)
 
 
 class E2EPretrainer(BasePretrainer):

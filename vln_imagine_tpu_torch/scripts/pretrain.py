@@ -1,29 +1,40 @@
 """Pre-training entry point of the port (the reference's
-VLN-HAMT/pretrain_src/main_r2r.py and main_r2r_image.py), with the flags of
-the JAX package's scripts/pretrain.py.
+VLN-HAMT/pretrain_src/main_r2r.py and main_r2r_image.py, and
+VLN-DUET/pretrain_src/train_r2r.py), with the flags of the JAX package's
+scripts/pretrain.py.
 
 HAMT's six-task mix (mlm/sap/sar/sprel/mrc/itm 5:1:1:1:2:2,
 config/pretrain_r2r.json) over stored trajectories, on view features or,
-with `--e2e`, on raw panorama images through the in-model ViT.  Snapshots
+with `--e2e`, on raw panorama images through the in-model ViT; DUET's
+three-task mix (mlm/mrc/sap 1:1:1 at batch 64 for 100,000 steps,
+config/r2r_pretrain.json; `--tasks ... og` on REVERIE / SOON) over the
+same trajectories with their topological maps.  `--init-ckpt` starts
+from BERT weights, or for DUET from LXMERT's (`--init-pretrained
+lxmert`, the released recipe).  Snapshots
 are `model_step_<N>` (the model's state_dict, the reference's ModelSaver
 naming, pretrain_src/utils/save.py:23-46) beside `train_state_<N>` (step and
 optimizer, for `--resume`); `scripts.train --init-from-pretrain` grafts a
 snapshot into fine-tuning.
 
-Real data, on the card:
+Real data, on the card (the features go through the native prefetching
+bank unless `--no-prefetch`):
   python -m vln_imagine_tpu_torch.scripts.pretrain --agent hamt \\
       --connectivity-dir .../connectivity --anno-dir .../annotations \\
       --img-features .../vit_features.hdf5 --steps 200000
+  python -m vln_imagine_tpu_torch.scripts.pretrain --agent duet \\
+      --connectivity-dir .../connectivity --anno-dir .../annotations \\
+      --img-features .../vit_features.hdf5 \\
+      --init-ckpt .../model_LXRT.pth --init-pretrained lxmert
 
 Synthetic smoke run on the CPU:
-  python -m vln_imagine_tpu_torch.scripts.pretrain --agent hamt --synthetic \\
+  python -m vln_imagine_tpu_torch.scripts.pretrain --agent duet --synthetic \\
       --steps 4 --log-steps 2 --valid-steps 2 --device cpu
 
 Everything runs on the card unless `--device` names another device; with
 no CUDA and no `--device` the CLI exits.  `--synthetic` takes the tiny test
-preset off the card and the released HAMT preset on it (the tiny preset's
-head dim is not one the attention kernels take).  `--agent duet` exits,
-naming the ROADMAP item that will port DUET pre-training.
+preset off the card and the agent's released preset on it (the tiny
+preset's head dim is not one the attention kernels take).  `--e2e` is
+HAMT's driver alone (main_r2r_image.py has no DUET sibling).
 """
 
 from __future__ import annotations
@@ -98,26 +109,40 @@ def parse_args(argv=None):
                         "initialize pre-training from (main_r2r.py:131-147)")
     p.add_argument("--init-pretrained", default="auto",
                    choices=["auto", "bert", "bert-verbatim", "lxmert"],
-                   help="format of --init-ckpt; 'lxmert' and "
-                        "'bert-verbatim' are DUET sources")
+                   help="format of --init-ckpt; 'lxmert' (model_LXRT.pth) "
+                        "and 'bert-verbatim' (the reference's embeddings-"
+                        "only BERT transfer, train_r2r.py:110-119) are DUET "
+                        "sources")
     return p.parse_args(argv)
 
 
 def config(args, device):
     """The run's config: the preset (see the module docstring) with the
-    E2E image width and the CLI's pre-training overrides."""
+    E2E image width, DUET's task set and the CLI's pre-training
+    overrides."""
     from vln_imagine_tpu_torch.config import (
         _replace,
+        duet_r2r_config,
         hamt_r2r_config,
         tiny_test_config,
     )
 
-    cfg = (tiny_test_config("hamt")
-           if args.synthetic and device.type != "cuda" else hamt_r2r_config())
+    if args.synthetic and device.type != "cuda":
+        cfg = tiny_test_config(args.agent)
+    else:
+        cfg = hamt_r2r_config() if args.agent == "hamt" else duet_r2r_config()
     cfg = cfg.replace(dataset=args.dataset)
     if args.e2e:
+        if args.agent != "hamt":
+            raise SystemExit("--e2e is the HAMT image pre-training driver "
+                             "(main_r2r_image.py has no DUET sibling)")
         # features come out of the in-model ViT: the image width is its
         cfg = _replace(cfg, "model", image_feat_size=args.vit_hidden)
+    if args.agent == "duet":
+        # DUET's task set (r2r_pretrain.json:43-50)
+        cfg = _replace(cfg, "pretrain", tasks=("mlm", "mrc", "sap"),
+                       mix_ratio=(1, 1, 1), batch_size=64,
+                       num_train_steps=100_000)
     over = {"seed": args.seed}
     for flag, key in (("steps", "num_train_steps"), ("log_steps", "log_steps"),
                       ("valid_steps", "valid_steps"),
@@ -161,9 +186,6 @@ def graft_vit(model, path: str) -> int:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.agent == "duet":
-        raise SystemExit("DUET pre-training is not ported yet: ROADMAP "
-                         "Queue 1 item 6")
     from vln_imagine_tpu_torch.platform import resolve_device
     from vln_imagine_tpu_torch.scripts.train import build_real, build_synthetic
     from vln_imagine_tpu_torch.utils.logger import write_to_record_file
@@ -195,6 +217,7 @@ def main(argv=None):
         cfg, tables, train, val_splits, _, _ = build_real(cfg, args)
 
     from vln_imagine_tpu_torch.pretrain.trainer import (
+        DuetPretrainer,
         E2EPretrainer,
         HamtPretrainer,
     )
@@ -234,9 +257,10 @@ def main(argv=None):
             bank = FeatureBank.write(
                 os.path.join(args.log_dir, "feature_bank.f32"),
                 feat.reshape(feat.shape[0] * feat.shape[1], -1))
-        pt = HamtPretrainer(cfg, tables, train.episodes,
-                            image_prob_size=args.image_prob_size,
-                            seed=args.seed, feature_bank=bank, device=device)
+        cls = HamtPretrainer if args.agent == "hamt" else DuetPretrainer
+        pt = cls(cfg, tables, train.episodes,
+                 image_prob_size=args.image_prob_size, seed=args.seed,
+                 feature_bank=bank, device=device)
     for v in val_splits:
         pt.add_validation_split(v.name, tables, v.episodes, seed=args.seed)
     state = pt.init_state()
@@ -254,12 +278,14 @@ def main(argv=None):
         from vln_imagine_tpu_torch.ckpt.transfer import (
             init_finetune_from_pretrain,
         )
-        agent = "hamt_e2e_pretrain" if args.e2e else "hamt_pretrain"
+        agent = ("hamt_e2e_pretrain" if args.e2e
+                 else f"{args.agent}_pretrain")
         loaded = load_pretrain_init(args.init_ckpt, agent=args.agent,
                                     source=args.init_pretrained)
         new, transferred, _ = init_finetune_from_pretrain(
             flax_from_state_dict(pt.model.state_dict(), agent),
-            flax_from_state_dict(loaded["state_dict"], "hamt_pretrain"))
+            flax_from_state_dict(loaded["state_dict"],
+                                 f"{args.agent}_pretrain"))
         if transferred == 0:
             raise SystemExit(f"no subtree of {args.init_ckpt} matched the "
                              f"{args.agent} pretrain model")

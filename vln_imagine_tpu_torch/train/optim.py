@@ -358,11 +358,12 @@ def no_decay_parameter(model: torch.nn.Module, name: str) -> bool:
     """Whether `name` is exempt from weight decay: biases and LayerNorm
     weights (the leaves the JAX package's mask finds by their flax names
     `bias` and `scale`; in torch a LayerNorm's and a Linear's weights share
-    one name, so the module type decides)."""
+    one name, so the module type decides).  The pano encoder's packed
+    `in_proj_bias` holds the query / key / value biases."""
     from vln_imagine_tpu_torch.models.bert import LayerNormF32
 
     owner, _, leaf = name.rpartition(".")
-    return leaf == "bias" or (
+    return leaf in ("bias", "in_proj_bias") or (
         leaf == "weight"
         and isinstance(model.get_submodule(owner), LayerNormF32))
 
