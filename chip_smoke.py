@@ -166,7 +166,28 @@ failed check exits non-zero:
                 `scripts.train --synthetic --iters 2 --init-from-pretrain`
                 the HAMT feature run's snapshot and, `--agent duet`, the
                 DUET run's: each transfers leaves.
-27. kernels     every kernel against its plain PyTorch version on the card:
+27. dp_driver_hamt / dp_driver_duet  `FinetuneDriver` on a one-rank NCCL
+                data mesh (`data_parallelism` 1) against the same seed's
+                driver without a mesh, on driver_phase's run files, batch
+                8: `run(iters=2, log_every=1)` and `validate`; parameters,
+                optimizer states and scores bitwise equal (at one rank
+                every draw and every reduction is the identity), K1-K3 as
+                the formulas in both runs.
+28. dp_cli      the train CLI under `python -m torch.distributed.run
+                --standalone --nproc-per-node 1` with `--mesh-data 1
+                --synthetic --iters 2 --log-every 1` (this script in its
+                `--dp-cli-child` role counts the launches): train_cli's
+                files and launch formula.
+29. dp_two_rank two processes on the one card (`--dp-rank-child`), ranks
+                of a gloo group over CUDA tensors (NCCL takes one rank a
+                card), each with 4 rows of a global batch of 8: one HAMT
+                'sample' step and one DUET DAgger step in f32 with every
+                dropout on and every group training, against the one-rank
+                step in this process: metrics within DP_TOL relative, the
+                updated parameters' abs-sum within DP_SUM_TOL, each rank's
+                K2 / K3 a step equal to the one-rank step's, both ranks
+                equal.
+30. kernels     every kernel against its plain PyTorch version on the card:
                 K1 at every (Lq, Lk) of the eval path, B 8 and 64, and of
                 the teacher step, B 8; K2 (both bit sources), K3 (both) and
                 K4 at every training shape, B 8; every kernel also at the
@@ -189,7 +210,10 @@ failed check exits non-zero:
                 (`DUET_PRETRAIN_SHAPES`: lang2visn's 200/97 and 200/51, K1
                 at B 64, K2 / K3 at B 8 and 64; `PANO_ROWS_SHAPE`: every
                 kernel at 50/50 over 960 rows, two thirds of them with
-                every key masked at -1e9).
+                every key masked at -1e9), K4 timed there too; K2 and K3 on
+                a rank's rows [r0, B) at `row_offset` r0 (`row_offset_cases`:
+                B 8 r0 4 and B 64 r0 32, 67/67 and 220/220, bf16 and f32)
+                bitwise equal to those rows of the whole call.
                 Kernel, plain and library times
                 (CUDA-graph replays between CUDA events) beside the least
                 time the card could take.  Two K2 calls, and two K3 calls,
@@ -199,7 +223,8 @@ failed check exits non-zero:
 
 also builds DIR's forward source (another checkout, e.g. a `git archive` of
 the parent commit) and times its K1/K2 beside this checkout's on the same
-inputs, in turns (`parent_ms` in the kernels phase).
+inputs, in turns (`parent_ms` in the kernels phase).  DIR's C entry must
+take the `row_offset` argument this checkout's does.
 
 Then the kernel summary line `{"kernels": [...]}`, the card's name and power
 limit, and last the result line.  Without a CUDA device, or outside a
@@ -1146,20 +1171,13 @@ def states_equal(torch, a, b) -> bool:
     return a == b
 
 
-def driver_phase(torch, cfg, scratch: Path):
-    """`FinetuneDriver.run(iters=4, log_every=2)` of the agent's released
-    recipe on files written from the bench world; then a fresh driver's
-    `load_checkpoint`, and a NaN injected into its first interval."""
+def driver_run_data(cfg, root: Path):
+    """The bench world written as a user's run files under `root` and read
+    back as the driver reads them: (tables, graphs, train, val)."""
     import numpy as np
 
-    from vln_imagine_tpu_torch.driver import FinetuneDriver
     from vln_imagine_tpu_torch.envx import synthetic_episodes, synthetic_world
-    from vln_imagine_tpu_torch.ops import attention
 
-    fresh_phase(torch)
-    agent = cfg.agent
-    root = scratch / f"driver_{agent}"
-    t_phase = t0 = time.perf_counter()
     # bench_world's arguments: the same world, with its graphs
     world, graphs = synthetic_world(
         num_scans=2, num_nodes=96, max_candidates=cfg.env.max_candidates,
@@ -1175,7 +1193,34 @@ def driver_phase(torch, cfg, scratch: Path):
     tables, graphs, (train, val) = build_run_data(cfg, world, root, imagine)
     check(np.array_equal(tables.adj, world.adj)
           and np.array_equal(tables.feat, world.feat),
-          f"{agent}: the tables compiled from the files differ from the world")
+          f"{cfg.agent}: the tables compiled from the files differ from the "
+          "world")
+    return tables, graphs, train, val
+
+
+def driver_launches(d, k2: int, k3: int) -> dict:
+    """What a driver run launches: K1 9 + 18 a step over its eval batches'
+    steps, K2 / K3 the per-step counts of each train step, K4 none."""
+    per_episode, per_step = eval_calls(d.cfg)
+    iters = sum(t["iters"] for t in d.timings["train"])
+    return {"attention_fwd": sum(per_episode + per_step * s
+                                 for s in d.eval_step_counts),
+            "attention_dropout_fwd": iters * k2,
+            "attention_dropout_bwd": iters * k3, "attention_bwd": 0}
+
+
+def driver_phase(torch, cfg, scratch: Path):
+    """`FinetuneDriver.run(iters=4, log_every=2)` of the agent's released
+    recipe on files written from the bench world; then a fresh driver's
+    `load_checkpoint`, and a NaN injected into its first interval."""
+    from vln_imagine_tpu_torch.driver import FinetuneDriver
+    from vln_imagine_tpu_torch.ops import attention
+
+    fresh_phase(torch)
+    agent = cfg.agent
+    root = scratch / f"driver_{agent}"
+    t_phase = t0 = time.perf_counter()
+    tables, graphs, train, val = driver_run_data(cfg, root)
     data_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -1195,13 +1240,8 @@ def driver_phase(torch, cfg, scratch: Path):
     launches = attention.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    per_episode, per_step = eval_calls(cfg)
-    k2, k3 = (train_launches_per_step(cfg) if agent == "hamt"
-              else duet_train_launches_per_step(cfg))
-    want = {"attention_fwd": sum(per_episode + per_step * s
-                                 for s in d.eval_step_counts),
-            "attention_dropout_fwd": DRIVER_ITERS * k2,
-            "attention_dropout_bwd": DRIVER_ITERS * k3, "attention_bwd": 0}
+    want = driver_launches(d, *(train_launches_per_step(cfg) if agent == "hamt"
+                                else duet_train_launches_per_step(cfg)))
     check(launches == want, f"{agent} driver launches {launches}, expected "
           f"{want} ({len(d.eval_step_counts)} eval batches, steps "
           f"{d.eval_step_counts})")
@@ -1304,15 +1344,10 @@ def cli_phase(torch, scratch: Path, phase, argv, files=CLI_FILES,
     check(d.device.type == "cuda", f"the CLI ran on {d.device}")
     for name in files:
         check((log / name).is_file(), f"the CLI wrote no {name}")
-    per_episode, per_step = eval_calls(d.cfg)
-    k2, k3 = (duet_train_launches_per_step if d.cfg.agent == "duet"
-              else train_launches_per_step)(d.cfg)
-    iters = len(d.timings["train"])
-    want = {"attention_fwd": sum(per_episode + per_step * s
-                                 for s in d.eval_step_counts),
-            "attention_dropout_fwd": iters * k2,
-            "attention_dropout_bwd": iters * k3, "attention_bwd": 0}
-    check(iters == 2 and launches == want,
+    want = driver_launches(d, *(duet_train_launches_per_step
+                                if d.cfg.agent == "duet"
+                                else train_launches_per_step)(d.cfg))
+    check(len(d.timings["train"]) == 2 and launches == want,
           f"{phase} launches {launches}, expected {want}")
     emit({"phase": phase, "argv": " ".join(argv),
           "config": f"{d.cfg.agent}_r2r_config", "dataset": d.cfg.dataset,
@@ -1354,6 +1389,285 @@ def duet_details(d, log: Path) -> dict:
 # (name, config part, overrides, steps) of the HAMT and DUET train phases:
 # each runs one warm-up step and times the rest.  The first entry is the
 # released recipe, timed in the same phase as the variants
+# ------------------------------------------------------- data parallelism
+DP_DRIVER_ITERS, DP_DRIVER_LOG_EVERY = 2, 1
+DP_BATCH = 8              # the two-rank phase's global batch, 4 a rank
+DP_TOL, DP_SUM_TOL = 1e-4, 2e-5   # metrics, updated parameters' abs-sum
+DP_CHILD_TIMEOUT = 400    # seconds for each process a phase starts
+
+
+def dp_driver_phase(torch, cfg, scratch: Path):
+    """`FinetuneDriver` on a one-rank NCCL data mesh (`data_parallelism` 1,
+    the process group made by `main`) against the same seed's driver
+    without a mesh, on driver_phase's run files: `run(iters=2,
+    log_every=1)`, then `validate`.  At one rank every draw and every
+    reduction is the identity, so the parameters, the optimizer states and
+    the scores are bitwise equal; both runs launch what the formulas say."""
+    from vln_imagine_tpu_torch.config import _replace
+    from vln_imagine_tpu_torch.driver import FinetuneDriver
+    from vln_imagine_tpu_torch.ops import attention
+
+    fresh_phase(torch)
+    agent = cfg.agent
+    t_phase = time.perf_counter()
+    root = scratch / f"dp_driver_{agent}"
+    tables, graphs, train, val = driver_run_data(cfg, root)
+    k2, k3 = (train_launches_per_step(cfg) if agent == "hamt"
+              else duet_train_launches_per_step(cfg))
+    runs = {}
+    for name, c in (("plain", cfg),
+                    ("mesh", _replace(cfg, "mesh", data_parallelism=1))):
+        d = FinetuneDriver(c, tables, train, [val], str(root / name),
+                           graphs=graphs, device="cuda")
+        d.setup()
+        torch.cuda.synchronize()
+        # the counted run: every count set to 0 just before, read just after
+        attention.reset_launch_counts()
+        t0 = time.perf_counter()
+        d.run(iters=DP_DRIVER_ITERS, log_every=DP_DRIVER_LOG_EVERY)
+        score = d.validate(val)
+        torch.cuda.synchronize()
+        launches = attention.launch_counts()
+        want = driver_launches(d, k2, k3)
+        check(launches == want, f"dp_driver {agent} {name}: launches "
+              f"{launches}, expected {want}")
+        check((d.mesh is not None) == (name == "mesh")
+              and (name == "plain" or d.shard.size == 1),
+              f"dp_driver {agent} {name}: mesh {d.mesh}")
+        runs[name] = {"seconds": time.perf_counter() - t0, "score": score,
+                      "launches": launches,
+                      "train_step_ms": [t["seconds"] / t["iters"] * 1e3
+                                        for t in d.timings["train"]],
+                      "validate_s": [t["seconds"]
+                                     for t in d.timings["validate"]],
+                      "state": d.state_dict()}
+        del d
+    check(runs["mesh"]["score"] == runs["plain"]["score"],
+          f"dp_driver {agent}: scores {runs['mesh']['score']} against "
+          f"{runs['plain']['score']} without a mesh")
+    check(states_equal(torch, runs["mesh"].pop("state"),
+                       runs["plain"].pop("state")),
+          f"dp_driver {agent}: parameters or optimizer states differ from "
+          "the run without a mesh")
+    torch.cuda.empty_cache()
+    emit({"phase": f"dp_driver_{agent}", "config": f"{agent}_r2r_config",
+          "phase_s": time.perf_counter() - t_phase,
+          "backend": torch.distributed.get_backend(), "world_size": 1,
+          "iters": DP_DRIVER_ITERS, "log_every": DP_DRIVER_LOG_EVERY,
+          "batch": cfg.train.batch_size,
+          "val_items": int(val.episodes.scan.shape[0]), **runs,
+          "state": "bitwise", "scores": "equal",
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    return runs["mesh"]["launches"]
+
+
+def dp_cli_phase(torch, scratch: Path):
+    """The train CLI as a user launches data parallelism on one card:
+    `python -m torch.distributed.run --standalone --nproc-per-node 1` over
+    this script in its `--dp-cli-child` role, which counts the launches
+    around `scripts.train.main(--synthetic --iters 2 --log-every 1
+    --mesh-data 1)`.  Gates: the child's own (`cli_phase`'s launch
+    formula, a one-rank mesh on the card), its exit and train_cli's
+    files."""
+    fresh_phase(torch)
+    log = scratch / "dp_cli"
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", str(ROOT / "chip_smoke.py"),
+         "--dp-cli-child", str(log)],
+        cwd=ROOT, env=child_env(), capture_output=True, text=True,
+        timeout=DP_CHILD_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0, f"dp_cli: the launched CLI failed "
+          f"({out.returncode}):\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    res = json.loads((log / "dp_cli.json").read_text())
+    for name in CLI_FILES:
+        check((log / name).is_file(), f"dp_cli wrote no {name}")
+    check(res["launches"] == res["expected"] and res["iters"] == 2,
+          f"dp_cli launches {res['launches']}, expected {res['expected']}")
+    emit({"phase": "dp_cli", "argv": res["argv"], "seconds": seconds,
+          "launcher": "torch.distributed.run --standalone --nproc-per-node 1",
+          **{k: v for k, v in res.items() if k != "argv"}})
+    return res["launches"]
+
+
+def dp_cli_child(log: Path) -> None:
+    """The `--dp-cli-child` role of this script, under the launcher."""
+    import torch
+
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.scripts import train as cli
+
+    argv = ["--synthetic", "--iters", "2", "--log-every", "1",
+            "--mesh-data", "1"]
+    attention.reset_launch_counts()
+    d = cli.main(argv + ["--log-dir", str(log)])
+    torch.cuda.synchronize()
+    launches = attention.launch_counts()
+    check(d.device.type == "cuda" and d.shard is not None
+          and d.shard.size == 1, f"dp_cli ran on {d.device}, shard {d.shard}")
+    k2, k3 = train_launches_per_step(d.cfg)
+    (log / "dp_cli.json").write_text(json.dumps({
+        "argv": " ".join(argv), "device": str(d.device),
+        "backend": "nccl", "world_size": d.shard.size,
+        "config": f"{d.cfg.agent}_r2r_config",
+        "iters": len(d.timings["train"]),
+        "eval_steps": d.eval_step_counts,
+        "interval_s": [t["seconds"] for t in d.timings["train"]],
+        "validate_s": [t["seconds"] for t in d.timings["validate"]],
+        "launches": launches, "expected": driver_launches(d, k2, k3),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}))
+
+
+def child_env() -> dict:
+    """This process's environment without a launcher's variables."""
+    import os
+
+    return {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                         "MASTER_ADDR", "MASTER_PORT", "GROUP_RANK")}
+
+
+def dp_cfg(cfg):
+    """`cfg` in f32 with every dropout on and every group training from
+    the first step (stage ends 0)."""
+    from vln_imagine_tpu_torch.config import _replace
+
+    cfg = _replace(cfg, "model", compute_dtype="float32",
+                   hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+                   pred_head_dropout_prob=0.1)
+    return _replace(cfg, "train", feat_dropout=0.4, warmup_stage1_iters=0,
+                    warmup_stage2_iters=0)
+
+
+def dp_steps(torch, mesh, world) -> dict:
+    """One HAMT 'sample' step and one DUET DAgger step (`dp_cfg`) at a
+    global batch of DP_BATCH from the seeded init, each rank of `mesh` on
+    its rows (None: the whole batch): metrics, the updated parameters'
+    abs-sum and the launches of each step."""
+    from vln_imagine_tpu_torch.config import duet_r2r_config, hamt_r2r_config
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.parallel.mesh import shard_batch
+    from vln_imagine_tpu_torch.train.trainer import HamtTrainer
+    from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
+
+    out = {}
+    for agent, base, cls in (("hamt", hamt_r2r_config(), HamtTrainer),
+                             ("duet", duet_r2r_config(), DuetTrainer)):
+        cfg = dp_cfg(base)
+        ep = bench_episodes(world, cfg, DP_BATCH)
+        if mesh is not None:
+            ep = shard_batch(ep, mesh)
+        tr = cls(cfg, world, device="cuda", mesh=mesh)
+        step = (tr.make_train_step("sample") if agent == "hamt"
+                else tr.make_train_step())
+        torch.cuda.synchronize()
+        attention.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(ep, ep)
+        torch.cuda.synchronize()
+        out[agent] = {
+            "step_s": time.perf_counter() - t0,
+            "launches": attention.launch_counts(),
+            "metrics": {k: float(v) for k, v in m.items()},
+            "param_sum": sum(float(p.detach().double().abs().sum())
+                             for p in tr.model.parameters()),
+            "rows": int(ep.scan.shape[0])}
+        del tr, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_two_rank_phase(torch, world):
+    """Two processes on the one card, each with 4 rows of a global batch of
+    8, joined in a gloo group over CUDA tensors (NCCL takes one rank a
+    card; the kernels are built before they start), against the one-rank
+    step in this process: `dp_steps`' metrics within DP_TOL relative and
+    parameter sums within DP_SUM_TOL relative; each rank's K2 / K3 a step
+    equal the one-rank step's, and both ranks end with the same metrics."""
+    fresh_phase(torch)
+    t_phase = time.perf_counter()
+    with scratch_dir() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank-child",
+             str(r), tmp], cwd=ROOT, env=child_env(),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            one = dp_steps(torch, None, world)
+            logs = [p.communicate(timeout=DP_CHILD_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"dp_two_rank: rank {r} failed "
+                  f"({p.returncode}):\n{log[-3000:]}")
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    errs = {}
+    for agent, want in one.items():
+        for r, res in enumerate(ranks):
+            got = res["steps"][agent]
+            check(got["rows"] * 2 == want["rows"],
+                  f"dp_two_rank {agent}: rank {r} holds {got['rows']} rows")
+            check(got["launches"] == want["launches"],
+                  f"dp_two_rank {agent}: rank {r} launches {got['launches']}"
+                  f", the one-rank step {want['launches']}")
+            check(got["metrics"] == ranks[0]["steps"][agent]["metrics"]
+                  and got["param_sum"] == ranks[0]["steps"][agent]["param_sum"],
+                  f"dp_two_rank {agent}: the ranks differ")
+        got = ranks[0]["steps"][agent]
+        rel = {k: abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+               for k, v in want["metrics"].items()}
+        rel["param_sum"] = (abs(got["param_sum"] - want["param_sum"])
+                            / want["param_sum"])
+        errs[agent] = rel
+        check(set(got["metrics"]) == set(want["metrics"])
+              and all(e <= DP_TOL for k, e in rel.items() if k != "param_sum")
+              and rel["param_sum"] <= DP_SUM_TOL,
+              f"dp_two_rank {agent}: relative errors {rel} (metrics "
+              f"{got['metrics']} against {want['metrics']})")
+    launches = {k: sum(ranks[0]["steps"][a]["launches"][k] for a in one)
+                for k in one["hamt"]["launches"]}
+    emit({"phase": "dp_two_rank", "phase_s": time.perf_counter() - t_phase,
+          "backend": ranks[0]["backend"], "world_size": 2,
+          "global_batch": DP_BATCH, "compute_dtype": "float32",
+          "one_rank": one, "ranks": ranks, "relative_errors": errs,
+          "tol": {"metrics": DP_TOL, "param_sum": DP_SUM_TOL}})
+    return launches
+
+
+def dp_rank_child(rank: int, out_dir: Path) -> None:
+    """The `--dp-rank-child` role: rank `rank` of 2 in a gloo group on
+    cuda:0, `dp_steps` on its rows."""
+    import torch
+    import torch.distributed as dist
+
+    from vln_imagine_tpu_torch.config import hamt_r2r_config
+    from vln_imagine_tpu_torch.eval.trace import bench_world
+    from vln_imagine_tpu_torch.parallel.distributed import initialize
+    from vln_imagine_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(2)  # two ranks and this script's process share
+    initialize(f"file://{out_dir / 'rdzv'}", 2, rank,
+               device=torch.device("cuda", 0), backend="gloo",
+               timeout=DP_CHILD_TIMEOUT)
+    try:
+        # the mesh only carries the process groups: 'cpu' keeps DeviceMesh
+        # from assigning each rank a card of its own
+        mesh = make_mesh(data=2, device_type="cpu")
+        steps = dp_steps(torch, mesh, bench_world(hamt_r2r_config()))
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(
+            {"rank": rank, "backend": dist.get_backend(), "steps": steps}))
+    finally:
+        dist.destroy_process_group()
+
+
 HAMT_VARIANTS = (
     ("released", "train", {}, 3),
     ("fused_sample_rollout", "train", {"fused_sample_rollout": True}, 3),
@@ -3104,8 +3418,9 @@ def kernels_phase(torch, parent=None):
                                "attention_dropout_bwd"):
                     cases.append(kernel_case(torch, kernel, B, lq, lk, dt, bk,
                                              gen, bits="philox", timed=timed))
-            cases.append(kernel_case(torch, "attention_bwd", TRAIN_BATCH, lq,
-                                     lk, dt, bk, gen))
+            for B in (TRAIN_BATCH, DUET_PRETRAIN_BATCH)[:2 if timed else 1]:
+                cases.append(kernel_case(torch, "attention_bwd", B, lq, lk, dt,
+                                         bk, gen, timed=timed))
     lq, lk, bk = PANO_ROWS_SHAPE  # the pano encoder over whole trajectories
     for dt in ("bfloat16", "float32"):
         for kernel, bits in (("attention_fwd", None),
@@ -3114,11 +3429,82 @@ def kernels_phase(torch, parent=None):
                              ("attention_bwd", None)):
             cases.append(kernel_case(torch, kernel, PANO_ROWS, lq, lk, dt, bk,
                                      gen, bits=bits, timed=dt == "bfloat16"))
+    cases += row_offset_cases(torch, gen)
     emit({"phase": "kernels", "cases": cases,
           "duet_weighted": duet_weighted(cases),
           "fwd_deterministic": determinism(torch, gen, "attention_dropout_fwd"),
           "bwd_deterministic": determinism(torch, gen, "attention_dropout_bwd")})
     return cases
+
+
+# (B, first row of the rank): a data-parallel rank's rows of the DP step's
+# global batch (8, 4 a rank) and of a batch of 64 over two ranks
+ROW_OFFSET_BATCHES = ((8, 4), (64, 32))
+ROW_OFFSET_SHAPES = ((67, 67), (220, 220))
+
+
+def row_offset_cases(torch, gen) -> list:
+    """K2 and K3 on rows [r0, B) at `row_offset` r0 (the rows a rank holds,
+    drawing the global batch's Philox bits) against those rows of the call
+    on the whole batch: output, dQ, dK, dV and dBias bitwise equal; and
+    against the plain versions at that offset within KERNEL_TOL."""
+    from vln_imagine_tpu_torch.ops import attention as A
+
+    out = []
+    scale, seed = HEAD_DIM ** -0.5, 0x5EED_0FF5E7
+    for B, r0 in ROW_OFFSET_BATCHES:
+        for lq, lk in ROW_OFFSET_SHAPES:
+            for dt in ("bfloat16", "float32"):
+                q, k, v, do, bias = _case_inputs(torch, B, lq, lk,
+                                                 getattr(torch, dt),
+                                                 "per_head", gen)
+                rows = slice(r0, B)
+                part = [x[rows] for x in (q, k, v, do, bias)]
+                before = (A.attention_dropout_fwd.launches,
+                          A.attention_dropout_bwd.launches)
+                full = (A.attention_dropout_fwd(q, k, v, bias, scale, DROPOUT,
+                                                seed),
+                        *A.attention_dropout_bwd(q, k, v, bias, do, scale,
+                                                 DROPOUT, seed,
+                                                 need_dbias=True))
+                got = (A.attention_dropout_fwd(*part[:3], part[4], scale,
+                                               DROPOUT, seed, row_offset=r0),
+                       *A.attention_dropout_bwd(*part[:3], part[4], part[3],
+                                                scale, DROPOUT, seed,
+                                                need_dbias=True,
+                                                row_offset=r0))
+                plain = (A.attention_dropout_reference(
+                    *part[:3], part[4], scale, DROPOUT, seed, "philox", r0),
+                    *A.attention_bwd_reference(*part[:3], part[4], part[3],
+                                               scale, DROPOUT, seed, "philox",
+                                               r0))
+                torch.cuda.synchronize()
+                check((A.attention_dropout_fwd.launches,
+                       A.attention_dropout_bwd.launches)
+                      == (before[0] + 2, before[1] + 2),
+                      "K2 / K3 were not launched at a row offset")
+                bitwise = all(torch.equal(g, f[rows])
+                              for g, f in zip(got, full))
+                check(bitwise, f"K2 / K3 at row_offset {r0} differ from "
+                      f"rows [{r0}:{B}) of the whole call, {lq}x{lk} {dt}")
+                tol = KERNEL_TOL[dt]
+                err = _max_err(got, plain)
+                check(all(torch.allclose(g.float(), w.float(), rtol=tol,
+                                         atol=tol)
+                          for g, w in zip(got, plain)),
+                      f"K2 / K3 at row_offset {r0} vs plain {lq}x{lk} {dt}: "
+                      f"max abs err {err}")
+                for kernel, n in (("attention_dropout_fwd", 1),
+                                  ("attention_dropout_bwd", 4)):
+                    out.append({"kernel": kernel, "B": B, "row_offset": r0,
+                                "Lq": lq, "Lk": lk, "D": HEAD_DIM,
+                                "dtype": dt, "bias": "per_head",
+                                "bits": "philox", "bitwise_rows": bitwise,
+                                "max_abs_err": (_max_err(got[:1], plain[:1])
+                                                if n == 1 else
+                                                _max_err(got[1:], plain[1:])),
+                                "tol": tol})
+    return out
 
 
 def duet_weighted(cases) -> dict:
@@ -3200,6 +3586,29 @@ def build_parent_fwd(parent: Path):
     return fn
 
 
+def dp_phases(torch, cfg, dcfg, world) -> dict:
+    """The data-parallel phases: `dp_driver` of both agents on a one-rank
+    NCCL group of this process, `dp_cli` under the launcher, and
+    `dp_two_rank`.  Returns their launches by path."""
+    import torch.distributed as dist
+
+    from vln_imagine_tpu_torch.parallel.distributed import initialize
+
+    out = {}
+    initialize(device="cuda")  # one rank, NCCL, an in-process store
+    try:
+        for c in (cfg, dcfg):
+            with scratch_dir() as tmp:
+                out[f"dp_driver_{c.agent}"] = dp_driver_phase(torch, c,
+                                                              Path(tmp))
+    finally:
+        dist.destroy_process_group()
+    with scratch_dir() as tmp:
+        out["dp_cli"] = dp_cli_phase(torch, Path(tmp))
+    out["dp_two_rank"] = dp_two_rank_phase(torch, world)
+    return out
+
+
 def main() -> None:
     import argparse
 
@@ -3207,6 +3616,9 @@ def main() -> None:
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout whose forward kernel (K1, K2) is "
                          "timed beside this one's in the kernels phase")
+    # the roles of the processes the data-parallel phases start
+    ap.add_argument("--dp-cli-child", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-rank-child", nargs=2, help=argparse.SUPPRESS)
     args = ap.parse_args()
     missing = [s for s in KERNEL_SOURCES if not (ROOT / s).is_file()]
     if missing:
@@ -3220,6 +3632,11 @@ def main() -> None:
         raise SystemExit(3)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.dp_cli_child is not None:
+        return dp_cli_child(args.dp_cli_child)
+    if args.dp_rank_child is not None:
+        return dp_rank_child(int(args.dp_rank_child[0]),
+                             Path(args.dp_rank_child[1]))
 
     from vln_imagine_tpu_torch.config import duet_r2r_config, hamt_r2r_config
     from vln_imagine_tpu_torch.eval.trace import bench_world
@@ -3278,6 +3695,7 @@ def main() -> None:
     path_launches["duet_pretrain"] = duet_pretrain_phase(torch, dcfg, world)
     with scratch_dir() as tmp:
         path_launches["pretrain_cli"] = pretrain_cli_phase(torch, Path(tmp))
+    path_launches.update(dp_phases(torch, cfg, dcfg, world))
     cases = kernels_phase(torch, parent)
 
     summary = []

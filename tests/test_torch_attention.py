@@ -328,7 +328,7 @@ def test_fused_attention_backward_matches_autograd(case, bits):
         return [x.grad for x in leaves]
 
     got = grads(lambda q_, k_, v_, b_: FusedAttention.apply(
-        q_, k_, v_, b_, scale, rate, seed, bits or "philox"))
+        q_, k_, v_, b_, scale, rate, seed, bits or "philox", 0))
     want = grads(lambda q_, k_, v_, b_: attention_dropout_reference(
         q_, k_, v_, b_, scale, rate, seed, bits) if bits else
         attention_reference(q_, k_, v_, b_, scale))
@@ -620,6 +620,54 @@ def test_philox_mask_properties():
     h = dropout_mask(shape, rate, seed=1, bits="hash")
     assert torch.equal(h[0], h[1])
     assert torch.equal(h, dropout_mask(shape, rate, seed=2, bits="hash"))
+
+
+# ------------------------------------------------------- row offsets
+# A data-parallel rank holds rows [r0, B) of a global batch and draws their
+# Philox bits: its call at `row_offset=r0` equals those rows of the call on
+# the whole batch, bit for bit.
+
+def _rows_case(B, lq, lk, dtype, seed, H=3, D=32, gen=None, device=None):
+    g = gen or torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(B, n, H, D, generator=g, device=device)
+                   .to(dtype) for n in (lq, lk, lk, lq))
+    bias = torch.randn(B, H, lq, lk, generator=g, device=device)
+    return q, k, v, bias, do
+
+
+@pytest.mark.parametrize("bits", ["philox", "hash"])
+@pytest.mark.parametrize("B, r0", [(4, 2), (5, 3)])
+def test_plain_dropout_at_a_row_offset_equals_the_full_calls_rows(B, r0, bits):
+    q, k, v, bias, do = _rows_case(B, 9, 7, torch.float32, B * 10 + r0)
+    seed, rate = 2 ** 33 + 5, 0.3
+    full = attention_dropout_reference(q, k, v, bias, 0.25, rate, seed, bits)
+    part = attention_dropout_reference(q[r0:], k[r0:], v[r0:], bias[r0:],
+                                       0.25, rate, seed, bits, row_offset=r0)
+    assert torch.equal(part, full[r0:])
+    want = attention_bwd_reference(q, k, v, bias, do, 0.25, rate, seed, bits)
+    got = attention_bwd_reference(q[r0:], k[r0:], v[r0:], bias[r0:], do[r0:],
+                                  0.25, rate, seed, bits, row_offset=r0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w[r0:])
+    # the offset moves Philox's bits, never the hash's
+    at0 = attention_dropout_reference(q[r0:], k[r0:], v[r0:], bias[r0:],
+                                      0.25, rate, seed, bits)
+    assert torch.equal(at0, part) == (bits == "hash")
+
+
+def test_fused_attention_passes_the_row_offset_to_both_directions():
+    q, k, v, bias, do = _rows_case(4, 6, 6, torch.float32, 3)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = fused_attention(q[2:], k[2:], v[2:], bias[2:], 0.5, dropout_rate=0.2,
+                          seed=11, row_offset=2)
+    out.backward(do[2:])
+    full = attention_dropout_reference(q.detach(), k.detach(), v.detach(),
+                                       bias, 0.5, 0.2, 11, "philox")
+    assert torch.equal(out.detach(), full[2:])
+    want = attention_bwd_reference(q.detach(), k.detach(), v.detach(), bias,
+                                   do, 0.5, 0.2, 11, "philox")
+    for t, w in zip((q, k, v), want):
+        assert torch.equal(t.grad[2:], w[2:])
 
 
 # ------------------------------------------------------------ on the card
@@ -1013,3 +1061,44 @@ def test_vit_on_card_matches_cpu(cuda):
         want, _ = vit(x)
         got, _ = vit.to(cuda)(x.to(cuda))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# (B, r0, Lq, Lk): a rank's rows of the DP train step's shapes (B 8, 4 a
+# rank) and of a large batch, at the x-layers' 67/67 and HAMT's 220/220
+ROW_OFFSET_CASES = [(8, 4, 67, 67), (64, 32, 67, 67), (8, 4, 220, 220),
+                    (64, 32, 220, 220)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, r0, lq, lk", ROW_OFFSET_CASES)
+def test_dropout_kernels_at_a_row_offset_on_card(cuda, B, r0, lq, lk, dtype):
+    """K2 and K3 on rows [r0, B) at row_offset r0 equal those rows of the
+    call on the whole batch, bit for bit, and the plain versions at that
+    offset within the card's tolerance."""
+    g = torch.Generator(device="cuda").manual_seed(B + lq)
+    q, k, v, bias, do = _rows_case(B, lq, lk, dtype, 0, H=12, D=64, gen=g,
+                                   device=cuda)
+    seed, rate = 2 ** 41 + 3, 0.1
+    tol = CARD_F32_TOL if dtype == torch.float32 else BF16_TOL
+    rows = slice(r0, B)
+    full = attention_dropout_fwd(q, k, v, bias, 0.125, rate, seed)
+    part = attention_dropout_fwd(q[rows], k[rows], v[rows], bias[rows], 0.125,
+                                 rate, seed, row_offset=r0)
+    full_g = attention_dropout_bwd(q, k, v, bias, do, 0.125, rate, seed,
+                                   need_dbias=True)
+    part_g = attention_dropout_bwd(q[rows], k[rows], v[rows], bias[rows],
+                                   do[rows], 0.125, rate, seed, need_dbias=True,
+                                   row_offset=r0)
+    torch.cuda.synchronize()
+    assert torch.equal(part, full[rows])
+    for a, b in zip(part_g, full_g):
+        assert torch.equal(a, b[rows])
+    want = attention_dropout_reference(q[rows], k[rows], v[rows], bias[rows],
+                                       0.125, rate, seed, "philox", r0)
+    torch.testing.assert_close(part.float(), want.float(), rtol=tol, atol=tol)
+    want_g = attention_bwd_reference(q[rows], k[rows], v[rows], bias[rows],
+                                     do[rows], 0.125, rate, seed, "philox", r0)
+    for a, b in zip(part_g, want_g):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+

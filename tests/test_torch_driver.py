@@ -12,8 +12,8 @@
   and an injected NaN loss each roll back, after which the state equals
   `latest_dict` bitwise; bucketed validation equals sequential and
   pipelined equals synchronous, item for item; the augmented-split
-  alternation trains; VLN_PROFILE_DIR writes a trace; unported branches
-  raise, naming their ROADMAP item, and the branches of items 4 and 5 run.
+  alternation trains; VLN_PROFILE_DIR writes a trace; a model axis above
+  1 raises, naming its ROADMAP item, and the branches of items 4 and 5 run.
 """
 
 import dataclasses
@@ -233,12 +233,15 @@ def test_profile_dir_traces_the_first_interval(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("part, over, item", [
-    ("mesh", {"data_parallelism": 2}, 7),
+    # the data axis is ported (test_torch_dp_driver.py); a model axis is not
+    pytest.param("mesh", {"data_parallelism": 1, "model_parallelism": 2},
+                 "7c", id="mesh-over0-7"),
     ("dataset", "r2r_back", 4),
     ("model", {"e2e_imagination": "frozen"}, 5),
 ])
 def test_unported_branches_raise(tmp_path, part, over, item):
-    """Item 7 raises, naming its ROADMAP item.  Items 4 and 5 are ported:
+    """A model axis above 1 (item 7c) raises, naming its ROADMAP item,
+    before it needs a process group.  Items 4 and 5 are ported:
     the task variants' dataset and episodes, and `e2e_imagination` with
     episodes that carry raw images, once refused here, now build a driver
     that trains and validates.  `init_from_pretrain` (item 6) reads the

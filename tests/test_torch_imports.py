@@ -57,7 +57,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "pretrain.hamt_model", "pretrain.hamt_e2e", "pretrain.trainer",
                 "scripts.pretrain", "scripts.extract_features",
                 "pretrain.duet_data", "pretrain.duet_model",
-                "data.lmdb_reader", "scripts.convert_lmdb_bank"):
+                "data.lmdb_reader", "scripts.convert_lmdb_bank",
+                "parallel", "parallel.distributed", "parallel.mesh"):
         assert f"vln_imagine_tpu_torch.{mod}" in report["modules"], mod
 
 

@@ -101,14 +101,17 @@ def test_no_lang_ca_guards():
 
 # --------------------------------------------------------------- refusals
 @pytest.mark.parametrize("flags, item", [
-    (["--mesh-data", "2"], 7),
+    # --mesh-data is ported (test_torch_dp_driver.py); --mesh-model is not
+    pytest.param(["--mesh-data", "1", "--mesh-model", "2"], "7c",
+                 id="flags0-7"),
     (["--e2e-imagination", "frozen"], 5),
     (["--init-from-pretrain", "model_step_10"], 6),
     (["--obj-features", "obj.hdf5"], 4),
     (["--dataset", "cvdn"], 4),
 ])
 def test_unported_flags_exit_naming_their_item(flags, item, tmp_path, capsys):
-    """Item 7 exits, naming its ROADMAP item.  Items 4-6 are ported: their
+    """`--mesh-model` above 1 (item 7c) exits, naming its ROADMAP item,
+    before it joins a process group.  Items 4-6 are ported: their
     flags, once refused here, now run (the synthetic world has no object
     store, so `--obj-features` is not read; `--e2e-imagination` gives the
     synthetic episodes raw images; `--init-from-pretrain` reads a snapshot

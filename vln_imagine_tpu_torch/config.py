@@ -12,6 +12,7 @@ VLN-DUET/map_nav_src/scripts/run_r2r.sh), the task variants `rxr_config`,
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -324,3 +325,32 @@ def tiny_test_config(agent: str = "hamt") -> Config:
     )
     cfg = _replace(cfg, "train", batch_size=2, feat_dropout=0.0)
     return cfg
+
+
+_SECTIONS = {"model": ModelConfig, "env": EnvConfig, "train": TrainConfig,
+             "pretrain": PretrainConfig, "mesh": MeshConfig}
+
+
+def config_to_json(cfg: Config) -> str:
+    """The config as indented JSON (`dataclasses.asdict`), as the JAX
+    package writes it."""
+    return json.dumps(dataclasses.asdict(cfg), indent=2, default=str)
+
+
+def config_from_json(text: str) -> Config:
+    """`config_to_json`'s inverse: unknown keys are dropped, lists become
+    tuples, and the sections become their dataclasses."""
+    def build(cls, data):
+        names = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {}
+        for k, v in data.items():
+            if k not in names:
+                continue
+            if isinstance(v, dict) and k in _SECTIONS:
+                v = build(_SECTIONS[k], v)
+            elif isinstance(v, list):
+                v = tuple(v)
+            kwargs[k] = v
+        return cls(**kwargs)
+
+    return build(Config, json.loads(text))

@@ -8,8 +8,10 @@
 //
 //   kBitsHash   the JAX package's _hash_mask_bits over one batch item's
 //               [H, Lq, Lk] block (the CPU stand-in for the TPU's PRNG)
-//   kBitsPhilox Philox-4x32-10, counter (k, q, h, b), key (seed lo, seed hi),
-//               first output word
+//   kBitsPhilox Philox-4x32-10, counter (k, q, h, b + row_offset), key
+//               (seed lo, seed hi), first output word; row_offset is the
+//               global batch row of the call's row 0, so that a rank of a
+//               data-parallel step draws its rows' bits of the global batch
 #pragma once
 
 #include <stdint.h>
@@ -25,6 +27,7 @@ struct DropoutParams {
   uint32_t threshold;  // keep when bits >= threshold
   float keep_scale;    // value of a kept element's mask
   uint64_t seed;
+  uint32_t row_offset;  // global batch row of the call's row 0 (Philox)
 };
 
 __device__ __forceinline__ uint32_t hash_bits(uint32_t h, uint32_t q,
@@ -60,7 +63,7 @@ __device__ __forceinline__ float dropout_mask(const DropoutParams& d, int b,
                                               int h, int q, int k) {
   const uint32_t bits = d.bits == kBitsHash
                             ? hash_bits(h, q, k)
-                            : philox_bits(d.seed, b, h, q, k);
+                            : philox_bits(d.seed, b + d.row_offset, h, q, k);
   return bits >= d.threshold ? d.keep_scale : 0.f;
 }
 

@@ -22,8 +22,18 @@ task variant by its own metrics (variants.py): REVERIE / SOON by object
 navigation and grounding (RGS, RGSPL, `predObjId` in the submission),
 r2r_back by the declared midstop, CVDN by goal progress over the split's
 `end_panos`.  `init_from_pretrain` grafts a snapshot of the port's
-pre-trainer (pretrain/trainer.py) into the navigator.  Not ported yet, and
-refused with NotImplementedError: a device mesh (ROADMAP Queue 1 item 7).
+pre-trainer (pretrain/trainer.py) into the navigator.
+
+Data parallelism (`mesh`, or `cfg.mesh.data_parallelism` != 0 over an
+initialized process group; parallel/): one process per device, every
+process running the same seeded sampler and taking its block of rows of
+each global batch, so a step equals the one-process step on the whole
+batch.  The state is broadcast from rank 0 after `setup`, every load and
+every rollback; `validate` rounds its batch to the data axis, each rank
+evaluates its rows and the per-item results are gathered, so the scores
+and the files equal the one-process run's.  Only rank 0 writes logs,
+checkpoints and submissions; a fault on any rank rolls every rank back.
+A model axis above 1 raises NotImplementedError (ROADMAP Queue 1 item 7c).
 """
 
 from __future__ import annotations
@@ -43,6 +53,18 @@ from vln_imagine_tpu_torch.config import Config
 from vln_imagine_tpu_torch.data.annotations import EvalSampler, RoundRobinSampler
 from vln_imagine_tpu_torch.envx.tables import EpisodeBatch, WorldTables
 from vln_imagine_tpu_torch.eval.metrics import eval_batch
+from vln_imagine_tpu_torch.parallel.distributed import (
+    all_gather_objects,
+    is_default_process,
+    merge_results,
+)
+from vln_imagine_tpu_torch.parallel.mesh import (
+    DataShard,
+    make_mesh,
+    replicate,
+    shard_batch,
+)
+from vln_imagine_tpu_torch.platform import resolve_device
 from vln_imagine_tpu_torch.variants import eval_batch_variant
 from vln_imagine_tpu_torch.utils.logger import (
     MetricsWriter,
@@ -73,25 +95,23 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def refuse_unported(cfg: Config) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for a
-    configuration whose branch the port does not have yet."""
-    unported = [
-        (cfg.mesh.data_parallelism != 0, "a device mesh (data parallelism)",
-         7),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
-
-
 class FinetuneDriver:
     def __init__(self, cfg: Config, tables: WorldTables,
                  train_split: SplitData, val_splits: list[SplitData],
                  log_dir: str, graphs=None,
-                 aug_split: SplitData | None = None, device=None):
-        refuse_unported(cfg)
+                 aug_split: SplitData | None = None, device=None, mesh=None):
+        device = resolve_device(device)
+        if mesh is None and cfg.mesh.data_parallelism != 0:
+            mesh = make_mesh(data=cfg.mesh.data_parallelism,
+                             model=cfg.mesh.model_parallelism,
+                             device_type=device.type)
+        self.mesh = mesh
+        self.shard = None if mesh is None else DataShard.of(mesh)
+        if self.shard is not None and cfg.train.batch_size % self.shard.size:
+            raise ValueError(f"the data axis ({self.shard.size}) must divide "
+                             f"the batch size ({cfg.train.batch_size})")
+        # rank 0 writes logs, checkpoints and submissions
+        self.writes = is_default_process()
         self.cfg = cfg
         self.tables = tables
         # host copy of the distance tables, for the metrics
@@ -102,9 +122,11 @@ class FinetuneDriver:
         self.train_split = train_split
         self.val_splits = val_splits
         self.log_dir = log_dir
-        os.makedirs(log_dir, exist_ok=True)
-        dump_args(cfg, log_dir)
-        self.writer = MetricsWriter(log_dir)
+        self.writer = None
+        if self.writes:
+            os.makedirs(log_dir, exist_ok=True)
+            dump_args(cfg, log_dir)
+            self.writer = MetricsWriter(log_dir)
         self.record_file = os.path.join(log_dir, "train.txt")
         self.ckpt = CheckpointManager(
             os.path.join(log_dir, "ckpts"),
@@ -112,7 +134,7 @@ class FinetuneDriver:
 
         if cfg.agent == "hamt":
             from vln_imagine_tpu_torch.train.trainer import HamtTrainer
-            self.trainer = HamtTrainer(cfg, tables, device=device)
+            self.trainer = HamtTrainer(cfg, tables, device=device, mesh=mesh)
             # train_alg 'sample' = IL+RL (agent_cmt.py:799-832);
             # 'imitation' = teacher-forced CE only
             self._feedback = ("teacher"
@@ -120,7 +142,7 @@ class FinetuneDriver:
                               else "sample")
         else:
             from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
-            self.trainer = DuetTrainer(cfg, tables, device=device)
+            self.trainer = DuetTrainer(cfg, tables, device=device, mesh=mesh)
             self._feedback = None  # train_alg drives it
         self.device = self.trainer.device
         self.sampler = RoundRobinSampler(
@@ -161,6 +183,40 @@ class FinetuneDriver:
         self._eval_step = (self.trainer.make_eval_step(detailed=True)
                            if self._eval_detailed
                            else self.trainer.make_eval_step())
+        self._replicate()
+
+    def _replicate(self) -> None:
+        """Under a mesh, broadcast the modules and the optimizer states from
+        rank 0 (every rank seeds the same init and loads the same files;
+        this keeps them equal whatever happened on the way)."""
+        if self.mesh is None:
+            return
+        tr = self.trainer
+        replicate(tr.model, self.mesh)
+        replicate(tr.optimizer.state_dict(), self.mesh)
+        if getattr(tr, "critic", None) is not None:
+            replicate(tr.critic, self.mesh)
+            replicate(tr.critic_optimizer.state_dict(), self.mesh)
+
+    def _rows(self, idxs: np.ndarray) -> np.ndarray:
+        """This rank's block of a global batch's item indices."""
+        return idxs if self.mesh is None else shard_batch(idxs, self.mesh)
+
+    def _record(self, line: str) -> None:
+        if self.writes:
+            write_to_record_file(line, self.record_file, verbose=True)
+
+    def _barrier(self) -> None:
+        """Under a mesh, wait for every rank of the data axis."""
+        if self.shard is not None:
+            torch.distributed.barrier(group=self.shard.group)
+
+    def _save(self, kind: str, *args) -> None:
+        """Rank 0 saves the slot (`save_latest`, `save_snapshot`,
+        `maybe_save_best`); the others wait for it."""
+        if self.writes:
+            getattr(self.ckpt, kind)(self.state_dict(), *args)
+        self._barrier()
 
     def state_dict(self) -> dict:
         """The training state in the reference's agent-save layout.  The
@@ -189,9 +245,11 @@ class FinetuneDriver:
     def load_checkpoint(self, name: str) -> dict:
         """Restore the slot `name` (or a checkpoint path) into the trainer;
         refuses a checkpoint of a differently configured model."""
+        self._barrier()  # rank 0 has written it
         state = self.ckpt.load(name, self.state_dict(),
                                map_location=self.device)
         self.load_state_dict(state)
+        self._replicate()
         return state
 
     def init_from_reference(self, path: str) -> dict:
@@ -290,8 +348,8 @@ class FinetuneDriver:
             use_aug = self.aug_split is not None and it % 2 == 1
             sampler = self.aug_sampler if use_aug else self.sampler
             split = self.aug_split if use_aug else self.train_split
-            ep1 = _take(split.episodes, sampler.next_batch())
-            ep2 = _take(split.episodes, sampler.next_batch())
+            ep1 = _take(split.episodes, self._rows(sampler.next_batch()))
+            ep2 = _take(split.episodes, self._rows(sampler.next_batch()))
             metrics = self._train_step(ep1, ep2)
             for k, v in metrics.items():
                 logs.setdefault(k, []).append(v)
@@ -311,9 +369,15 @@ class FinetuneDriver:
         n = split.episodes.scan.shape[0]
         # a batch bigger than the split only pads compute (EvalSampler wraps)
         bs = max(min(bs, n), 1)
-        paths, gts, scans, kept_ids, kept_idx = [], [], [], [], []
-        extra = []  # pred_obj (reverie/soon) or declared midstop (r2r_back)
-        details = []  # per item {node: stop probability} (detailed_output)
+        mine = slice(0, bs)  # this rank's rows of each batch
+        if self.shard is not None:
+            # keep the batch shardable over the data axis
+            w = self.shard.size
+            bs = max(bs // w * w, w)
+            m = bs // w
+            mine = slice(self.shard.rank * m, (self.shard.rank + 1) * m)
+        # every fresh item's results, by its place in the sequential order
+        items = []
         # a window of eval calls in flight (VLN_EVAL_PIPELINE, default 4;
         # 1 is fully synchronous).  The port's eval step waits for the
         # device once a step for its early exit, so a call returns with its
@@ -334,6 +398,7 @@ class FinetuneDriver:
         inflight: deque = deque()
         sampler = iter(EvalSampler(n, bs))
         exhausted = False
+        n_batches = 0
         gt_path = np.asarray(split.episodes.gt_path)
         gt_len = np.asarray(split.episodes.gt_len)
         scan = np.asarray(split.episodes.scan)
@@ -344,13 +409,14 @@ class FinetuneDriver:
                     exhausted = True
                     break
                 pos, fresh = nxt
-                idxs = perm[pos]
+                idxs, fresh = perm[pos][mine], fresh[mine]
                 out = self._eval_step(_take(split.episodes, idxs))
                 self.eval_step_counts.append(self._eval_step.steps)
-                inflight.append((idxs, fresh, out))
+                inflight.append((n_batches, idxs, fresh, out))
+                n_batches += 1
             if not inflight:
                 break
-            idxs, fresh, out = inflight.popleft()
+            batch, idxs, fresh, out = inflight.popleft()
             if self._eval_detailed:
                 det_nodes, det_scores, det_valid = (x.cpu().numpy()
                                                     for x in out[-1])
@@ -360,17 +426,31 @@ class FinetuneDriver:
             for j, keep in enumerate(fresh):
                 if not keep:
                     continue
-                b = idxs[j]
-                paths.append(list(pn[j, :pl[j]]))
-                gts.append(list(gt_path[b][:int(gt_len[b])]))
-                scans.append(int(scan[b]))
-                kept_ids.append(split.instr_ids[b] if split.instr_ids else b)
-                kept_idx.append(b)
-                if po is not None:
-                    extra.append(int(po[j]))
-                if self._eval_detailed:
-                    details.append({int(n): float(s) for n, s, v in zip(
-                        det_nodes[j], det_scores[j], det_valid[j]) if v})
+                items.append({
+                    "pos": (batch, mine.start + j), "b": idxs[j],
+                    "path": list(pn[j, :pl[j]]),
+                    "extra": None if po is None else int(po[j]),
+                    "detail": None if not self._eval_detailed else {
+                        int(n): float(s) for n, s, v in zip(
+                            det_nodes[j], det_scores[j], det_valid[j]) if v}})
+        if self.shard is not None:
+            items = sorted(merge_results(
+                all_gather_objects(items, self.shard.group), key="pos"),
+                key=lambda it: it["pos"])
+        paths, gts, scans, kept_ids, kept_idx = [], [], [], [], []
+        extra = []  # pred_obj (reverie/soon) or declared midstop (r2r_back)
+        details = []  # per item {node: stop probability} (detailed_output)
+        for it in items:
+            b = it["b"]
+            paths.append(it["path"])
+            gts.append(list(gt_path[b][:int(gt_len[b])]))
+            scans.append(int(scan[b]))
+            kept_ids.append(split.instr_ids[b] if split.instr_ids else b)
+            kept_idx.append(b)
+            if it["extra"] is not None:
+                extra.append(it["extra"])
+            if it["detail"] is not None:
+                details.append(it["detail"])
         is_obj = bool(extra) and split.episodes.gt_obj_id is not None
         if is_obj:
             # REVERIE/SOON: object-navigation scoring (success = stop at any
@@ -394,7 +474,7 @@ class FinetuneDriver:
         else:
             avg, per = eval_batch(self._dist, np.asarray(scans),
                                   paths, gts, kept_ids)
-        if write_outputs:
+        if write_outputs and self.writes:
             # submit_<env>.json + individual_metrics_<env>.json
             # (main.py:410-421); the submission needs host graphs for real
             # viewpoint ids/poses
@@ -470,7 +550,7 @@ class FinetuneDriver:
         # (e.g. the non-finite-loss guard firing before any save) would
         # "roll back" to nothing and keep training the poisoned in-memory
         # state for max_failures more intervals
-        self.ckpt.save_latest(self.state_dict())
+        self._save("save_latest")
         start = time.time()
         failures = 0
         # profiling: VLN_PROFILE_DIR=<dir> traces the first interval.  The
@@ -479,6 +559,7 @@ class FinetuneDriver:
         for idx in range(0, iters, log_every):
             interval = min(log_every, iters - idx)
             it = idx + interval
+            error = None
             try:
                 if profile_dir and idx == 0:
                     train_metrics = self._train_interval_profiled(
@@ -498,41 +579,46 @@ class FinetuneDriver:
                 if bad:
                     raise FloatingPointError(
                         f"non-finite training metrics {bad}")
-                failures = 0
             except Exception as e:  # noqa: BLE001 - deliberate recovery scope
+                error = e
+            if self.shard is not None:
+                # a fault on any rank is a fault on every rank, so that the
+                # ranks roll back together
+                flag = torch.tensor(float(error is not None),
+                                    device=self.device)
+                if self.shard.sum(flag).item() > 0 and error is None:
+                    error = RuntimeError("another rank's interval failed")
+            if error is not None:
                 failures += 1
-                write_to_record_file(
+                self._record(
                     f"[failure {failures}/{max_failures}] interval at iter "
-                    f"{idx} failed: {type(e).__name__}: {e}",
-                    self.record_file, verbose=True)
+                    f"{idx} failed: {type(error).__name__}: {error}")
                 if failures > max_failures:
-                    raise
+                    raise error
                 try:
                     self.load_checkpoint("latest_dict")
-                    write_to_record_file("rolled back to latest_dict",
-                                         self.record_file, verbose=True)
+                    self._record("rolled back to latest_dict")
                 except Exception:
-                    write_to_record_file(
-                        "no checkpoint to roll back to; continuing with the "
-                        "in-memory state", self.record_file, verbose=True)
+                    self._record("no checkpoint to roll back to; continuing "
+                                 "with the in-memory state")
                 continue
-            self.writer.add_scalars(train_metrics, it, prefix="loss")
+            failures = 0
+            if self.writer is not None:
+                self.writer.add_scalars(train_metrics, it, prefix="loss")
             loss_str = f"iter {it}"
             for split in self.val_splits:
                 score = self.validate(split)
-                self.writer.add_scalars(score, it, prefix=split.name)
+                if self.writer is not None:
+                    self.writer.add_scalars(score, it, prefix=split.name)
                 loss_str += f", {split.name} " + ", ".join(
                     f"{k}: {v:.2f}" for k, v in score.items())
                 if split.name.startswith("val_unseen"):
                     if it % 2000 == 0:
-                        self.ckpt.save_snapshot(self.state_dict(), it,
-                                                score["sr"], score["spl"],
-                                                split.name)
-                    self.ckpt.maybe_save_best(self.state_dict(), split.name,
-                                              score)
-            self.ckpt.save_latest(self.state_dict())
-            write_to_record_file(
+                        self._save("save_snapshot", it, score["sr"],
+                                   score["spl"], split.name)
+                    self._save("maybe_save_best", split.name, score)
+            self._save("save_latest")
+            self._record(
                 f"[{time.time() - start:.0f}s] {loss_str} | "
-                + ", ".join(f"{k}={v:.4f}" for k, v in train_metrics.items()),
-                self.record_file, verbose=True)
+                + ", ".join(f"{k}={v:.4f}" for k, v in train_metrics.items()))
         return self.state_dict()

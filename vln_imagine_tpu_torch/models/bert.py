@@ -30,6 +30,29 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
+def attention(q, k, v, bias, scale: float, rate: float, rng: Rng | None):
+    """`fused_attention` with attention-probs dropout at `rate` from `rng`
+    (off without one): one seed a call, each row drawing the bits of its
+    global batch row.  A batch of several global batches side by side (the
+    fused rollout's halves, under data parallelism) is not one contiguous
+    block of global rows, so it runs as one call a block (ops/dropout.py)."""
+    if rng is None or rate == 0.0:
+        return fused_attention(q, k, v, bias, scale)
+    seed = rng.seed()
+    blocks = rng.row_blocks(q.shape[0])
+    if len(blocks) == 1:
+        return fused_attention(q, k, v, bias, scale, dropout_rate=rate,
+                               seed=seed, row_offset=blocks[0][2])
+    outs = []
+    for start, n, row_offset in blocks:
+        rows = slice(start, start + n)
+        b = bias if bias is None or bias.shape[0] == 1 else bias[rows]
+        outs.append(fused_attention(q[rows], k[rows], v[rows], b, scale,
+                                    dropout_rate=rate, seed=seed,
+                                    row_offset=row_offset))
+    return torch.cat(outs)
+
+
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     """x * 0.5 * (1 + erf(x / sqrt(2))): the reference's gelu, not the tanh
     approximation."""
@@ -149,10 +172,8 @@ class MHAttention(nn.Module):
         def heads(x):
             return x.unflatten(-1, (self.num_heads, self.head_dim))
 
-        rate = self.probs_dropout if rng is not None else 0.0
-        ctx = fused_attention(heads(q), heads(k), heads(v), bias,
-                              1.0 / self.head_dim ** 0.5, dropout_rate=rate,
-                              seed=rng.seed() if rate > 0.0 else None)
+        ctx = attention(heads(q), heads(k), heads(v), bias,
+                        1.0 / self.head_dim ** 0.5, self.probs_dropout, rng)
         return ctx.flatten(2)
 
 
@@ -375,10 +396,8 @@ class PackedSelfAttention(nn.Module):
                             self.compute_dtype)
         q, k, v = (t.unflatten(-1, (self.num_heads, self.head_dim)) for t in
                    F.linear(x.to(self.compute_dtype), w, b).chunk(3, dim=-1))
-        rate = self.probs_dropout if rng is not None else 0.0
-        ctx = fused_attention(q, k, v, bias, 1.0 / self.head_dim ** 0.5,
-                              dropout_rate=rate,
-                              seed=rng.seed() if rate > 0.0 else None)
+        ctx = attention(q, k, v, bias, 1.0 / self.head_dim ** 0.5,
+                        self.probs_dropout, rng)
         return self.out_proj(ctx.flatten(2))
 
 
@@ -486,6 +505,9 @@ class Critic(nn.Module):
                                           "3": Dense(512, 1, dt)})
         self.rate = 0.5
 
-    def forward(self, state, rng=None):
+    def forward(self, state, rng=None, batch_dim: int = 0):
+        """state [..., H] -> values [...]; `batch_dim` is the dim of
+        `state` that holds the batch rows (for the dropout draw)."""
         x = F.relu(self.state2value["0"](state))
-        return self.state2value["3"](dropout(x, self.rate, rng))[..., 0]
+        return self.state2value["3"](
+            dropout(x, self.rate, rng, batch_dim))[..., 0]

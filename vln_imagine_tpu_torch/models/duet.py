@@ -220,14 +220,15 @@ class DuetModel(nn.Module):
         return self.imagine_embeddings(self.drop_env(imagine_feats, rng))
 
     def align_with_contrastive_loss(self, txt_embeds, txt_mask, imagine_embeds,
-                                    imagine_mask, np_weights, rng=None):
+                                    imagine_mask, np_weights, rng=None,
+                                    shard=None):
         """The HAMT alignment, with the DUET option of detaching the text
         stream (vilmodel.py:1249-1255)."""
         if self.config.fix_lang_inside_cosine_model:
             txt_embeds = txt_embeds.detach()
         return align_imagination(self.contrastive_alignment_model.image_proj,
                                  self.config, txt_embeds, imagine_embeds,
-                                 imagine_mask, np_weights, rng)
+                                 imagine_mask, np_weights, rng, shard=shard)
 
     def panorama_per_step(self, view_img_fts, loc_fts, nav_types, valid,
                           rng=None):

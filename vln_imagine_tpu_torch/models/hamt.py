@@ -60,6 +60,7 @@ from vln_imagine_tpu_torch.models.vit import (
 )
 from vln_imagine_tpu_torch.ops.dropout import dropout
 from vln_imagine_tpu_torch.ops.masks import extend_neg_mask, mask_logits
+from vln_imagine_tpu_torch.parallel.mesh import global_sum
 
 
 def _stop_gradient(fixed: bool):
@@ -219,7 +220,8 @@ class ContrastiveAlignment(nn.Module):
 
 
 def contrastive_alignment_loss(proj, mean_np, valid, aux_loss_type="cosine",
-                               temperature=0.3, margin=1.0, groups=None):
+                               temperature=0.3, margin=1.0, groups=None,
+                               shard=None):
     """Imagination-text alignment losses over [B, I, H] projections:
 
     - 'cosine': mean over valid rows of 1 - cos(proj, mean_np)
@@ -234,7 +236,13 @@ def contrastive_alignment_loss(proj, mean_np, valid, aux_loss_type="cosine",
     groups: optional [B] labels 0 / 1 of a fused batch (the IL and RL halves
     of one train step).  The loss is then the SUM of each group's separately
     normalised mean, and negatives come only from the same group: what two
-    separate rollouts give (agent_cmt.py:437-462)."""
+    separate rollouts give (agent_cmt.py:437-462).
+
+    shard: the batch is this rank's block of a data-parallel global batch
+    (parallel/mesh.py).  The means then run over the valid rows of every
+    rank (the loss is this rank's share of the global loss), and the
+    negatives come from every rank's items through an all-gather that
+    passes gradients back."""
     B, I, _ = proj.shape
 
     def unit(x):
@@ -248,24 +256,32 @@ def contrastive_alignment_loss(proj, mean_np, valid, aux_loss_type="cosine",
     def grouped_mean(per_row):                                # [B, I] -> ()
         if groups is None:
             v = valid.float()
-            return torch.sum(per_row * v) / torch.clamp(torch.sum(v), min=1.0)
+            return torch.sum(per_row * v) / torch.clamp(
+                global_sum(torch.sum(v), shard), min=1.0)
         total = torch.zeros((), device=per_row.device)
         for g in (0, 1):
             in_g = (groups == g)[:, None] & valid
             total = total + (torch.sum(torch.where(in_g, per_row, 0.0))
-                             / torch.clamp(torch.sum(in_g), min=1))
+                             / torch.clamp(global_sum(torch.sum(in_g), shard),
+                                           min=1))
         return total
 
     if aux_loss_type == "cosine":
         return grouped_mean(1.0 - pos_sim)
     if aux_loss_type not in ("infonce", "margin"):
         raise ValueError(aux_loss_type)
-    sim = torch.einsum("bih,cjh->bicj", pn, mn)               # [B, I, B, I]
-    items = torch.arange(B, device=proj.device)
-    other = items[:, None] != items[None, :]                  # [B, C]
+    # the negatives: every item's (every rank's, in rank order)
+    all_mn, all_valid, all_groups, first = mn, valid, groups, 0
+    if shard is not None:
+        all_mn, first = shard.gather(mn), shard.rank * B
+        all_valid = shard.gather(valid.to(torch.int32)).bool()
+        all_groups = None if groups is None else shard.gather(groups)
+    sim = torch.einsum("bih,cjh->bicj", pn, all_mn)           # [B, I, C, I]
+    items = torch.arange(all_mn.shape[0], device=proj.device)
+    other = items[first:first + B, None] != items[None, :]    # [B, C]
     if groups is not None:
-        other = other & (groups[:, None] == groups[None, :])
-    neg_mask = (other[:, None, :, None] & valid[None, None, :, :]
+        other = other & (groups[:, None] == all_groups[None, :])
+    neg_mask = (other[:, None, :, None] & all_valid[None, None, :, :]
                 ).expand(sim.shape)
     if aux_loss_type == "infonce":
         logits_pos = pos_sim / temperature
@@ -280,7 +296,8 @@ def contrastive_alignment_loss(proj, mean_np, valid, aux_loss_type="cosine",
 
 
 def align_imagination(image_proj, cfg: ModelConfig, txt_embeds, imagine_embeds,
-                      imagine_mask, np_weights, rng=None, groups=None):
+                      imagine_mask, np_weights, rng=None, groups=None,
+                      shard=None):
     """Alignment of projected imagination embeddings to the mean noun-phrase
     token embedding of their sub-instruction.  Returns (loss, new_imagine):
     valid rows are overwritten with their projection, the reference's
@@ -291,7 +308,7 @@ def align_imagination(image_proj, cfg: ModelConfig, txt_embeds, imagine_embeds,
     valid = imagine_mask & (torch.sum(np_weights, dim=-1) > 0)
     loss = contrastive_alignment_loss(
         proj, mean_np, valid, cfg.aux_loss_type, cfg.infonce_temperature,
-        cfg.contrastive_margin_value, groups)
+        cfg.contrastive_margin_value, groups, shard)
     new_imagine = torch.where(valid[:, :, None], proj, imagine_embeds)
     return loss, new_imagine
 
@@ -396,10 +413,10 @@ class HamtModel(nn.Module):
 
     def align_with_contrastive_loss(self, txt_embeds, txt_mask, imagine_embeds,
                                     imagine_mask, np_weights, rng=None,
-                                    groups=None):
+                                    groups=None, shard=None):
         return align_imagination(self.contrastive_alignment_model.image_proj,
                                  self.config, txt_embeds, imagine_embeds,
-                                 imagine_mask, np_weights, rng, groups)
+                                 imagine_mask, np_weights, rng, groups, shard)
 
     def visual(self, txt_embeds, txt_mask, hist_embeds, hist_mask,
                ob_img_feats, ob_ang_feats, ob_nav_types, ob_valid,

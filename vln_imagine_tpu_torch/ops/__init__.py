@@ -1,0 +1,12 @@
+from vln_imagine_tpu_torch.ops.angles import (
+    all_point_angle_feature,
+    angle_feature,
+    view_elevation,
+    view_heading,
+)
+from vln_imagine_tpu_torch.ops.masks import (
+    NEG_INF_MASK,
+    extend_neg_mask,
+    length_to_mask,
+    masked_softmax,
+)

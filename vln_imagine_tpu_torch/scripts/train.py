@@ -12,11 +12,19 @@ Synthetic smoke run (no datasets needed) on the CPU:
   python -m vln_imagine_tpu_torch.scripts.train --agent hamt --synthetic \\
       --iters 20 --log-every 10 --device cpu
 
+Data parallelism, one process per card (NCCL; gloo with `--device cpu`):
+  torchrun --nproc-per-node 8 -m vln_imagine_tpu_torch.scripts.train \\
+      --mesh-data 8 ...
+`--mesh-data -1` takes every launched process; `--mesh-data 1` also runs
+without a launcher.  Each process trains on its rows of every global
+batch of `--batch-size` items, and the step equals the one-process step.
+
 Everything runs on the card unless `--device` names another device; with
 no CUDA and no `--device` the CLI exits.  `--dataset` picks the task
 variant's preset (`preset`); `--synthetic` takes the tiny test preset off
 the card and the dataset's preset on it.  Flags whose branch is not ported
-yet exit with the ROADMAP item that will port it.
+yet (`--mesh-model` above 1) exit with the ROADMAP item that will port
+them.
 """
 
 from __future__ import annotations
@@ -144,8 +152,11 @@ def parse_args(argv=None):
     # device mesh (replaces the reference's DDP world_size flag): batch
     # shards over 'data', large kernels over 'model' when >1
     p.add_argument("--mesh-data", type=int, default=0,
-                   help="data-parallel axis size (0 = single device)")
-    p.add_argument("--mesh-model", type=int, default=1)
+                   help="data-parallel processes (0 = one process without a "
+                        "mesh, -1 = every launched process); launch them "
+                        "with torchrun --nproc-per-node N")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="model-parallel axis size (only 1 is ported)")
     # inference mode (the reference's valid()-from-checkpoint entry,
     # main.py:370-421): evaluate every val split and exit
     p.add_argument("--eval-only", action="store_true")
@@ -157,16 +168,28 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """Exit, naming the ROADMAP Queue 1 item that will port it, for a flag
-    whose branch the port does not have yet."""
-    unported = [
-        (args.mesh_data, "--mesh-data", 7),
-    ]
-    for bad, flag, item in unported:
-        if bad:
-            raise SystemExit(
-                f"{flag} is not ported yet: ROADMAP Queue 1 item {item}")
+def join_mesh(args, device):
+    """Under `--mesh-data`, join the process group (torchrun's, or a
+    one-process group at `--mesh-data 1` without a launcher) and return
+    this process's device and the data axis' size; exit on a mesh the
+    port cannot run."""
+    from vln_imagine_tpu_torch.parallel.distributed import (
+        initialize,
+        process_count,
+    )
+    from vln_imagine_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM
+
+    if args.mesh_model != 1:
+        raise SystemExit(f"--mesh-model {args.mesh_model}: a model axis "
+                         f"(tensor parallelism) is not ported yet: "
+                         f"{MODEL_AXIS_ITEM}")
+    device = initialize(device=device)
+    world = process_count()
+    data = world if args.mesh_data == -1 else args.mesh_data
+    if data != world:
+        raise SystemExit(f"--mesh-data {args.mesh_data} does not match the "
+                         f"{world} launched processes")
+    return device, data
 
 
 def preset(args, device):
@@ -421,16 +444,37 @@ def model_overrides(args, cfg) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported(args)
-    from vln_imagine_tpu_torch.config import _replace
-    from vln_imagine_tpu_torch.driver import FinetuneDriver, SplitData
     from vln_imagine_tpu_torch.platform import resolve_device
 
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"train: {e} (pass --device cpu)") from None
+    if not args.mesh_data:
+        return run(args, device)
+    import torch.distributed as dist
+
+    joined = dist.is_initialized()
+    try:
+        device, data = join_mesh(args, device)
+        return run(args, device, data)
+    finally:
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run(args, device, mesh_data: int = 0):
+    """The run of `main` on `device`, over a data axis of `mesh_data`
+    processes when it is not 0."""
+    from vln_imagine_tpu_torch.config import _replace
+    from vln_imagine_tpu_torch.driver import FinetuneDriver, SplitData
+    from vln_imagine_tpu_torch.parallel.distributed import is_default_process
+
+    say = print if is_default_process() else (lambda *a, **k: None)
     cfg = preset(args, device).replace(dataset=args.dataset)
+    if mesh_data:
+        cfg = _replace(cfg, "mesh", data_parallelism=mesh_data,
+                       model_parallelism=args.mesh_model)
     overrides = {}
     for k in ("iters", "log_every", "batch_size", "eval_batch_size", "lr",
               "train_alg", "ml_weight", "expl_max_ratio"):
@@ -473,18 +517,18 @@ def main(argv=None):
     driver.setup()
     if args.init_from_reference:
         info = driver.init_from_reference(args.init_from_reference)
-        print(f"initialized from reference checkpoint "
+        say(f"initialized from reference checkpoint "
               f"{args.init_from_reference} (epoch {info['epoch']}, "
               f"{len(info['skipped'])} keys skipped)")
     if args.init_from_pretrain:
         info = driver.init_from_pretrain(args.init_from_pretrain)
-        print(f"initialized from pretrain snapshot "
+        say(f"initialized from pretrain snapshot "
               f"{args.init_from_pretrain} ({info['transferred']} leaves "
               f"transferred, {len(info['missing'])} finetune-only modules "
               f"at init)")
     if args.bert_ckpt_file:
         info = driver.init_from_bert_ckpt(args.bert_ckpt_file)
-        print(f"initialized from torch pretrain checkpoint "
+        say(f"initialized from torch pretrain checkpoint "
               f"{args.bert_ckpt_file} ({info['transferred']} leaves "
               f"transferred, {len(info['skipped'])} pretrain-only keys "
               f"skipped)")
@@ -493,14 +537,14 @@ def main(argv=None):
     if args.eval_only:
         for split in vals:
             score = driver.validate(split, write_outputs=args.submit)
-            print(f"{split.name}: "
+            say(f"{split.name}: "
                   + ", ".join(f"{k}={v:.2f}" for k, v in score.items()))
         return driver
     if args.eval_first:
         # validate the initial weights before any training (main.py:167)
         for split in vals:
             score = driver.validate(split)
-            print(f"[eval_first] {split.name}: "
+            say(f"[eval_first] {split.name}: "
                   + ", ".join(f"{k}={v:.2f}" for k, v in score.items()))
     driver.run(iters=args.iters, log_every=args.log_every)
     return driver

@@ -53,6 +53,14 @@ Semantics kept from the JAX package:
   backtrack.  A node without valid objects stores the id in its first
   object slot (the argmax over all-masked logits), as the JAX package does
 
+Under data parallelism (`shard`, parallel/mesh.py) the batch is this
+rank's block of the global batch, as in the HAMT rollout: the losses
+divide by global denominators and the draws are the global batch's.  The
+map's next-hop tables are item 0's until the first `relax` (envx/gmap.py
+`_item`), and item 0 of the global batch lies on rank 0: every rank takes
+rank 0's tables before that relax, so that each rank's items see what
+they see in the one-process rollout.
+
 JAX rematerialises every step of a differentiated rollout to fit a TPU's
 memory; the port keeps the activations (see PERF.md for the peak).  The
 incremental DTW row (the trajectory's, through every teleport and
@@ -76,6 +84,7 @@ from vln_imagine_tpu_torch.models.duet import DuetModel
 from vln_imagine_tpu_torch.ops.angles import view_elevation, view_heading
 from vln_imagine_tpu_torch.ops.dropout import Rng
 from vln_imagine_tpu_torch.ops.masks import LOGIT_NEG_INF
+from vln_imagine_tpu_torch.parallel.mesh import DataShard
 from vln_imagine_tpu_torch.platform import resolve_device
 from vln_imagine_tpu_torch.train.rollout_hamt import (
     a2c_loss,
@@ -170,14 +179,19 @@ def _fix_endpoint(nodes, valid, target, do):
     return nodes, valid
 
 
-def _grow_map(tables, ep, gm, st, obs, active):
+def _grow_map(tables, ep, gm, st, obs, active, shard=None):
     """Add the current node and its candidates, their edges, and relax
-    through the current node (agent.py:396-398, 611-620)."""
+    through the current node (agent.py:396-398, 611-620).  Under `shard`,
+    tables still without a batch dim (before the first relax) become rank
+    0's: those of the global batch's item 0."""
     gm = G.add_nodes(gm, st.node[:, None], active[:, None])
     gm = G.add_nodes(gm, obs.cand_nodes, obs.cand_valid & active[:, None])
     w = _edge_weights(tables, ep, st.node, obs.cand_nodes)
     gm = G.add_edges(gm, st.node, obs.cand_nodes, w,
                      obs.cand_valid & active[:, None])
+    if shard is not None and gm.nxt.shape[0] == 1:
+        gm = gm.replace(nxt=shard.broadcast(gm.nxt),
+                        hops=shard.broadcast(gm.hops))
     return G.relax(gm, st.node, active)
 
 
@@ -186,7 +200,8 @@ def rollout_duet(model: DuetModel, tables: WorldTables, ep: EpisodeBatch,
                  feedback: str = "argmax", train_ml: float | None = None,
                  deterministic: bool = True, max_steps: int | None = None,
                  early_exit: bool = False, critic: Critic | None = None,
-                 train_rl: bool = False) -> DuetRolloutResult:
+                 train_rl: bool = False,
+                 shard: DataShard | None = None) -> DuetRolloutResult:
     """Roll out a batch of episodes; tables and ep lie on the model's device.
 
     feedback: 'argmax' (greedy), 'teacher' (gt-path teacher forcing),
@@ -195,7 +210,8 @@ def rollout_duet(model: DuetModel, tables: WorldTables, ep: EpisodeBatch,
     `cfg.train.expert_policy`.  train_ml weights the IL loss; train_rl adds
     the A2C loss (needs `critic`).  `deterministic` turns every dropout off;
     `rng` is needed for dropout and for the draws.  Autograd is on only when
-    a loss is asked for."""
+    a loss is asked for.  `shard`: the batch is this rank's block of a
+    data-parallel global batch, and the losses are its shares."""
     if feedback not in ("argmax", "teacher", "sample", "expl_sample"):
         raise ValueError(f"feedback {feedback!r}")
     if feedback in ("teacher", "argmax"):
@@ -210,11 +226,12 @@ def rollout_duet(model: DuetModel, tables: WorldTables, ep: EpisodeBatch,
     drop = None if deterministic else rng
     with torch.set_grad_enabled(training):
         return _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
-                        max_steps, early_exit, critic, train_rl)
+                        max_steps, early_exit, critic, train_rl, shard)
 
 
 def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
-             max_steps, early_exit, critic, train_rl) -> DuetRolloutResult:
+             max_steps, early_exit, critic, train_rl,
+             shard) -> DuetRolloutResult:
     mcfg, tcfg, ecfg = cfg.model, cfg.train, cfg.env
     B = ep.batch
     T = max_steps or ecfg.max_action_len
@@ -249,13 +266,13 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
         if mcfg.use_cosine_aux_loss:
             aux_loss, imagine_embeds = model.align_with_contrastive_loss(
                 txt_embeds, ep.txt_mask, imagine_embeds, ep.imagine_mask,
-                ep.np_weights, drop)
+                ep.np_weights, drop, shard=shard)
 
     st = envx.reset(tables, ep, T)
     obs = envx.observe_duet(tables, ep, st, mcfg.angle_feat_size)
     gm = G.gmap_init(B, Gcap, tables.max_nodes, H, dev)
     gm = _grow_map(tables, ep, gm, st, obs,
-                   torch.ones((B,), dtype=torch.bool, device=dev))
+                   torch.ones((B,), dtype=torch.bool, device=dev), shard)
     path = torch.zeros((B, path_buffer_len(cfg) + 1), dtype=torch.int32,
                        device=dev)
     path[:, 0] = ep.start_node
@@ -432,10 +449,10 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
             if feedback == "argmax":
                 a_t = torch.argmax(logp, dim=-1)
             elif feedback == "sample":
-                a_t = sample_categorical(logp, rng.device)
+                a_t = sample_categorical(logp, rng)
             else:  # 'expl_sample'
-                explore = uniform_coin(B, rng.device) > tcfg.expl_max_ratio
-                a_t = torch.where(explore, sample_uniform(valid_act, rng.device),
+                explore = uniform_coin(B, rng) > tcfg.expl_max_ratio
+                a_t = torch.where(explore, sample_uniform(valid_act, rng),
                                   torch.argmax(logp, dim=-1))
             a_t = a_t.to(torch.int32)
             logp_a = logp.gather(1, a_t.long()[:, None])[:, 0]
@@ -542,22 +559,23 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
     path[:, -1] = 0  # the trash column: a deterministic output
     ml_loss = rl_loss = og_loss = zero
     loss = mcfg.cosine_weight * aux_loss if mcfg.use_cosine_aux_loss else zero
+    n_items = B if shard is None else B * shard.size  # the global batch's
     if train_ml is not None:
-        ml_loss = ml_acc * train_ml / B
+        ml_loss = ml_acc * train_ml / n_items
         loss = loss + ml_loss
         if use_obj:
-            og_loss = og_acc * train_ml / B
+            og_loss = og_acc * train_ml / n_items
             loss = loss + og_loss
     if train_rl:
         # every item ends by T-1, so the return after the last step is 0
         states = torch.stack(ys["state"]).float()              # [T, B, H]
-        values = critic(states.reshape(T * B, -1), drop).float().reshape(T, B)
+        values = critic(states, drop, batch_dim=1).float()     # [T, B]
         # the entropy bonus only under 'sample' (not 'expl_sample')
         rl_loss = a2c_loss(
             values, torch.stack(ys["reward"]), torch.stack(ys["mask"]),
             torch.stack(ys["logp"]),
             torch.stack(ys["entropy"]) if feedback == "sample" else None,
-            torch.zeros((B,), device=dev), tcfg, B)
+            torch.zeros((B,), device=dev), tcfg, n_items, shard)
         loss = loss + rl_loss
     return DuetRolloutResult(
         loss=loss, ml_loss=ml_loss, aux_loss=aux_loss, path_nodes=path,
@@ -589,20 +607,24 @@ def _expert_rows(tables, ep, rows, cur_node, nodes):
 
 
 def make_eval_fn(model: DuetModel, tables: WorldTables, cfg: Config,
-                 device=None, detailed: bool = False):
+                 device=None, detailed: bool = False,
+                 shard: DataShard | None = None):
     """Greedy-eval rollout on `device` (the card unless the caller names
     one): episodes -> (path_nodes, path_len); with objects then the
     grounded object id per item (REVERIE / SOON, for RGS), and with
     `detailed` last the final stop table (stop_nodes, stop_scores,
     stop_valid).  Moves the model and the tables there once.
-    `eval_fn.steps` is the number of steps the last call's loop ran."""
+    `eval_fn.steps` is the number of steps the last call's loop ran.
+    Under `shard` each rank evaluates its block of a global batch, and every
+    rank calls it equally often (the map's first tables come from rank 0)."""
     dev = resolve_device(device)
     model.to(dev).eval()
     tables = tables.to(dev)
     use_obj = cfg.model.obj_feat_size > 0 and tables.obj_feat is not None
 
     def eval_fn(ep: EpisodeBatch):
-        res = rollout_duet(model, tables, ep.to(dev), cfg, early_exit=True)
+        res = rollout_duet(model, tables, ep.to(dev), cfg, early_exit=True,
+                           shard=shard)
         eval_fn.steps = res.steps
         out = (res.path_nodes, res.path_len)
         if use_obj:

@@ -42,6 +42,11 @@ Semantics kept from the JAX package:
   viewpoint) and added as og_loss / batch, unweighted by train_ml
   (:449); the predicted object is recorded on the step an item stops,
   the forced stop at T-1 included
+- data parallelism (`shard`, parallel/mesh.py): the batch is this rank's
+  block of the global batch; every loss divides by its global denominator
+  (a rank's losses are its shares of the global ones) and every draw is
+  the global batch's (ops/dropout.py), so the shares' gradients sum to the
+  global step's
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from vln_imagine_tpu_torch.models.bert import Critic
 from vln_imagine_tpu_torch.models.hamt import HamtModel
 from vln_imagine_tpu_torch.ops.dropout import Rng
 from vln_imagine_tpu_torch.ops.masks import LOGIT_NEG_INF
+from vln_imagine_tpu_torch.parallel.mesh import DataShard, global_sum
 from vln_imagine_tpu_torch.platform import resolve_device
 
 
@@ -76,25 +82,23 @@ class RolloutResult(NamedTuple):
     pred_obj: torch.Tensor          # [B] i32 predicted object id at stop (-1)
 
 
-def sample_categorical(logp: torch.Tensor,
-                       generator: torch.Generator) -> torch.Tensor:
+def sample_categorical(logp: torch.Tensor, rng: Rng) -> torch.Tensor:
     """One draw per row from the categorical distribution of `logp` [B, K],
     by the Gumbel-max trick as `jax.random.categorical` (no host sync)."""
-    u = torch.rand(logp.shape, generator=generator, device=logp.device)
+    u = rng.rand(logp.shape, logp.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
     return torch.argmax(logp + gumbel, dim=-1)
 
 
-def uniform_coin(batch: int, generator: torch.Generator) -> torch.Tensor:
+def uniform_coin(batch: int, rng: Rng) -> torch.Tensor:
     """[batch] draws from U[0, 1), as `jax.random.uniform`."""
-    return torch.rand((batch,), generator=generator, device=generator.device)
+    return rng.rand((batch,))
 
 
-def sample_uniform(valid: torch.Tensor,
-                   generator: torch.Generator) -> torch.Tensor:
+def sample_uniform(valid: torch.Tensor, rng: Rng) -> torch.Tensor:
     """One draw per row, uniform over the row's valid entries of [B, K]
     (a categorical over a uniform logit, as the JAX package draws it)."""
-    return sample_categorical(torch.where(valid, 0.0, LOGIT_NEG_INF), generator)
+    return sample_categorical(torch.where(valid, 0.0, LOGIT_NEG_INF), rng)
 
 
 def shaped_reward(dist, ndtw, last_dist, last_ndtw, stopped, ended_pre):
@@ -113,13 +117,14 @@ def shaped_reward(dist, ndtw, last_dist, last_ndtw, stopped, ended_pre):
 
 
 def a2c_loss(values, rewards, masks, logps, entropys, bootstrap, tcfg,
-             n_items):
+             n_items, shard: DataShard | None = None):
     """The A2C loss of a rollout (agent_cmt.py:712-744) from its [T, B]
     critic values, rewards, masks and chosen log-probabilities: returns
     discounted by `tcfg.gamma` from `bootstrap` [B], the policy gradient on
     the detached advantage, the 0.5 L2 critic loss, the entropy bonus where
     `entropys` is given, normalised by `tcfg.normalize_loss` ('batch'
-    divides by `n_items`)."""
+    divides by `n_items`, the global item count; 'total' by the mask sum
+    over every rank of `shard`)."""
     rl_loss = values.new_zeros(())
     discount = bootstrap
     for s in reversed(range(values.shape[0])):
@@ -131,7 +136,8 @@ def a2c_loss(values, rewards, masks, logps, entropys, bootstrap, tcfg,
         rl_loss = rl_loss + torch.sum(
             -tcfg.entropy_loss_weight * entropys * masks)
     if tcfg.normalize_loss == "total":
-        rl_loss = rl_loss / torch.clamp(torch.sum(masks), min=1.0)
+        rl_loss = rl_loss / torch.clamp(global_sum(torch.sum(masks), shard),
+                                        min=1.0)
     elif tcfg.normalize_loss == "batch":
         rl_loss = rl_loss / n_items
     return rl_loss
@@ -151,7 +157,7 @@ def _select_action(logits, valid, teacher, feedback: str, rng: Rng | None,
         return torch.argmax(logp, dim=-1).to(torch.int32), None, None
     if feedback not in ("sample", "mixed"):
         raise ValueError(f"feedback {feedback!r}")
-    a = sample_categorical(logp, rng.device)
+    a = sample_categorical(logp, rng)
     if feedback == "mixed":
         a = torch.where(il_mask, teacher.long(), a)
     entropy = -torch.sum(torch.where(valid, logp.exp() * logp, 0.0), dim=-1)
@@ -183,7 +189,8 @@ def rollout_hamt(model: HamtModel, tables: WorldTables, ep: EpisodeBatch,
                  train_rl: bool = False, deterministic: bool = True,
                  max_steps: int | None = None,
                  early_exit: bool = False,
-                 il_mask: torch.Tensor | None = None) -> RolloutResult:
+                 il_mask: torch.Tensor | None = None,
+                 shard: DataShard | None = None) -> RolloutResult:
     """Roll out a batch of episodes; tables and ep lie on the model's device.
 
     feedback: 'argmax' (greedy), 'teacher' (gt-path teacher forcing),
@@ -192,12 +199,15 @@ def rollout_hamt(model: HamtModel, tables: WorldTables, ep: EpisodeBatch,
     sample).  train_ml weights the teacher CE; train_rl adds the A2C loss
     (needs `critic`).  `deterministic` turns every dropout off; `rng` is
     needed for dropout and for 'sample' / 'mixed'.  Autograd is on only when
-    a loss is asked for."""
+    a loss is asked for.  `shard`: the batch is this rank's block of a
+    data-parallel global batch, and the losses are its shares."""
     if feedback in ("teacher", "argmax"):
         train_rl = False
     if feedback == "mixed":
         if il_mask is None:
             raise ValueError("feedback='mixed' needs il_mask")
+        if rng is not None:  # the IL half's items, then the RL half's
+            rng = rng.grouped(2)
     else:
         il_mask = None
     training = train_ml is not None or train_rl
@@ -208,13 +218,15 @@ def rollout_hamt(model: HamtModel, tables: WorldTables, ep: EpisodeBatch,
     drop = None if deterministic else rng
     with torch.set_grad_enabled(training):
         return _rollout(model, tables, ep, cfg, rng, drop, critic, feedback,
-                        train_ml, train_rl, max_steps, early_exit, il_mask)
+                        train_ml, train_rl, max_steps, early_exit, il_mask,
+                        shard)
 
 
 def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
-             train_rl, max_steps, early_exit, il_m) -> RolloutResult:
+             train_rl, max_steps, early_exit, il_m, shard) -> RolloutResult:
     mcfg, tcfg, ecfg = cfg.model, cfg.train, cfg.env
     B = ep.batch
+    n_items = B if shard is None else B * shard.size  # the global batch's
     T = max_steps or ecfg.max_action_len
     K = tables.max_candidates
     ignore = tcfg.ignoreid
@@ -240,7 +252,7 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
             groups = None if il_m is None else (~il_m).to(torch.int32)
             aux_loss, imagine_embeds = model.align_with_contrastive_loss(
                 txt_embeds, ep.txt_mask, imagine_embeds, ep.imagine_mask,
-                ep.np_weights, drop, groups=groups)
+                ep.np_weights, drop, groups=groups, shard=shard)
 
     h0 = model.history_initial(B, drop)
     hist_buf = torch.zeros((B, T + 1, mcfg.hidden_size), dtype=h0.dtype,
@@ -405,8 +417,9 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
     ml_loss = rl_loss = og_loss = zero
     if train_ml is not None:
         # per-rollout normalisation (agent_cmt.py:747): a fused batch's CE
-        # divides by the IL half's size
-        n_il = B if il_m is None else torch.clamp(il_m.sum(), min=1)
+        # divides by the IL half's size; both over every rank
+        n_il = (n_items if il_m is None
+                else torch.clamp(global_sum(il_m.sum(), shard), min=1))
         ml_loss = ml_acc * train_ml / n_il
         loss = loss + ml_loss
         if use_obj:
@@ -421,11 +434,13 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
             last_value = critic(last_out.state, drop)
         bootstrap = torch.where(st.ended, 0.0, last_value.float())
         states = torch.stack(ys["state"])                    # [T, B, H]
-        values = critic(states.reshape(T * B, -1), drop).float().reshape(T, B)
+        values = critic(states, drop, batch_dim=1).float()   # [T, B]
+        n_rl = (n_items if il_m is None
+                else torch.clamp(global_sum((~il_m).sum(), shard), min=1))
         rl_loss = a2c_loss(
             values, torch.stack(ys["reward"]), torch.stack(ys["mask"]),
             torch.stack(ys["logp"]), torch.stack(ys["entropy"]), bootstrap,
-            tcfg, B if il_m is None else torch.clamp((~il_m).sum(), min=1))
+            tcfg, n_rl, shard)
         loss = loss + rl_loss
 
     return RolloutResult(

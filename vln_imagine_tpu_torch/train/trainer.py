@@ -20,6 +20,12 @@ grounded object (REVERIE / SOON) or the declared midstop (r2r_back).
 Under `e2e_imagination` the model holds the imagination ViT
 (models/vit.py): 'frozen' keeps it out of the optimizer, 'trainable' trains
 it with the rest of the navigator.
+
+With a `mesh` (parallel/mesh.py) each process trains on its block of rows
+of every global batch: the rollouts return this rank's shares of the
+global losses, one all-reduce sums the gradients of both optimizers before
+the clip, and the returned metrics are the global ones on every rank.  The
+step computes what the one-process step computes on the whole batch.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from vln_imagine_tpu_torch.models.bert import (
 )
 from vln_imagine_tpu_torch.models.hamt import HamtModel
 from vln_imagine_tpu_torch.ops.dropout import Rng
+from vln_imagine_tpu_torch.parallel.mesh import DataShard
 from vln_imagine_tpu_torch.platform import resolve_device
 from vln_imagine_tpu_torch.train.optim import (
     plain_optimizer,
@@ -103,6 +110,17 @@ def model_optimizer(cfg: Config, model: nn.Module):
                            tcfg.max_grad_norm, weight_decay=tcfg.weight_decay)
 
 
+def global_metrics(metrics: dict, shard: DataShard | None) -> dict:
+    """The step's metrics over the data axis: each rank's loss shares (and
+    entropy sums) summed in one all-reduce; `grad_norm`, taken after the
+    gradient all-reduce, is global already."""
+    if shard is None:
+        return metrics
+    keys = [k for k in metrics if k != "grad_norm"]
+    total = shard.sum(torch.stack([metrics[k].float() for k in keys]))
+    return {**metrics, **dict(zip(keys, total.unbind()))}
+
+
 def concat_episodes(a: EpisodeBatch, b: EpisodeBatch) -> EpisodeBatch:
     """The items of `a`, then those of `b`, as one batch."""
     return dataclasses.replace(a, **{
@@ -115,12 +133,15 @@ class HamtTrainer:
     """Builds the HAMT model and its critic with seeded weights on `device`
     (the card unless the caller names one), their optimizers, the greedy
     eval step and the train step over `tables`.  Every random draw of
-    training comes from `self.rng`, seeded from `cfg.train.seed`."""
+    training comes from `self.rng`, seeded from `cfg.train.seed`.  With a
+    `mesh` the train step takes this rank's rows of the global batches
+    (`shard_batch`) and computes the global step."""
 
     def __init__(self, cfg: Config, tables: WorldTables, device=None,
-                 seed: int | None = None):
+                 seed: int | None = None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.shard = None if mesh is None else DataShard.of(mesh)
         seed = cfg.train.seed if seed is None else seed
         gen = torch.Generator().manual_seed(seed)
         model = HamtModel(cfg.model, feat_dropout=cfg.train.feat_dropout)
@@ -130,7 +151,7 @@ class HamtTrainer:
         self.model = model.to(self.device).eval()
         self.critic = critic.to(self.device)
         self.tables = tables.to(self.device)
-        self.rng = Rng(seed, self.device)
+        self.rng = Rng(seed, self.device, self.shard)
         self.optimizer = model_optimizer(cfg, self.model)
         self.critic_optimizer = plain_optimizer(
             self.critic.parameters(), cfg.train.lr, cfg.train.optim,
@@ -160,9 +181,11 @@ class HamtTrainer:
                 else min(cfg.env.max_gt_path_len, cfg.env.max_action_len))
         dev = self.device
 
+        shard = self.shard
+
         def run(ep, **kw):
             return rollout_hamt(model, tables, ep, cfg, rng=rng, critic=critic,
-                                deterministic=False, **kw)
+                                deterministic=False, shard=shard, **kw)
 
         def step(ep_il: EpisodeBatch, ep_rl: EpisodeBatch) -> dict:
             ep_il, ep_rl = ep_il.to(dev), ep_rl.to(dev)
@@ -199,9 +222,13 @@ class HamtTrainer:
                 loss = loss + res.loss
                 metrics.update(rl_loss=res.rl_loss, entropy=res.entropy_sum)
             loss.backward()
+            if shard is not None:
+                shard.all_reduce_grads(self.optimizer.params()
+                                       + self.critic_optimizer.params())
             metrics["grad_norm"] = self.optimizer.step()
             self.critic_optimizer.step()
             metrics["loss"] = loss
-            return {k: v.detach() for k, v in metrics.items()}
+            return global_metrics({k: v.detach() for k, v in metrics.items()},
+                                  shard)
 
         return step

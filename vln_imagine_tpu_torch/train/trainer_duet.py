@@ -20,6 +20,9 @@ object per item.
 
 Under `e2e_imagination` the model holds the imagination ViT, kept out of
 the optimizer when 'frozen' (train/trainer.py:model_optimizer).
+
+With a `mesh` each process trains on its block of rows of every global
+batch and the step computes the global step, as in train/trainer.py.
 """
 
 from __future__ import annotations
@@ -31,10 +34,15 @@ from vln_imagine_tpu_torch.envx.tables import EpisodeBatch, WorldTables
 from vln_imagine_tpu_torch.models.bert import Critic
 from vln_imagine_tpu_torch.models.duet import DuetModel
 from vln_imagine_tpu_torch.ops.dropout import Rng
+from vln_imagine_tpu_torch.parallel.mesh import DataShard
 from vln_imagine_tpu_torch.platform import resolve_device
 from vln_imagine_tpu_torch.train.optim import plain_optimizer
 from vln_imagine_tpu_torch.train.rollout_duet import make_eval_fn, rollout_duet
-from vln_imagine_tpu_torch.train.trainer import init_params, model_optimizer
+from vln_imagine_tpu_torch.train.trainer import (
+    global_metrics,
+    init_params,
+    model_optimizer,
+)
 
 
 class DuetTrainer:
@@ -42,12 +50,14 @@ class DuetTrainer:
     the caller names one), its optimizer, under train_alg 'rl' the critic
     and its optimizer (else `critic` is None), the greedy eval step and the
     train step over `tables`.  Every random draw of training comes from
-    `self.rng`, seeded from `cfg.train.seed`."""
+    `self.rng`, seeded from `cfg.train.seed`.  With a `mesh` the steps take
+    this rank's rows of the global batches (`shard_batch`)."""
 
     def __init__(self, cfg: Config, tables: WorldTables, device=None,
-                 seed: int | None = None):
+                 seed: int | None = None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.shard = None if mesh is None else DataShard.of(mesh)
         seed = cfg.train.seed if seed is None else seed
         gen = torch.Generator().manual_seed(seed)
         model = DuetModel(cfg.model, feat_dropout=cfg.train.feat_dropout)
@@ -62,7 +72,7 @@ class DuetTrainer:
                 self.critic.parameters(), cfg.train.lr, cfg.train.optim,
                 max_grad_norm=None)
         self.tables = tables.to(self.device)
-        self.rng = Rng(seed, self.device)
+        self.rng = Rng(seed, self.device, self.shard)
         self.optimizer = model_optimizer(cfg, self.model)
 
     def make_eval_step(self, detailed: bool = False):
@@ -71,7 +81,7 @@ class DuetTrainer:
         table (stop_nodes, stop_scores, stop_valid) (--detailed_output,
         agent.py:597-601)."""
         return make_eval_fn(self.model, self.tables, self.cfg, self.device,
-                            detailed=detailed)
+                            detailed=detailed, shard=self.shard)
 
     def make_train_step(self):
         """Returns step(ep_il, ep_student) -> metrics: one update under
@@ -97,9 +107,11 @@ class DuetTrainer:
         dev = self.device
         student_fb = "expl_sample" if tcfg.expl_sample else "sample"
 
+        shard = self.shard
+
         def run(ep, **kw):
             return rollout_duet(model, tables, ep, cfg, rng=rng,
-                                deterministic=False, **kw)
+                                deterministic=False, shard=shard, **kw)
 
         def step(ep_il: EpisodeBatch, ep_student: EpisodeBatch) -> dict:
             ep_il, ep_student = ep_il.to(dev), ep_student.to(dev)
@@ -126,10 +138,15 @@ class DuetTrainer:
                 loss = loss + res.loss
                 metrics.update(rl_loss=res.rl_loss, entropy=res.entropy_sum)
             loss.backward()
+            if shard is not None:
+                shard.all_reduce_grads(
+                    self.optimizer.params() + ([] if self.critic is None
+                                               else self.critic_optimizer.params()))
             metrics["grad_norm"] = self.optimizer.step()
             if self.critic is not None:
                 self.critic_optimizer.step()
             metrics["loss"] = loss
-            return {k: v.detach() for k, v in metrics.items()}
+            return global_metrics({k: v.detach() for k, v in metrics.items()},
+                                  shard)
 
         return step
