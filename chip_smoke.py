@@ -187,7 +187,31 @@ failed check exits non-zero:
                 updated parameters' abs-sum within DP_SUM_TOL, each rank's
                 K2 / K3 a step equal to the one-rank step's, both ranks
                 equal.
-30. kernels     every kernel against its plain PyTorch version on the card:
+30. tp_two_rank two processes on the one card (`--tp-rank-child`), ranks
+                of a gloo group over CUDA tensors on a mesh of one data
+                rank and a model axis of 2 (tensor parallelism: the large
+                parameters split by `param_shardings`, 6 of the 12 heads a
+                rank), against `tp_steps` in this process without a mesh,
+                both agents' released configs in f32 at B 8: greedy eval
+                paths and lengths identical, step-0 logits within
+                TP_LOGIT_TOL; `dp_cfg`'s train step (every dropout on)
+                with metrics within DP_TOL and the updated whole
+                parameters' abs-sum within DP_SUM_TOL; DUET's imitation
+                step with dropout off (K1 + K4, dBias into sprel_linear)
+                with sprel_linear's gradient within TP_GRAD_TOL; every
+                count of every path on both ranks equal to the one-process
+                run's (one call a layer, on 6 heads), both ranks equal;
+                each rank's parameter bytes beside the census formula, its
+                peak memory and the step's seconds reported.
+31. tp_driver   the same two ranks: `FinetuneDriver` at the HAMT released
+                config (bf16) on driver_phase's run files, `run(iters=2,
+                log_every=1)` and `validate` with launches as
+                `driver_launches`; the checkpoint holds whole tensors,
+                bitwise the gathered live state, and a fresh driver on the
+                mesh loads it into slices bitwise the file's.  Scores are
+                reported, not gated.  Gloo over one card says nothing of
+                NVLink: these are correctness runs, not speeds.
+32. kernels     every kernel against its plain PyTorch version on the card:
                 K1 at every (Lq, Lk) of the eval path, B 8 and 64, and of
                 the teacher step, B 8; K2 (both bit sources), K3 (both) and
                 K4 at every training shape, B 8; every kernel also at the
@@ -213,7 +237,10 @@ failed check exits non-zero:
                 every key masked at -1e9), K4 timed there too; K2 and K3 on
                 a rank's rows [r0, B) at `row_offset` r0 (`row_offset_cases`:
                 B 8 r0 4 and B 64 r0 32, 67/67 and 220/220, bf16 and f32)
-                bitwise equal to those rows of the whole call.
+                bitwise equal to those rows of the whole call; K2 and K3 on
+                heads [6, 12) at `head_offset` 6 (`head_offset_cases`: B 8,
+                67/67 and 200/97, bf16 and f32) bitwise equal to those heads
+                of the call on all 12.
                 Kernel, plain and library times
                 (CUDA-graph replays between CUDA events) beside the least
                 time the card could take.  Two K2 calls, and two K3 calls,
@@ -224,7 +251,7 @@ failed check exits non-zero:
 also builds DIR's forward source (another checkout, e.g. a `git archive` of
 the parent commit) and times its K1/K2 beside this checkout's on the same
 inputs, in turns (`parent_ms` in the kernels phase).  DIR's C entry must
-take the `row_offset` argument this checkout's does.
+take the `row_offset` and `head_offset` arguments this checkout's does.
 
 Then the kernel summary line `{"kernels": [...]}`, the card's name and power
 limit, and last the result line.  Without a CUDA device, or outside a
@@ -1666,6 +1693,315 @@ def dp_rank_child(rank: int, out_dir: Path) -> None:
             {"rank": rank, "backend": dist.get_backend(), "steps": steps}))
     finally:
         dist.destroy_process_group()
+
+
+# ----------------------------------------------------- tensor parallelism
+TP_BATCH = 8            # the two-rank phases' batch: every rank holds it all
+TP_LOGIT_TOL = 1e-4     # f32 step-0 logits, two ranks vs one process
+TP_GRAD_TOL = 1e-5      # sprel_linear's gradient, relative
+TP_DRIVER_ITERS, TP_DRIVER_LOG_EVERY = 2, 1
+TP_CHILD_TIMEOUT = 900  # seconds for each rank of the two phases
+
+
+def tp_param_bytes(torch, model, cfg, size: int) -> dict:
+    """The parameter bytes one rank holds (`held`) beside the census
+    formula: `param_shardings` of the whole model (built on the meta
+    device) at a model axis of `size`, every split parameter's bytes / size
+    and the rest whole."""
+    from vln_imagine_tpu_torch.parallel.tensor import param_shardings, split_of
+
+    with torch.device("meta"):
+        whole = type(model)(cfg.model)
+    specs = param_shardings(whole, size)
+    return {"held": sum(p.numel() * p.element_size()
+                        for p in model.parameters()),
+            "formula": sum(p.numel() * p.element_size()
+                           // (1 if specs[n] is None else size)
+                           for n, p in whole.named_parameters()),
+            "whole": sum(p.numel() * p.element_size()
+                         for p in whole.parameters()),
+            "split_tensors": sum(split_of(p) is not None
+                                 for p in model.parameters()),
+            "census_split": sum(d is not None for d in specs.values())}
+
+
+def tp_steps(torch, mesh, world) -> dict:
+    """At both agents' released configs in f32, batch TP_BATCH, from the
+    seeded init on `mesh` (None: one process): the greedy eval (paths,
+    lengths, the first step's logits), `dp_cfg`'s train step (every dropout
+    on), and for DUET the imitation step with dropout off (K1 + K4, dBias
+    into sprel_linear); each path's launches, counted from 0."""
+    from vln_imagine_tpu_torch.config import (
+        _replace,
+        duet_r2r_config,
+        hamt_r2r_config,
+    )
+    from vln_imagine_tpu_torch.eval.trace import bench_episodes
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.parallel.tensor import gather_state
+    from vln_imagine_tpu_torch.train.rollout_duet import rollout_duet
+    from vln_imagine_tpu_torch.train.rollout_hamt import rollout_hamt
+    from vln_imagine_tpu_torch.train.trainer import HamtTrainer
+    from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        attention.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, attention.launch_counts(), time.perf_counter() - t0
+
+    def whole_sum(module) -> float:
+        return sum(float(v.detach().double().abs().sum())
+                   for v in gather_state(module).values())
+
+    out = {}
+    for agent, base, cls in (("hamt", hamt_r2r_config(), HamtTrainer),
+                             ("duet", duet_r2r_config(), DuetTrainer)):
+        res = {}
+        cfg = _replace(base, "model", compute_dtype="float32")
+        ep = bench_episodes(world, cfg, TP_BATCH)
+        tr = cls(cfg, world, device="cuda", mesh=mesh)
+        (paths, lens), res["eval_launches"], res["eval_s"] = counted(
+            lambda: tr.make_eval_step()(ep)[:2])
+        with torch.no_grad():
+            epd = ep.to("cuda")
+            first = (rollout_hamt(tr.model, tr.tables, epd, cfg, max_steps=1)
+                     if agent == "hamt" else
+                     rollout_duet(tr.model, tr.tables, epd, cfg, max_steps=1))
+        res.update(paths=paths.cpu().tolist(), lens=lens.cpu().tolist(),
+                   logits=first.logits[0].cpu().tolist(),
+                   param_bytes=tp_param_bytes(torch, tr.model, cfg,
+                                              1 if mesh is None else 2))
+        del tr, first
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        tcfg = dp_cfg(base)
+        tr = cls(tcfg, world, device="cuda", mesh=mesh)
+        step = (tr.make_train_step("sample") if agent == "hamt"
+                else tr.make_train_step())
+        torch.cuda.reset_peak_memory_stats()
+        m, res["train_launches"], res["step_s"] = counted(lambda: step(ep, ep))
+        res.update(metrics={k: float(v) for k, v in m.items()},
+                   param_sum=whole_sum(tr.model),
+                   peak_mem_bytes=torch.cuda.max_memory_allocated())
+        del tr, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        if agent == "duet":  # K1 + K4, dBias into sprel_linear
+            tr = cls(cfg_f32(tcfg, train_alg="imitation"), world,
+                     device="cuda", mesh=mesh)
+            step = tr.make_train_step()
+            m, res["imitation_launches"], _ = counted(lambda: step(ep, ep))
+            sprel = tr.model.global_encoder.sprel_linear
+            res["sprel_grad"] = torch.cat([sprel.weight.grad.flatten(),
+                                           sprel.bias.grad.flatten()
+                                           ]).cpu().tolist()
+            res["imitation_loss"] = float(m["loss"])
+            del tr, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[agent] = res
+    return out
+
+
+def tp_driver_run(torch, mesh, scratch: Path, rank: int) -> dict:
+    """Rank `rank`'s run of `FinetuneDriver` at the HAMT released config
+    (bf16) on `mesh`, on driver_phase's run files: `run(iters=2,
+    log_every=1)` and `validate`, launches as `driver_launches`; the
+    checkpoint it saved holds whole tensors bitwise equal to the gathered
+    live state, and a fresh driver on the same mesh loads it into local
+    slices bitwise equal to the file's."""
+    from vln_imagine_tpu_torch.config import hamt_r2r_config
+    from vln_imagine_tpu_torch.driver import FinetuneDriver
+    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.parallel.tensor import split_of
+
+    cfg = hamt_r2r_config()
+    tables, graphs, train, val = driver_run_data(cfg,
+                                                 scratch / f"data{rank}")
+    log = scratch / "run"
+    d = FinetuneDriver(cfg, tables, train, [val], str(log), graphs=graphs,
+                       device="cuda", mesh=mesh)
+    d.setup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    t0 = time.perf_counter()
+    d.run(iters=TP_DRIVER_ITERS, log_every=TP_DRIVER_LOG_EVERY)
+    score = d.validate(val)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = attention.launch_counts()
+    want = driver_launches(d, *train_launches_per_step(cfg))
+    check(launches == want, f"tp_driver rank {rank}: launches {launches}, "
+          f"expected {want}")
+    latest = log / "ckpts" / "latest_dict"
+    saved = torch.load(latest, map_location="cuda", weights_only=True)
+    check(states_equal(torch, d.state_dict(), saved),
+          f"tp_driver rank {rank}: the checkpoint differs from the gathered "
+          "live state")
+    bytes_ = tp_param_bytes(torch, d.trainer.model, cfg, 2)
+    out = {"score": score, "run_s": run_s, "launches": launches,
+           "expected": want, "eval_steps": list(d.eval_step_counts),
+           "train_step_ms": [t["seconds"] / t["iters"] * 1e3
+                             for t in d.timings["train"]],
+           "validate_s": [t["seconds"] for t in d.timings["validate"]],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "param_bytes": bytes_}
+    del d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    d2 = FinetuneDriver(cfg, tables, train, [val], str(scratch / "fresh"),
+                        graphs=graphs, device="cuda", mesh=mesh)
+    d2.setup()
+    d2.load_checkpoint(str(latest))
+    want_sd = saved["vln_bert"]["state_dict"]
+    local = [torch.equal(p.detach(), want_sd[n] if split_of(p) is None
+                         else split_of(p).local(want_sd[n]))
+             for n, p in d2.trainer.model.named_parameters()]
+    check(all(local), f"tp_driver rank {rank}: a fresh driver's slices "
+          f"differ from the checkpoint's ({local.count(False)} tensors)")
+    check(states_equal(torch, d2.state_dict(), saved),
+          f"tp_driver rank {rank}: a fresh driver's state differs from the "
+          "checkpoint")
+    out.update(fresh_load="bitwise", split_tensors_loaded=sum(
+        split_of(p) is not None for p in d2.trainer.model.parameters()))
+    del d2, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_child(rank: int, out_dir: Path) -> None:
+    """The `--tp-rank-child` role: rank `rank` of 2 in a gloo group on
+    cuda:0, on a mesh of one data rank and a model axis of 2: `tp_steps`,
+    then `tp_driver_run`."""
+    import torch
+    import torch.distributed as dist
+
+    from vln_imagine_tpu_torch.config import hamt_r2r_config
+    from vln_imagine_tpu_torch.eval.trace import bench_world
+    from vln_imagine_tpu_torch.parallel.distributed import initialize
+    from vln_imagine_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(2)  # two ranks and this script's process share
+    initialize(f"file://{out_dir / 'rdzv'}", 2, rank,
+               device=torch.device("cuda", 0), backend="gloo",
+               timeout=TP_CHILD_TIMEOUT)
+    try:
+        # 'cpu': the mesh carries the process groups only (dp_rank_child)
+        mesh = make_mesh(data=1, model=2, device_type="cpu")
+        steps = tp_steps(torch, mesh, bench_world(hamt_r2r_config()))
+        (out_dir / f"steps{rank}.json").write_text(json.dumps(
+            {"rank": rank, "backend": dist.get_backend(), "steps": steps}))
+        driver = tp_driver_run(torch, mesh, out_dir, rank)
+        (out_dir / f"driver{rank}.json").write_text(json.dumps(driver))
+    finally:
+        dist.destroy_process_group()
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def tp_phases(torch, world) -> dict:
+    """`tp_two_rank` and `tp_driver`: two `--tp-rank-child` processes on the
+    one card, a model axis of 2 in a gloo group over CUDA tensors (12
+    heads, 6 a rank), beside `tp_steps` in this process without a mesh.
+    tp_two_rank: both agents' f32 eval paths and lengths identical, step-0
+    logits within TP_LOGIT_TOL; the dropout train step's metrics within
+    DP_TOL and the updated whole parameters' abs-sum within DP_SUM_TOL;
+    DUET's dropout-off imitation step's sprel_linear gradient within
+    TP_GRAD_TOL; every count of every path on both ranks equal to this
+    process's, and both ranks' results equal.  tp_driver: the children's
+    own gates (`tp_driver_run`).  Returns the launches by path of rank 0."""
+    fresh_phase(torch)
+    t_phase = time.perf_counter()
+    with scratch_dir() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank-child",
+             str(r), tmp], cwd=ROOT, env=child_env(),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            one = tp_steps(torch, None, world)
+            logs = [p.communicate(timeout=TP_CHILD_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"tp: rank {r} failed ({p.returncode}):"
+                  f"\n{log[-3000:]}")
+        ranks = [json.loads((Path(tmp) / f"steps{r}.json").read_text())
+                 for r in range(2)]
+        drivers = [json.loads((Path(tmp) / f"driver{r}.json").read_text())
+                   for r in range(2)]
+    errs, paths_ = {}, ("eval_launches", "train_launches",
+                        "imitation_launches")
+    for agent, want in one.items():
+        for r, res in enumerate(ranks):
+            got = res["steps"][agent]
+            for key in paths_:
+                check(got.get(key) == want.get(key),
+                      f"tp_two_rank {agent}: rank {r} {key} {got.get(key)}, "
+                      f"the one-process run {want.get(key)}")
+            check(got["paths"] == want["paths"] and got["lens"] == want["lens"],
+                  f"tp_two_rank {agent}: rank {r}'s eval paths differ")
+            r0 = ranks[0]["steps"][agent]
+            check(all(got[k] == r0[k] for k in ("logits", "metrics",
+                                                 "param_sum")),
+                  f"tp_two_rank {agent}: the ranks differ")
+        got = ranks[0]["steps"][agent]
+        g, w = (torch.tensor(x["logits"]) for x in (got, want))
+        e = {"logits": float(torch.where(g == w, 0.0, (g - w).abs()).max()),
+             "param_sum": _rel(got["param_sum"], want["param_sum"]),
+             **{k: _rel(got["metrics"][k], v)
+                for k, v in want["metrics"].items()}}
+        check(e["logits"] <= TP_LOGIT_TOL, f"tp_two_rank {agent}: step-0 "
+              f"logits differ by {e['logits']}")
+        check(set(got["metrics"]) == set(want["metrics"])
+              and all(v <= DP_TOL for k, v in e.items()
+                      if k not in ("logits", "param_sum"))
+              and e["param_sum"] <= DP_SUM_TOL,
+              f"tp_two_rank {agent}: relative errors {e}")
+        if agent == "duet":
+            g, w = (torch.tensor(x["sprel_grad"]) for x in (got, want))
+            check(float(w.abs().max()) > 0,
+                  "tp_two_rank duet: no gradient reached sprel_linear")
+            e["sprel_grad"] = float((g - w).norm() / w.norm())
+            check(e["sprel_grad"] <= TP_GRAD_TOL, "tp_two_rank duet: "
+                  f"sprel_linear's gradient differs by {e['sprel_grad']}")
+        errs[agent] = e
+    total = {k: 0 for k in one["hamt"]["eval_launches"]}
+    for agent in one:
+        for key in paths_:
+            for k, n in ranks[0]["steps"][agent].get(key, {}).items():
+                total[k] += n
+    def brief(steps):  # the paths and logits were compared above
+        return {a: {k: v for k, v in res.items() if k not in ("paths",
+                                                              "logits")}
+                for a, res in steps.items()}
+    emit({"phase": "tp_two_rank", "phase_s": time.perf_counter() - t_phase,
+          "backend": ranks[0]["backend"], "mesh": [1, 2], "heads_a_rank": 6,
+          "batch": TP_BATCH, "compute_dtype": "float32",
+          "one_process": brief(one),
+          "ranks": [brief(r["steps"]) for r in ranks], "errors": errs,
+          "tol": {"logits": TP_LOGIT_TOL, "metrics": DP_TOL,
+                  "param_sum": DP_SUM_TOL, "sprel_grad": TP_GRAD_TOL}})
+    emit({"phase": "tp_driver", "config": "hamt_r2r_config", "mesh": [1, 2],
+          "backend": ranks[0]["backend"], "iters": TP_DRIVER_ITERS,
+          "log_every": TP_DRIVER_LOG_EVERY, "ranks": drivers,
+          "checkpoint": "whole, bitwise the gathered state",
+          "fresh_load": "bitwise"})
+    return {"tp_two_rank": total, "tp_driver": drivers[0]["launches"]}
+
 
 
 HAMT_VARIANTS = (
@@ -3430,6 +3766,7 @@ def kernels_phase(torch, parent=None):
             cases.append(kernel_case(torch, kernel, PANO_ROWS, lq, lk, dt, bk,
                                      gen, bits=bits, timed=dt == "bfloat16"))
     cases += row_offset_cases(torch, gen)
+    cases += head_offset_cases(torch, gen)
     emit({"phase": "kernels", "cases": cases,
           "duet_weighted": duet_weighted(cases),
           "fwd_deterministic": determinism(torch, gen, "attention_dropout_fwd"),
@@ -3441,69 +3778,89 @@ def kernels_phase(torch, parent=None):
 # global batch (8, 4 a rank) and of a batch of 64 over two ranks
 ROW_OFFSET_BATCHES = ((8, 4), (64, 32))
 ROW_OFFSET_SHAPES = ((67, 67), (220, 220))
+# a rank's heads at a model axis of 2 (heads [6, 12) of 12) at the shapes of
+# the HAMT x-layers and of DUET pre-training's lang2visn
+HEAD_OFFSET_SHAPES = ((67, 67), (200, 97))
+
+
+def _part_cases(torch, inputs, part, offset: dict, label: str) -> list:
+    """K2 and K3 on `part` of the whole call's inputs (q, k, v, dO, bias)
+    at `offset` (row_offset or head_offset), against that part of the whole
+    call (output, dQ, dK, dV and dBias bitwise equal) and against the plain
+    versions at that offset (within KERNEL_TOL).  `part(x, bias_like)`
+    cuts the part from a [B, L, H, D] tensor or from a bias-shaped one."""
+    from vln_imagine_tpu_torch.ops import attention as A
+
+    scale, seed = HEAD_DIM ** -0.5, 0x5EED_0FF5E7
+    q, k, v, do, bias = inputs
+    lq, lk, dt = q.shape[1], k.shape[1], str(q.dtype).split(".")[1]
+    pq, pk, pv, pdo = (part(x, False) for x in (q, k, v, do))
+    pb = part(bias, True)
+    before = (A.attention_dropout_fwd.launches,
+              A.attention_dropout_bwd.launches)
+    full = (A.attention_dropout_fwd(q, k, v, bias, scale, DROPOUT, seed),
+            *A.attention_dropout_bwd(q, k, v, bias, do, scale, DROPOUT, seed,
+                                     need_dbias=True))
+    got = (A.attention_dropout_fwd(pq, pk, pv, pb, scale, DROPOUT, seed,
+                                   **offset),
+           *A.attention_dropout_bwd(pq, pk, pv, pb, pdo, scale, DROPOUT,
+                                    seed, need_dbias=True, **offset))
+    plain = (A.attention_dropout_reference(pq, pk, pv, pb, scale, DROPOUT,
+                                           seed, "philox", **offset),
+             *A.attention_bwd_reference(pq, pk, pv, pb, pdo, scale, DROPOUT,
+                                        seed, "philox", **offset))
+    torch.cuda.synchronize()
+    check((A.attention_dropout_fwd.launches, A.attention_dropout_bwd.launches)
+          == (before[0] + 2, before[1] + 2),
+          f"K2 / K3 were not launched at {label}")
+    bitwise = all(torch.equal(g, part(f, i == 4))
+                  for i, (g, f) in enumerate(zip(got, full)))
+    check(bitwise, f"K2 / K3 at {label} differ from that part of the whole "
+          f"call, {lq}x{lk} {dt}")
+    tol = KERNEL_TOL[dt]
+    err = _max_err(got, plain)
+    check(all(torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
+              for g, w in zip(got, plain)),
+          f"K2 / K3 at {label} vs plain {lq}x{lk} {dt}: max abs err {err}")
+    return [{"kernel": kernel, "B": q.shape[0], **offset, "Lq": lq, "Lk": lk,
+             "H": pq.shape[2], "D": HEAD_DIM, "dtype": dt, "bias": "per_head",
+             "bits": "philox", "bitwise_part": bitwise,
+             "max_abs_err": (_max_err(got[:1], plain[:1]) if n == 1 else
+                             _max_err(got[1:], plain[1:])), "tol": tol}
+            for kernel, n in (("attention_dropout_fwd", 1),
+                              ("attention_dropout_bwd", 4))]
 
 
 def row_offset_cases(torch, gen) -> list:
     """K2 and K3 on rows [r0, B) at `row_offset` r0 (the rows a rank holds,
     drawing the global batch's Philox bits) against those rows of the call
-    on the whole batch: output, dQ, dK, dV and dBias bitwise equal; and
-    against the plain versions at that offset within KERNEL_TOL."""
-    from vln_imagine_tpu_torch.ops import attention as A
-
+    on the whole batch (`_part_cases`)."""
     out = []
-    scale, seed = HEAD_DIM ** -0.5, 0x5EED_0FF5E7
     for B, r0 in ROW_OFFSET_BATCHES:
         for lq, lk in ROW_OFFSET_SHAPES:
             for dt in ("bfloat16", "float32"):
-                q, k, v, do, bias = _case_inputs(torch, B, lq, lk,
-                                                 getattr(torch, dt),
-                                                 "per_head", gen)
-                rows = slice(r0, B)
-                part = [x[rows] for x in (q, k, v, do, bias)]
-                before = (A.attention_dropout_fwd.launches,
-                          A.attention_dropout_bwd.launches)
-                full = (A.attention_dropout_fwd(q, k, v, bias, scale, DROPOUT,
-                                                seed),
-                        *A.attention_dropout_bwd(q, k, v, bias, do, scale,
-                                                 DROPOUT, seed,
-                                                 need_dbias=True))
-                got = (A.attention_dropout_fwd(*part[:3], part[4], scale,
-                                               DROPOUT, seed, row_offset=r0),
-                       *A.attention_dropout_bwd(*part[:3], part[4], part[3],
-                                                scale, DROPOUT, seed,
-                                                need_dbias=True,
-                                                row_offset=r0))
-                plain = (A.attention_dropout_reference(
-                    *part[:3], part[4], scale, DROPOUT, seed, "philox", r0),
-                    *A.attention_bwd_reference(*part[:3], part[4], part[3],
-                                               scale, DROPOUT, seed, "philox",
-                                               r0))
-                torch.cuda.synchronize()
-                check((A.attention_dropout_fwd.launches,
-                       A.attention_dropout_bwd.launches)
-                      == (before[0] + 2, before[1] + 2),
-                      "K2 / K3 were not launched at a row offset")
-                bitwise = all(torch.equal(g, f[rows])
-                              for g, f in zip(got, full))
-                check(bitwise, f"K2 / K3 at row_offset {r0} differ from "
-                      f"rows [{r0}:{B}) of the whole call, {lq}x{lk} {dt}")
-                tol = KERNEL_TOL[dt]
-                err = _max_err(got, plain)
-                check(all(torch.allclose(g.float(), w.float(), rtol=tol,
-                                         atol=tol)
-                          for g, w in zip(got, plain)),
-                      f"K2 / K3 at row_offset {r0} vs plain {lq}x{lk} {dt}: "
-                      f"max abs err {err}")
-                for kernel, n in (("attention_dropout_fwd", 1),
-                                  ("attention_dropout_bwd", 4)):
-                    out.append({"kernel": kernel, "B": B, "row_offset": r0,
-                                "Lq": lq, "Lk": lk, "D": HEAD_DIM,
-                                "dtype": dt, "bias": "per_head",
-                                "bits": "philox", "bitwise_rows": bitwise,
-                                "max_abs_err": (_max_err(got[:1], plain[:1])
-                                                if n == 1 else
-                                                _max_err(got[1:], plain[1:])),
-                                "tol": tol})
+                inputs = _case_inputs(torch, B, lq, lk, getattr(torch, dt),
+                                      "per_head", gen)
+                out += _part_cases(torch, inputs,
+                                   lambda x, _, r0=r0: x[r0:],
+                                   {"row_offset": r0}, f"row_offset {r0}")
+    return out
+
+
+def head_offset_cases(torch, gen) -> list:
+    """K2 and K3 on heads [6, 12) at `head_offset` 6 (the heads a rank
+    holds at a model axis of 2, drawing the model's heads' bits) against
+    those heads of the call on all 12 (`_part_cases`), at B 8."""
+    h0 = HEADS // 2
+    out = []
+    for lq, lk in HEAD_OFFSET_SHAPES:
+        for dt in ("bfloat16", "float32"):
+            inputs = _case_inputs(torch, TRAIN_BATCH, lq, lk,
+                                  getattr(torch, dt), "per_head", gen)
+            out += _part_cases(
+                torch, inputs,
+                lambda x, bias_like: x[:, h0:] if bias_like else x[:, :, h0:],
+                {"head_offset": h0}, f"head_offset {h0}")
     return out
 
 
@@ -3619,6 +3976,7 @@ def main() -> None:
     # the roles of the processes the data-parallel phases start
     ap.add_argument("--dp-cli-child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--dp-rank-child", nargs=2, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-rank-child", nargs=2, help=argparse.SUPPRESS)
     args = ap.parse_args()
     missing = [s for s in KERNEL_SOURCES if not (ROOT / s).is_file()]
     if missing:
@@ -3637,6 +3995,9 @@ def main() -> None:
     if args.dp_rank_child is not None:
         return dp_rank_child(int(args.dp_rank_child[0]),
                              Path(args.dp_rank_child[1]))
+    if args.tp_rank_child is not None:
+        return tp_rank_child(int(args.tp_rank_child[0]),
+                             Path(args.tp_rank_child[1]))
 
     from vln_imagine_tpu_torch.config import duet_r2r_config, hamt_r2r_config
     from vln_imagine_tpu_torch.eval.trace import bench_world
@@ -3696,6 +4057,7 @@ def main() -> None:
     with scratch_dir() as tmp:
         path_launches["pretrain_cli"] = pretrain_cli_phase(torch, Path(tmp))
     path_launches.update(dp_phases(torch, cfg, dcfg, world))
+    path_launches.update(tp_phases(torch, world))
     cases = kernels_phase(torch, parent)
 
     summary = []

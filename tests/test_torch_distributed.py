@@ -85,8 +85,8 @@ def test_single_process_without_a_group():
     assert D.merge_results(rows) == JD.merge_results(rows)
     with pytest.raises(RuntimeError, match="initialize"):
         make_mesh(data=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
-        make_mesh(data=1, model=2)
+    with pytest.raises(RuntimeError, match="initialize"):
+        make_mesh(data=1, model=2)  # a model axis needs the group too
     with pytest.raises(ValueError, match="init_method"):
         D.initialize(world_size=2, rank=0, device="cpu")
 
@@ -99,6 +99,10 @@ def test_one_process_group_on_an_in_process_store():
         mesh = make_mesh()
         assert mesh.mesh_dim_names == ("data", "model")
         assert tuple(mesh.shape) == (1, 1)
+        with pytest.raises(ValueError, match="mesh 1x2 != 1 processes"):
+            make_mesh(data=1, model=2)
+        with pytest.raises(ValueError, match="mesh 0x2 != 1 processes"):
+            make_mesh(model=2)
         shard = DataShard.of(mesh)
         assert (shard.rank, shard.size) == (0, 1)
         x = torch.tensor([1.5, -2.0])

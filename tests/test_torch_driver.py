@@ -13,7 +13,8 @@
   `latest_dict` bitwise; bucketed validation equals sequential and
   pipelined equals synchronous, item for item; the augmented-split
   alternation trains; VLN_PROFILE_DIR writes a trace; a model axis above
-  1 raises, naming its ROADMAP item, and the branches of items 4 and 5 run.
+  1 in `cfg.mesh` builds its mesh over two processes and trains and
+  validates as one process does, and the branches of items 4 and 5 run.
 """
 
 import dataclasses
@@ -233,19 +234,21 @@ def test_profile_dir_traces_the_first_interval(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("part, over, item", [
-    # the data axis is ported (test_torch_dp_driver.py); a model axis is not
+    # both axes of the mesh are ported (test_torch_dp_driver.py,
+    # test_torch_tp_driver.py); here cfg.mesh asks for a model axis
     pytest.param("mesh", {"data_parallelism": 1, "model_parallelism": 2},
                  "7c", id="mesh-over0-7"),
     ("dataset", "r2r_back", 4),
     ("model", {"e2e_imagination": "frozen"}, 5),
 ])
 def test_unported_branches_raise(tmp_path, part, over, item):
-    """A model axis above 1 (item 7c) raises, naming its ROADMAP item,
-    before it needs a process group.  Items 4 and 5 are ported:
-    the task variants' dataset and episodes, and `e2e_imagination` with
-    episodes that carry raw images, once refused here, now build a driver
-    that trains and validates.  `init_from_pretrain` (item 6) reads the
-    port's pre-training snapshots; one that shares no parameter with the
+    """Items 4, 5 and 7c are ported: the task variants' dataset and
+    episodes, `e2e_imagination` with episodes that carry raw images, and a
+    model axis of 2 in `cfg.mesh` (two gloo processes, the driver building
+    the mesh; parameters of at least 2^10 elements split), once refused
+    here, now build a driver that trains and validates, the model axis as
+    one process does.  `init_from_pretrain` (item 6) reads the port's
+    pre-training snapshots; one that shares no parameter with the
     navigator raises."""
     d = _driver(tmp_path)
     cfg = (d.cfg.replace(dataset=over) if part == "dataset"
@@ -281,14 +284,23 @@ def test_unported_branches_raise(tmp_path, part, over, item):
             score = d2.validate(d2.val_splits[0])
             assert 0.0 <= score["sr"] <= 100.0
         return
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        FinetuneDriver(cfg, d.tables, d.train_split, d.val_splits,
-                       str(tmp_path / "x"), device="cpu")
-    if part == "mesh":
-        torch.save({"unrelated.weight": torch.zeros(2)},
-                   tmp_path / "model_step_10")
-        with pytest.raises(ValueError, match="no parameter subtree"):
-            d.init_from_pretrain(str(tmp_path / "model_step_10"))
+    from _torch_dp import cfg_mesh_driver, spawn
+
+    (tmp_path / "tp").mkdir()
+    ranks = spawn("tp_cfg_driver", tmp_path / "tp", world=2, model=2,
+                  timeout=240)
+    one = cfg_mesh_driver(tmp_path / "one")
+    assert one["mesh"] is None and one["split"] == 0
+    for r in ranks:
+        assert r["mesh"] == (1, 2) and r["split"] > 0
+        assert r["score"] == one["score"]
+        assert r["logs"].keys() == one["logs"].keys()
+        for k, v in one["logs"].items():
+            assert r["logs"][k] == pytest.approx(v, rel=1e-4, abs=1e-6), k
+    torch.save({"unrelated.weight": torch.zeros(2)},
+               tmp_path / "model_step_10")
+    with pytest.raises(ValueError, match="no parameter subtree"):
+        d.init_from_pretrain(str(tmp_path / "model_step_10"))
 
 
 # ------------------------------------------------------------ task variants

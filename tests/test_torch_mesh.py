@@ -1,12 +1,12 @@
 """The port's `parallel/mesh.py` and the leftovers of the slice, on the CPU:
 
 - two gloo processes: the mesh's dims, each rank's block of rows from
-  `shard_batch`, the refusal of a model axis (ROADMAP Queue 1 item 7c) and
-  of a mesh that does not cover the processes; greedy eval with each rank
-  on its rows of a batch of 8: HAMT (from the JAX init) bitwise equal to
-  the JAX package's eval on `make_mesh(data=2)` and to the port's one
-  process, DUET (whose map takes rank 0's first next-hop tables) bitwise
-  equal to the port's one process;
+  `shard_batch`, a model axis over both processes (`data` 1 or -1), the
+  refusal of a mesh that does not cover the processes; greedy eval with
+  each rank on its rows of a batch of 8: HAMT (from the JAX init) bitwise
+  equal to the JAX package's eval on `make_mesh(data=2)` and to the
+  port's one process, DUET (whose map takes rank 0's first next-hop
+  tables) bitwise equal to the port's one process;
 - `config_to_json` / `config_from_json`: a round trip of every preset, and
   the JSON of the JAX package's preset;
 - `length_to_mask` and `masked_softmax` against the JAX package's.
@@ -75,10 +75,15 @@ def test_mesh_dims_and_rows_per_rank(evals):
 
 
 def test_make_mesh_refuses_a_model_axis_and_a_bad_shape(evals):
-    for r in evals[0]:
-        assert r["errors"]["model"].startswith("NotImplementedError")
-        assert r["errors"]["model"].endswith("ROADMAP Queue 1 item 7c")
-        assert r["errors"]["shape"] == "ValueError: mesh 3x1 != 2 processes"
+    """The model axis is ported (item 7c): `make_mesh(data=1, model=2)`
+    and `make_mesh(data=-1, model=2)` put both processes on one data rank
+    and a model axis of 2, rank r at model rank r; a mesh that does not
+    cover the processes is still refused."""
+    for rank, r in enumerate(evals[0]):
+        for data in (1, -1):
+            assert r["model_meshes"][data] == (("data", "model"), (1, 2),
+                                               (rank, 2), (0, 1))
+        assert r["errors"] == {"shape": "ValueError: mesh 3x1 != 2 processes"}
 
 
 def test_two_rank_hamt_eval_matches_the_jax_mesh_eval(evals):

@@ -2,9 +2,11 @@
 the CPU:
 
 - twins of tests/test_train_cli.py (flag -> config wiring and its guards);
-- every flag whose branch is not ported exits naming its ROADMAP item, and
-  a run with no CUDA and no `--device` exits; `--synthetic` takes the tiny
-  preset off the card and the released one on it;
+- the flags of the once-deferred branches run (`--mesh-model 2` under
+  `torch.distributed.run` on two processes, its validate metrics those of
+  the one-process run), and a run with no CUDA and no `--device` exits;
+  `--synthetic` takes the tiny preset off the card and the released one on
+  it;
 - a `--synthetic --iters 2 --log-every 1 --device cpu` run of each agent,
   and a one-step run (or an `--eval-only --submit` pass) under each flag of
   the deferred training branches: `--detailed-output` writes
@@ -101,7 +103,7 @@ def test_no_lang_ca_guards():
 
 # --------------------------------------------------------------- refusals
 @pytest.mark.parametrize("flags, item", [
-    # --mesh-data is ported (test_torch_dp_driver.py); --mesh-model is not
+    # both mesh flags are ported: --mesh-model 2 runs under the launcher
     pytest.param(["--mesh-data", "1", "--mesh-model", "2"], "7c",
                  id="flags0-7"),
     (["--e2e-imagination", "frozen"], 5),
@@ -110,12 +112,14 @@ def test_no_lang_ca_guards():
     (["--dataset", "cvdn"], 4),
 ])
 def test_unported_flags_exit_naming_their_item(flags, item, tmp_path, capsys):
-    """`--mesh-model` above 1 (item 7c) exits, naming its ROADMAP item,
-    before it joins a process group.  Items 4-6 are ported: their
-    flags, once refused here, now run (the synthetic world has no object
-    store, so `--obj-features` is not read; `--e2e-imagination` gives the
-    synthetic episodes raw images; `--init-from-pretrain` reads a snapshot
-    of the port's pre-trainer written here)."""
+    """Items 4-6 and 7c are ported: their flags, once refused here, now
+    run (the synthetic world has no object store, so `--obj-features` is
+    not read; `--e2e-imagination` gives the synthetic episodes raw images;
+    `--init-from-pretrain` reads a snapshot of the port's pre-trainer
+    written here; `--mesh-data 1 --mesh-model 2` runs under
+    `torch.distributed.run --nproc-per-node 2` on gloo, parameters of at
+    least 2^10 elements split, and writes the validate metrics of the
+    one-process run within 1e-5)."""
     argv = ["--synthetic", "--device", "cpu"] + flags
     if item == 6:
         argv[-1] = _pretrain_snapshot(tmp_path / "pretrain", step=10)
@@ -133,8 +137,46 @@ def test_unported_flags_exit_naming_their_item(flags, item, tmp_path, capsys):
                               capsys.readouterr().out).group(1))
             assert n > 0
         return
-    with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 item {item}$"):
-        cli.main(argv)
+    run = ["--iters", "2", "--log-every", "1", "--batch-size", "4"]
+    _launched_cli(argv + run + ["--log-dir", str(tmp_path / "tp")], tmp_path)
+    cli.main(["--synthetic", "--device", "cpu"] + run
+             + ["--log-dir", str(tmp_path / "one")])
+    got, want = (_val_metrics(tmp_path / d) for d in ("tp", "one"))
+    assert got.keys() == want.keys() and len(want) > 0
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, rel=1e-5, abs=1e-5), k
+    assert (tmp_path / "tp" / "ckpts" / "latest_dict").exists()
+    args = json.loads((tmp_path / "tp" / "training_args.json").read_text())
+    assert args["mesh"] == {"data_parallelism": 1, "model_parallelism": 2}
+
+
+def _launched_cli(argv, cwd):
+    """The train CLI on two gloo processes under `torch.distributed.run`
+    (through `tests/_torch_dp.py cli`, which splits parameters of at least
+    2^10 elements, as the JAX package's mesh test does)."""
+    import subprocess
+
+    from _torch_dp import REPO
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", str(REPO / "tests" / "_torch_dp.py"), "cli",
+         *argv], env=env, cwd=cwd, capture_output=True, text=True,
+        timeout=240)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+
+
+def _val_metrics(log_dir) -> dict:
+    """{(tag, step): value} of the validation scalars in metrics.jsonl."""
+    out = {}
+    for line in (log_dir / "metrics.jsonl").read_text().splitlines():
+        r = json.loads(line)
+        if r["tag"].startswith("val_"):
+            out[r["tag"], r["step"]] = r["value"]
+    return out
 
 
 @pytest.mark.parametrize("flags, part, key, value", [

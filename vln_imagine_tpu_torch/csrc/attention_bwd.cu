@@ -607,7 +607,8 @@ cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
 // [B, H, Lq, ceil(Lk / 16)] 32-bit scratch (16 keep bits a word), needed
 // with dropout only.
 // bits: 0 = no dropout (K4), 1 = hash, 2 = Philox (K3), with the forward's
-// keep threshold, kept value, seed and row offset.  Launches both kernels and returns
+// keep threshold, kept value, seed, row offset and head offset.  Launches
+// both kernels and returns
 // the first cudaError_t.
 extern "C" int vln_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
@@ -620,7 +621,8 @@ extern "C" int vln_attention_bwd(
     long long sob, long long sol, long long soh,
     long long sbb, long long sbh, long long sbq, long long sbk,
     float scale, int bits, unsigned int threshold, float keep_scale,
-    unsigned long long seed, unsigned int row_offset, void* stream) {
+    unsigned long long seed, unsigned int row_offset,
+    unsigned int head_offset, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.dout = dout;
   p.bias = static_cast<const float*>(bias);
@@ -642,6 +644,7 @@ extern "C" int vln_attention_bwd(
   p.drop.keep_scale = keep_scale;
   p.drop.seed = seed;
   p.drop.row_offset = row_offset;
+  p.drop.head_offset = head_offset;
   if (bits < vln::kBitsNone || bits > vln::kBitsPhilox) return cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
   if (lse == nullptr || delta == nullptr) return cudaErrorInvalidValue;

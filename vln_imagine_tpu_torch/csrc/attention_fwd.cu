@@ -348,8 +348,9 @@ cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  Strides are in
 // elements; o is written contiguous [B, Lq, H, D].  bias may be null.
 // bits: 0 = no dropout (K1), 1 = hash, 2 = Philox (K2), with the keep
-// threshold, the kept value, the seed and the global batch row of row 0
-// (Philox's counter takes b + row_offset).  Returns the cudaError_t of the
+// threshold, the kept value, the seed, the global batch row of row 0 and the
+// model's head of head 0 (the bits' counter takes b + row_offset and
+// h + head_offset).  Returns the cudaError_t of the
 // launch.
 extern "C" int vln_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* o,
@@ -359,7 +360,8 @@ extern "C" int vln_attention_fwd(
     long long svb, long long svl, long long svh,
     long long sbb, long long sbh, long long sbq, long long sbk,
     float scale, int bits, unsigned int threshold, float keep_scale,
-    unsigned long long seed, unsigned int row_offset, void* stream) {
+    unsigned long long seed, unsigned int row_offset,
+    unsigned int head_offset, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.bias = static_cast<const float*>(bias);
@@ -375,6 +377,7 @@ extern "C" int vln_attention_fwd(
   p.drop.keep_scale = keep_scale;
   p.drop.seed = seed;
   p.drop.row_offset = row_offset;
+  p.drop.head_offset = head_offset;
   if (bits < vln::kBitsNone || bits > vln::kBitsPhilox) return cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

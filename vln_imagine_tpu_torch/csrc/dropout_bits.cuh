@@ -7,11 +7,15 @@
 // bits as the plain versions in ops/attention.py:
 //
 //   kBitsHash   the JAX package's _hash_mask_bits over one batch item's
-//               [H, Lq, Lk] block (the CPU stand-in for the TPU's PRNG)
-//   kBitsPhilox Philox-4x32-10, counter (k, q, h, b + row_offset), key
-//               (seed lo, seed hi), first output word; row_offset is the
-//               global batch row of the call's row 0, so that a rank of a
-//               data-parallel step draws its rows' bits of the global batch
+//               [H, Lq, Lk] block (the CPU stand-in for the TPU's PRNG), at
+//               head h + head_offset
+//   kBitsPhilox Philox-4x32-10, counter (k, q, h + head_offset,
+//               b + row_offset), key (seed lo, seed hi), first output word;
+//               row_offset is the global batch row of the call's row 0, so
+//               that a rank of a data-parallel step draws its rows' bits of
+//               the global batch, and head_offset the model's head of the
+//               call's head 0, so that a rank of a tensor-parallel step
+//               draws its heads' bits
 #pragma once
 
 #include <stdint.h>
@@ -27,7 +31,8 @@ struct DropoutParams {
   uint32_t threshold;  // keep when bits >= threshold
   float keep_scale;    // value of a kept element's mask
   uint64_t seed;
-  uint32_t row_offset;  // global batch row of the call's row 0 (Philox)
+  uint32_t row_offset;   // global batch row of the call's row 0 (Philox)
+  uint32_t head_offset;  // the model's head of the call's head 0
 };
 
 __device__ __forceinline__ uint32_t hash_bits(uint32_t h, uint32_t q,
@@ -61,9 +66,10 @@ __device__ __forceinline__ uint32_t philox_bits(uint64_t seed, uint32_t b,
 // The mask value of element (b, h, q, k): 0 or keep_scale.
 __device__ __forceinline__ float dropout_mask(const DropoutParams& d, int b,
                                               int h, int q, int k) {
+  const uint32_t hh = h + d.head_offset;
   const uint32_t bits = d.bits == kBitsHash
-                            ? hash_bits(h, q, k)
-                            : philox_bits(d.seed, b + d.row_offset, h, q, k);
+                            ? hash_bits(hh, q, k)
+                            : philox_bits(d.seed, b + d.row_offset, hh, q, k);
   return bits >= d.threshold ? d.keep_scale : 0.f;
 }
 

@@ -33,7 +33,11 @@ every rollback; `validate` rounds its batch to the data axis, each rank
 evaluates its rows and the per-item results are gathered, so the scores
 and the files equal the one-process run's.  Only rank 0 writes logs,
 checkpoints and submissions; a fault on any rank rolls every rank back.
-A model axis above 1 raises NotImplementedError (ROADMAP Queue 1 item 7c).
+A model axis above 1 (`cfg.mesh.model_parallelism`; parallel/tensor.py)
+splits the large parameters and their optimizer moments over its ranks,
+as the JAX driver's `param_shardings`: `state_dict()` gathers them whole
+(every rank calls it; rank 0 writes), and every load, rollback and
+on-ramp reads whole tensors and keeps this rank's slice.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ from vln_imagine_tpu_torch.parallel.mesh import (
     replicate,
     shard_batch,
 )
+from vln_imagine_tpu_torch.parallel.tensor import gather_state, load_sharded
 from vln_imagine_tpu_torch.platform import resolve_device
 from vln_imagine_tpu_torch.variants import eval_batch_variant
 from vln_imagine_tpu_torch.utils.logger import (
@@ -171,7 +176,7 @@ class FinetuneDriver:
         """Build the train and eval steps; `init_state_dict` (the
         navigator's state_dict) replaces the seeded init."""
         if init_state_dict is not None:
-            self.trainer.model.load_state_dict(init_state_dict)
+            load_sharded(self.trainer.model, init_state_dict)
         if self.cfg.agent == "hamt":
             self._train_step = self.trainer.make_train_step(self._feedback)
         else:
@@ -207,40 +212,45 @@ class FinetuneDriver:
             write_to_record_file(line, self.record_file, verbose=True)
 
     def _barrier(self) -> None:
-        """Under a mesh, wait for every rank of the data axis."""
-        if self.shard is not None:
-            torch.distributed.barrier(group=self.shard.group)
+        """Under a mesh, wait for every rank."""
+        if self.mesh is not None:
+            torch.distributed.barrier()
 
     def _save(self, kind: str, *args) -> None:
         """Rank 0 saves the slot (`save_latest`, `save_snapshot`,
-        `maybe_save_best`); the others wait for it."""
+        `maybe_save_best`); the others take part in gathering the state
+        and wait for it."""
+        state = self.state_dict()
         if self.writes:
-            getattr(self.ckpt, kind)(self.state_dict(), *args)
+            getattr(self.ckpt, kind)(state, *args)
         self._barrier()
 
     def state_dict(self) -> dict:
-        """The training state in the reference's agent-save layout.  The
-        tensors are the live ones: clone them to keep a copy."""
+        """The training state in the reference's agent-save layout, with
+        whole tensors (`gather_state`: under a model axis every rank calls
+        it).  The tensors that are not split are the live ones: clone them
+        to keep a copy."""
         tr = self.trainer
         step = tr.optimizer.steps
         state = {"vln_bert": {"epoch": step,
-                              "state_dict": tr.model.state_dict(),
-                              "optimizer": tr.optimizer.state_dict()}}
+                              "state_dict": gather_state(tr.model),
+                              "optimizer": gather_state(tr.optimizer)}}
         if getattr(tr, "critic", None) is not None:
             state["critic"] = {"epoch": step,
-                               "state_dict": tr.critic.state_dict(),
-                               "optimizer": tr.critic_optimizer.state_dict()}
+                               "state_dict": gather_state(tr.critic),
+                               "optimizer": gather_state(tr.critic_optimizer)}
         return state
 
     def load_state_dict(self, state: dict) -> None:
-        """Restore `state_dict()`'s output in place: the optimizers keep
-        their references to the modules' parameters."""
+        """Restore `state_dict()`'s output in place, each split tensor cut
+        to this rank's slice: the optimizers keep their references to the
+        modules' parameters."""
         tr = self.trainer
-        tr.model.load_state_dict(state["vln_bert"]["state_dict"])
-        tr.optimizer.load_state_dict(state["vln_bert"]["optimizer"])
+        load_sharded(tr.model, state["vln_bert"]["state_dict"])
+        load_sharded(tr.optimizer, state["vln_bert"]["optimizer"])
         if "critic" in state:
-            tr.critic.load_state_dict(state["critic"]["state_dict"])
-            tr.critic_optimizer.load_state_dict(state["critic"]["optimizer"])
+            load_sharded(tr.critic, state["critic"]["state_dict"])
+            load_sharded(tr.critic_optimizer, state["critic"]["optimizer"])
 
     def load_checkpoint(self, name: str) -> dict:
         """Restore the slot `name` (or a checkpoint path) into the trainer;
@@ -270,10 +280,10 @@ class FinetuneDriver:
         if missing:
             raise ValueError(f"reference checkpoint '{path}' does not cover "
                              f"this model: missing {missing[:8]}")
-        model.load_state_dict({k: sd[k] for k in want})
+        load_sharded(model, {k: sd[k] for k in want})
         critic = getattr(self.trainer, "critic", None)
         if loaded.get("critic_state_dict") and critic is not None:
-            critic.load_state_dict(loaded["critic_state_dict"])
+            load_sharded(critic, loaded["critic_state_dict"])
         return {"epoch": loaded.get("epoch"),
                 "skipped": loaded["skipped"] + [k for k in sd
                                                 if k not in want]}
@@ -299,12 +309,12 @@ class FinetuneDriver:
         loaded = load_reference_pretrain(path, agent=agent)
         model = self.trainer.model
         new_params, transferred, missing = init_finetune_from_pretrain(
-            flax_from_state_dict(model.state_dict(), agent),
+            flax_from_state_dict(gather_state(model), agent),
             flax_from_state_dict(loaded["state_dict"], agent))
         if transferred == 0:
             raise ValueError(f"no parameter subtree of '{path}' matched the "
                              f"{agent} fine-tune model")
-        model.load_state_dict(state_dict_from_flax(new_params, agent))
+        load_sharded(model, state_dict_from_flax(new_params, agent))
         return {"transferred": transferred, "missing": missing,
                 "skipped": loaded["skipped"]}
 
@@ -328,12 +338,12 @@ class FinetuneDriver:
         snapshot = torch.load(path, map_location="cpu", weights_only=True)
         model = self.trainer.model
         new_params, transferred, missing = init_finetune_from_pretrain(
-            flax_from_state_dict(model.state_dict(), agent),
+            flax_from_state_dict(gather_state(model), agent),
             flax_from_state_dict(snapshot, f"{agent}_pretrain"))
         if transferred == 0:
             raise ValueError(f"no parameter subtree of '{path}' matched the "
                              f"{agent} fine-tune model")
-        model.load_state_dict(state_dict_from_flax(new_params, agent))
+        load_sharded(model, state_dict_from_flax(new_params, agent))
         return {"transferred": transferred, "missing": missing}
 
     # ----------------------------------------------------------------- train
@@ -581,12 +591,13 @@ class FinetuneDriver:
                         f"non-finite training metrics {bad}")
             except Exception as e:  # noqa: BLE001 - deliberate recovery scope
                 error = e
-            if self.shard is not None:
+            if self.mesh is not None:
                 # a fault on any rank is a fault on every rank, so that the
                 # ranks roll back together
                 flag = torch.tensor(float(error is not None),
                                     device=self.device)
-                if self.shard.sum(flag).item() > 0 and error is None:
+                torch.distributed.all_reduce(flag)
+                if flag.item() > 0 and error is None:
                     error = RuntimeError("another rank's interval failed")
             if error is not None:
                 failures += 1

@@ -10,6 +10,10 @@ vilmodel.py:366-412 and transformer.py:135-192):
 - parameters in f32; matmuls and attention in `ModelConfig.compute_dtype`
 - dropout at the flax blocks' sites, drawn from an explicit `Rng`
   (ops/dropout.py); `rng=None` is flax's `deterministic=True`
+- under tensor parallelism (parallel/tensor.py) a split parameter carries
+  its `model_split`: `Dense` and `Embed` then compute the whole output
+  from this rank's slice, and the attention layers run the kernels on this
+  rank's heads
 
 Module and parameter names are the reference's torch key names, so a
 released state_dict loads with `load_state_dict` (see ckpt/convert.py).
@@ -24,16 +28,19 @@ from torch import nn
 from vln_imagine_tpu_torch.config import ModelConfig
 from vln_imagine_tpu_torch.ops.attention import fused_attention
 from vln_imagine_tpu_torch.ops.dropout import Rng, dropout
+from vln_imagine_tpu_torch.parallel.tensor import split_of
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def attention(q, k, v, bias, scale: float, rate: float, rng: Rng | None):
+def attention(q, k, v, bias, scale: float, rate: float, rng: Rng | None,
+              head_offset: int = 0):
     """`fused_attention` with attention-probs dropout at `rate` from `rng`
     (off without one): one seed a call, each row drawing the bits of its
-    global batch row.  A batch of several global batches side by side (the
+    global batch row, each head those of the model's head
+    `head_offset` + h.  A batch of several global batches side by side (the
     fused rollout's halves, under data parallelism) is not one contiguous
     block of global rows, so it runs as one call a block (ops/dropout.py)."""
     if rng is None or rate == 0.0:
@@ -42,15 +49,44 @@ def attention(q, k, v, bias, scale: float, rate: float, rng: Rng | None):
     blocks = rng.row_blocks(q.shape[0])
     if len(blocks) == 1:
         return fused_attention(q, k, v, bias, scale, dropout_rate=rate,
-                               seed=seed, row_offset=blocks[0][2])
+                               seed=seed, row_offset=blocks[0][2],
+                               head_offset=head_offset)
     outs = []
     for start, n, row_offset in blocks:
         rows = slice(start, start + n)
         b = bias if bias is None or bias.shape[0] == 1 else bias[rows]
         outs.append(fused_attention(q[rows], k[rows], v[rows], b, scale,
                                     dropout_rate=rate, seed=seed,
-                                    row_offset=row_offset))
+                                    row_offset=row_offset,
+                                    head_offset=head_offset))
     return torch.cat(outs)
+
+
+def split_attention(split, q, k, v, bias, num_heads: int, head_dim: int,
+                    rate: float, rng: Rng | None) -> torch.Tensor:
+    """Attention from this rank's columns q, k, v [B, L, H/m * D] of
+    projections split on their output axis (`split`, parallel/tensor.py),
+    to the whole context [B, Lq, H * D].  Where the model axis divides the
+    heads the columns are whole heads: the kernels run on this rank's heads
+    (their dropout bits those of heads rank * H/m + h), and the contexts
+    are gathered.  Otherwise q, k and v are gathered and every rank runs
+    every head.  A bias that takes a gradient gets its dBias summed over
+    the ranks."""
+    s = split.shard
+    scale = 1.0 / head_dim ** 0.5
+    if num_heads % s.size:
+        q, k, v = (s.gather(t, -1).unflatten(-1, (num_heads, head_dim))
+                   for t in (q, k, v))
+        return attention(q, k, v, bias, scale, rate, rng).flatten(2)
+    heads = num_heads // s.size
+    if bias is not None:
+        bias = s.copy_in(bias)
+        if bias.shape[1] != 1:
+            bias = bias.narrow(1, s.rank * heads, heads)
+    q, k, v = (t.unflatten(-1, (heads, head_dim)) for t in (q, k, v))
+    ctx = attention(q, k, v, bias, scale, rate, rng,
+                    head_offset=s.rank * heads)
+    return s.gather(ctx.flatten(2), -1)
 
 
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
@@ -95,8 +131,11 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         params = [self.weight] if self.bias is None else [self.weight, self.bias]
         cast = _cast_cached(self, params, self.compute_dtype)
-        return F.linear(x.to(self.compute_dtype), cast[0],
-                        cast[1] if len(cast) > 1 else None)
+        bias = cast[1] if len(cast) > 1 else None
+        split = split_of(self.weight)
+        if split is not None:
+            return split.linear(x.to(self.compute_dtype), cast[0], bias)
+        return F.linear(x.to(self.compute_dtype), cast[0], bias)
 
 
 class Embed(nn.Embedding):
@@ -107,6 +146,9 @@ class Embed(nn.Embedding):
         self.compute_dtype = dtype
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        split = split_of(self.weight)
+        if split is not None:
+            return split.embedding(ids.long(), self.weight, self.compute_dtype)
         return F.embedding(ids.long(), self.weight).to(self.compute_dtype)
 
 
@@ -139,7 +181,8 @@ class MHAttention(nn.Module):
     The projections are packed into one (self-attention) or two
     (cross-attention) wide matmuls; q, k and v are then strided views of the
     packed product in [B, L, H, D] layout, which the attention kernel reads
-    in place."""
+    in place.  With the projections split over the model axis each rank
+    packs its columns (`split_attention`)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -156,6 +199,9 @@ class MHAttention(nn.Module):
                 rng: Rng | None = None) -> torch.Tensor:
         dt = self.compute_dtype
         q_, k_, v_ = self.query, self.key, self.value
+        split = split_of(q_.weight)
+        if split is not None:
+            return self._split_forward(split, hidden, context, bias, rng)
         if hidden is context:
             w, b = _cast_cached(
                 self, [q_.weight, k_.weight, v_.weight, q_.bias, k_.bias,
@@ -175,6 +221,32 @@ class MHAttention(nn.Module):
         ctx = attention(heads(q), heads(k), heads(v), bias,
                         1.0 / self.head_dim ** 0.5, self.probs_dropout, rng)
         return ctx.flatten(2)
+
+    def _split_forward(self, split, hidden, context, bias, rng):
+        """`forward` from this rank's columns of the projections: one
+        packed matmul (self) or two (cross) over them."""
+        dt, s = self.compute_dtype, split.shard
+        q_, k_, v_ = self.query, self.key, self.value
+        n = q_.weight.shape[0]
+        x = s.copy_in(hidden.to(dt))
+        if hidden is context:
+            w, b = _cast_cached(
+                self, [q_.weight, k_.weight, v_.weight, q_.bias, k_.bias,
+                       v_.bias], dt,
+                pack=lambda t: (torch.cat(t[:3]), torch.cat(
+                    [split.local_bias(c) for c in t[3:]])))
+            q, k, v = F.linear(x, w, b).split(n, -1)
+        else:
+            wq, bq, w, b = _cast_cached(
+                self, [q_.weight, q_.bias, k_.weight, v_.weight, k_.bias,
+                       v_.bias], dt,
+                pack=lambda t: (t[0], split.local_bias(t[1]),
+                                torch.cat(t[2:4]), torch.cat(
+                                    [split.local_bias(c) for c in t[4:]])))
+            q = F.linear(x, wq, bq)
+            k, v = F.linear(s.copy_in(context.to(dt)), w, b).split(n, -1)
+        return split_attention(split, q, k, v, bias, self.num_heads,
+                               self.head_dim, self.probs_dropout, rng)
 
 
 class SelfOutput(nn.Module):
@@ -379,7 +451,8 @@ class PackedSelfAttention(nn.Module):
     (`in_proj_weight` [3H, H] = the query, key and value projections
     stacked, `in_proj_bias`, `out_proj`), computed as the JAX package's
     MHAttention + out_proj Dense: one packed QKV matmul, the attention
-    kernel, the output projection."""
+    kernel, the output projection.  Split over the model axis, this rank's
+    `in_proj_weight` holds its columns of each of the three projections."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -392,8 +465,17 @@ class PackedSelfAttention(nn.Module):
         self.out_proj = Dense(H, H, dt)
 
     def forward(self, x, bias, rng=None):
-        w, b = _cast_cached(self, [self.in_proj_weight, self.in_proj_bias],
-                            self.compute_dtype)
+        split = split_of(self.in_proj_weight)
+        w, b = _cast_cached(
+            self, [self.in_proj_weight, self.in_proj_bias],
+            self.compute_dtype, pack=None if split is None else
+            lambda t: (t[0], split.local_bias(t[1])))
+        if split is not None:
+            q, k, v = F.linear(split.shard.copy_in(x.to(self.compute_dtype)),
+                               w, b).chunk(3, dim=-1)
+            return self.out_proj(split_attention(
+                split, q, k, v, bias, self.num_heads, self.head_dim,
+                self.probs_dropout, rng))
         q, k, v = (t.unflatten(-1, (self.num_heads, self.head_dim)) for t in
                    F.linear(x.to(self.compute_dtype), w, b).chunk(3, dim=-1))
         ctx = attention(q, k, v, bias, 1.0 / self.head_dim ** 0.5,

@@ -29,16 +29,18 @@ Dropout bits.  An element of P is kept when its 32 random bits are
 TPU kernels' `_dropout_mask`.  Two sources, chosen per call, which the
 kernels and the plain versions produce bit for bit:
 
-- "hash": the JAX package's `_hash_mask_bits`, a function of the (h, q, k)
-  position within one batch item's [H, Lq, Lk] block only (the CPU stand-in
-  for the TPU's per-core PRNG; tests hold the kernels' math against the
-  interpret-mode Pallas kernels with it);
+- "hash": the JAX package's `_hash_mask_bits`, a function of the
+  (h + head_offset, q, k) position within one batch item's [H, Lq, Lk]
+  block only (the CPU stand-in for the TPU's per-core PRNG; tests hold the
+  kernels' math against the interpret-mode Pallas kernels with it);
 - "philox": Philox-4x32-10 keyed on the per-call 64-bit seed, counter
-  (k, q, h, b + row_offset), first output word: different masks across
-  batch items and across calls.  The training source.  `row_offset` is the
-  global batch row of the call's row 0: under data parallelism a rank
-  holds rows [row_offset, row_offset + B) of the global batch, and draws
-  their bits.
+  (k, q, h + head_offset, b + row_offset), first output word: different
+  masks across batch items and across calls.  The training source.
+  `row_offset` is the global batch row of the call's row 0: under data
+  parallelism a rank holds rows [row_offset, row_offset + B) of the global
+  batch, and draws their bits.  `head_offset` is the model's head of the
+  call's head 0: under tensor parallelism a rank holds heads
+  [head_offset, head_offset + H), and draws their bits.
 
 The kernels are built at first use with nvcc into `build/kernels/` at the
 root of the checkout (one shared library with a plain C interface per
@@ -77,13 +79,16 @@ _M32 = 0xFFFFFFFF
 
 
 # ------------------------------------------------------------------ bits
-def hash_bits(B: int, H: int, Lq: int, Lk: int, device=None) -> torch.Tensor:
+def hash_bits(B: int, H: int, Lq: int, Lk: int, device=None,
+              head_offset: int = 0) -> torch.Tensor:
     """The JAX package's `_hash_mask_bits` over each batch item's
-    [H, Lq, Lk] block, as int64 holding uint32 values, [B, H, Lq, Lk]."""
-    def iota(n, mult):
-        return (torch.arange(n, dtype=torch.int64, device=device) * mult) & _M32
-    x = (iota(H, 2654435761)[:, None, None] ^ iota(Lq, 40503)[None, :, None]
-         ^ iota(Lk, 69069)[None, None, :])
+    [H, Lq, Lk] block, heads counted from `head_offset`, as int64 holding
+    uint32 values, [B, H, Lq, Lk]."""
+    def iota(n, mult, start=0):
+        return (torch.arange(start, start + n, dtype=torch.int64,
+                             device=device) * mult) & _M32
+    x = (iota(H, 2654435761, head_offset)[:, None, None]
+         ^ iota(Lq, 40503)[None, :, None] ^ iota(Lk, 69069)[None, None, :])
     x = ((x ^ (x >> 15)) * 0x2C1B3C6D) & _M32
     x = ((x ^ (x >> 12)) * 0x297A2D39) & _M32
     x = x ^ (x >> 15)
@@ -114,9 +119,11 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int, rounds: int = 10):
 
 
 def philox_bits(B: int, H: int, Lq: int, Lk: int, seed: int,
-                device=None, row_offset: int = 0) -> torch.Tensor:
-    """First Philox-4x32-10 word for counter (k, q, h, b + row_offset) under
-    key (seed low 32 bits, seed high 32 bits), [B, H, Lq, Lk] int64."""
+                device=None, row_offset: int = 0,
+                head_offset: int = 0) -> torch.Tensor:
+    """First Philox-4x32-10 word for counter (k, q, h + head_offset,
+    b + row_offset) under key (seed low 32 bits, seed high 32 bits),
+    [B, H, Lq, Lk] int64."""
     def ar(n, dim):
         shape = [1, 1, 1, 1]
         shape[dim] = n
@@ -124,6 +131,7 @@ def philox_bits(B: int, H: int, Lq: int, Lk: int, seed: int,
     shape = (B, H, Lq, Lk)
     c0, c1, c2, c3 = (ar(n, d).expand(shape)
                       for n, d in ((Lk, 3), (Lq, 2), (H, 1), (B, 0)))
+    c2 = (c2 + head_offset) & _M32
     c3 = (c3 + row_offset) & _M32
     return philox4x32(c0, c1, c2, c3, seed & _M32, (seed >> 32) & _M32)[0]
 
@@ -139,13 +147,14 @@ def keep_scale(rate: float) -> float:
 
 
 def dropout_mask(shape, rate: float, seed: int, bits: str,
-                 device=None, row_offset: int = 0) -> torch.Tensor:
+                 device=None, row_offset: int = 0,
+                 head_offset: int = 0) -> torch.Tensor:
     """f32 [B, H, Lq, Lk]: 0 where dropped, 1 / (1 - rate) where kept."""
     B, H, Lq, Lk = shape
     if bits == "hash":
-        b = hash_bits(B, H, Lq, Lk, device)
+        b = hash_bits(B, H, Lq, Lk, device, head_offset)
     elif bits == "philox":
-        b = philox_bits(B, H, Lq, Lk, seed, device, row_offset)
+        b = philox_bits(B, H, Lq, Lk, seed, device, row_offset, head_offset)
     else:
         raise ValueError(f"bits must be one of {sorted(BITS)}, got {bits!r}")
     return (b >= keep_threshold(rate)).float() * keep_scale(rate)
@@ -173,12 +182,13 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_dropout_reference(q, k, v, bias, scale: float, rate: float,
-                                seed: int, bits: str,
-                                row_offset: int = 0) -> torch.Tensor:
+                                seed: int, bits: str, row_offset: int = 0,
+                                head_offset: int = 0) -> torch.Tensor:
     """K2's arithmetic: K1 with P multiplied by the keep mask after the
     softmax, before the cast to V's dtype."""
     p = _probs(q, k, bias, scale)
-    p = p * dropout_mask(p.shape, rate, seed, bits, q.device, row_offset)
+    p = p * dropout_mask(p.shape, rate, seed, bits, q.device, row_offset,
+                         head_offset)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
 
@@ -191,7 +201,7 @@ def _sum_to(x: torch.Tensor, shape) -> torch.Tensor:
 
 def attention_bwd_reference(q, k, v, bias, do, scale: float, rate: float = 0.0,
                             seed: int = 0, bits: str = "philox",
-                            row_offset: int = 0):
+                            row_offset: int = 0, head_offset: int = 0):
     """K3's arithmetic (K4's with rate 0), written out as the TPU kernel
     computes it rather than by autograd: P recomputed in f32,
     dP = (dO V^T) * m, dS = P * (dP - rowsum(dP * P)), dQ = dS K * scale,
@@ -203,7 +213,8 @@ def attention_bwd_reference(q, k, v, bias, do, scale: float, rate: float = 0.0,
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     pm = p
     if rate > 0.0:
-        m = dropout_mask(p.shape, rate, seed, bits, q.device, row_offset)
+        m = dropout_mask(p.shape, rate, seed, bits, q.device, row_offset,
+                         head_offset)
         dp = dp * m
         pm = p * m
     ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
@@ -270,17 +281,18 @@ def build_kernels() -> dict[str, Path]:
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     # q k v bias o | dtype B H Lq Lk D | 13 strides | scale | bits threshold
-    # keep_scale seed row_offset | stream
+    # keep_scale seed row_offset head_offset | stream
     "vln_attention_fwd": ([_PTR] * 5 + [_INT] * 6 + [_LL] * 13
                           + [ctypes.c_float, _INT, ctypes.c_uint32,
                              ctypes.c_float, ctypes.c_uint64, ctypes.c_uint32,
-                             _PTR]),
+                             ctypes.c_uint32, _PTR]),
     # q k v bias do dq dk dv ds lse delta keep | dtype B H Lq Lk D |
-    # 16 strides | scale | bits threshold keep_scale seed row_offset | stream
+    # 16 strides | scale | bits threshold keep_scale seed row_offset
+    # head_offset | stream
     "vln_attention_bwd": ([_PTR] * 12 + [_INT] * 6 + [_LL] * 16
                           + [ctypes.c_float, _INT, ctypes.c_uint32,
                              ctypes.c_float, ctypes.c_uint64, ctypes.c_uint32,
-                             _PTR]),
+                             ctypes.c_uint32, _PTR]),
 }
 _ENTRY = {"attention_fwd.cu": "vln_attention_fwd",
           "attention_bwd.cu": "vln_attention_bwd"}
@@ -329,17 +341,20 @@ def _check(q, k, v, bias):
     return bias.expand(B, H, Lq, Lk)
 
 
-def _dropout_args(rate: float, seed: int, bits: str, row_offset: int = 0):
+def _dropout_args(rate: float, seed: int, bits: str, row_offset: int = 0,
+                  head_offset: int = 0):
     if rate <= 0.0:
-        return 0, 0, 1.0, 0, 0
+        return 0, 0, 1.0, 0, 0, 0
     if not rate < 1.0:
         raise ValueError(f"dropout rate {rate} outside [0, 1)")
     if bits not in BITS:
         raise ValueError(f"bits must be one of {sorted(BITS)}, got {bits!r}")
     if not 0 <= row_offset < 2 ** 32:
         raise ValueError(f"row_offset {row_offset} outside [0, 2^32)")
+    if not 0 <= head_offset < 2 ** 32:
+        raise ValueError(f"head_offset {head_offset} outside [0, 2^32)")
     return (BITS[bits], keep_threshold(rate), keep_scale(rate),
-            seed & (2**64 - 1), row_offset)
+            seed & (2**64 - 1), row_offset, head_offset)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -355,7 +370,7 @@ def _check_aligned(**tensors) -> None:
 
 
 def fwd_args(q, k, v, bias, out, scale, rate=0.0, seed=0, bits="philox",
-             row_offset=0):
+             row_offset=0, head_offset=0):
     """The arguments of the C entry `vln_attention_fwd` for one call, after
     the checks of `_launch_fwd`; `out` is the [B, Lq, H, D] output."""
     bias = _check(q, k, v, bias)
@@ -369,13 +384,15 @@ def fwd_args(q, k, v, bias, out, scale, rate=0.0, seed=0, bits="philox",
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             *bstrides, float(scale),
-            *_dropout_args(rate, seed, bits, row_offset), _stream(q))
+            *_dropout_args(rate, seed, bits, row_offset, head_offset),
+            _stream(q))
 
 
 def _launch_fwd(q, k, v, bias, scale, rate=0.0, seed=0, bits="philox",
-                row_offset=0):
+                row_offset=0, head_offset=0):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    args = fwd_args(q, k, v, bias, out, scale, rate, seed, bits, row_offset)
+    args = fwd_args(q, k, v, bias, out, scale, rate, seed, bits, row_offset,
+                    head_offset)
     err = load_kernels()["attention_fwd.cu"].vln_attention_fwd(*args)
     if err != 0:
         raise RuntimeError(f"attention forward kernel launch failed: CUDA "
@@ -439,7 +456,7 @@ def _aligned_dout(do: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_bwd(q, k, v, bias, do, scale, need_dbias, rate=0.0, seed=0,
-                bits="philox", row_offset=0):
+                bits="philox", row_offset=0, head_offset=0):
     """Both backward kernels on the current stream."""
     full_bias = _check(q, k, v, bias)
     B, Lq, H, D = q.shape
@@ -474,7 +491,7 @@ def _launch_bwd(q, k, v, bias, do, scale, need_dbias, rate=0.0, seed=0,
         v.stride(0), v.stride(1), v.stride(2),
         do.stride(0), do.stride(1), do.stride(2),
         *bstrides, float(scale),
-        *_dropout_args(rate, seed, bits, row_offset), _stream(q))
+        *_dropout_args(rate, seed, bits, row_offset, head_offset), _stream(q))
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA "
                            f"error {err}")
@@ -503,14 +520,16 @@ def attention_fwd(q, k, v, bias, scale: float) -> torch.Tensor:
 
 
 def attention_dropout_fwd(q, k, v, bias, scale: float, rate: float, seed: int,
-                          bits: str = "philox",
-                          row_offset: int = 0) -> torch.Tensor:
+                          bits: str = "philox", row_offset: int = 0,
+                          head_offset: int = 0) -> torch.Tensor:
     """K2: K1 with attention-probs dropout at `rate` from `bits`, the
-    call's rows being global batch rows row_offset + b."""
+    call's rows being global batch rows row_offset + b and its heads the
+    model's heads head_offset + h."""
     if not _on_card(q):
         return attention_dropout_reference(q, k, v, bias, scale, rate, seed,
-                                           bits, row_offset)
-    out = _launch_fwd(q, k, v, bias, scale, rate, seed, bits, row_offset)
+                                           bits, row_offset, head_offset)
+    out = _launch_fwd(q, k, v, bias, scale, rate, seed, bits, row_offset,
+                      head_offset)
     attention_dropout_fwd.launches += 1
     return out
 
@@ -527,14 +546,16 @@ def attention_bwd(q, k, v, bias, do, scale: float, need_dbias: bool = False):
 
 def attention_dropout_bwd(q, k, v, bias, do, scale: float, rate: float,
                           seed: int, bits: str = "philox",
-                          need_dbias: bool = False, row_offset: int = 0):
+                          need_dbias: bool = False, row_offset: int = 0,
+                          head_offset: int = 0):
     """K3: (dQ, dK, dV, dBias or None) of K2, the mask regenerated."""
     if not _on_card(q):
         dq, dk, dv, db = attention_bwd_reference(q, k, v, bias, do, scale,
-                                                 rate, seed, bits, row_offset)
+                                                 rate, seed, bits, row_offset,
+                                                 head_offset)
         return dq, dk, dv, db if need_dbias else None
     out = _launch_bwd(q, k, v, bias, do, scale, need_dbias, rate, seed, bits,
-                      row_offset)
+                      row_offset, head_offset)
     attention_dropout_bwd.launches += 1
     return out
 
@@ -565,38 +586,40 @@ class FusedAttention(torch.autograd.Function):
     recomputed in the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale, rate, seed, bits, row_offset):
+    def forward(ctx, q, k, v, bias, scale, rate, seed, bits, row_offset,
+                head_offset=0):
         ctx.save_for_backward(q, k, v, bias)
-        ctx.args = (scale, rate, seed, bits, row_offset)
+        ctx.args = (scale, rate, seed, bits, row_offset, head_offset)
         if rate > 0.0:
             return attention_dropout_fwd(q, k, v, bias, scale, rate, seed, bits,
-                                         row_offset)
+                                         row_offset, head_offset)
         return attention_fwd(q, k, v, bias, scale)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias = ctx.saved_tensors
-        scale, rate, seed, bits, row_offset = ctx.args
+        scale, rate, seed, bits, row_offset, head_offset = ctx.args
         need_dbias = bias is not None and ctx.needs_input_grad[3]
         if rate > 0.0:
             dq, dk, dv, db = attention_dropout_bwd(
                 q, k, v, bias, do, scale, rate, seed, bits, need_dbias,
-                row_offset)
+                row_offset, head_offset)
         else:
             dq, dk, dv, db = attention_bwd(q, k, v, bias, do, scale, need_dbias)
-        return dq, dk, dv, db, None, None, None, None, None
+        return dq, dk, dv, db, None, None, None, None, None, None
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor | None, scale: float,
                     dropout_rate: float = 0.0, seed: int | None = None,
-                    bits: str = "philox", row_offset: int = 0) -> torch.Tensor:
+                    bits: str = "philox", row_offset: int = 0,
+                    head_offset: int = 0) -> torch.Tensor:
     """[B, Lq, H, D] x [B, Lk, H, D] -> [B, Lq, H, D].
 
     bias: additive f32 [B, 1|H, 1|Lq, Lk] (the -10000 padding masks), or
     None.  dropout_rate > 0 drops attention probabilities with the mask of
     (`seed`, `bits`), row b drawing the bits of global batch row
-    row_offset + b.  Without autograd the forward kernel runs directly;
+    row_offset + b, head h those of the model's head head_offset + h.  Without autograd the forward kernel runs directly;
     with it, `FusedAttention` records the kernels' backward.  CPU tensors
     take the plain versions; CUDA tensors launch the kernels."""
     rate = float(dropout_rate)
@@ -607,8 +630,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         t is not None and t.requires_grad for t in (q, k, v, bias))
     if needs_grad:
         return FusedAttention.apply(q, k, v, bias, scale, rate, seed, bits,
-                                    row_offset)
+                                    row_offset, head_offset)
     if rate > 0.0:
         return attention_dropout_fwd(q, k, v, bias, scale, rate, seed, bits,
-                                     row_offset)
+                                     row_offset, head_offset)
     return attention_fwd(q, k, v, bias, scale)

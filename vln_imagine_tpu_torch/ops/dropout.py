@@ -14,7 +14,12 @@ the global shape from the same generator on every rank and keeps this
 rank's rows, and an attention call's dropout bits are keyed by the global
 batch row (`row_offset`).  Every rank therefore draws what one process
 draws for the whole batch, and at world size 1 every draw is what it is
-without a shard.  A batch may be `groups` global batches side by side (the
+without a shard.
+
+Under tensor parallelism (parallel/tensor.py) the ranks of the model axis
+hold the same rows, and every draw here is of a whole activation, so they
+draw the same bits; an attention call on a rank's own heads keys its bits
+by the model's head (`head_offset`, models/bert.py:split_attention).  A batch may be `groups` global batches side by side (the
 fused rollout's IL and RL halves): each group's rows are then this rank's
 block of that group.
 """

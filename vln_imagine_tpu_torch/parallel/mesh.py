@@ -20,8 +20,10 @@ keeps that equality by hand (`DataShard`):
   through an all-gather that passes gradients back;
 - random draws are the global batch's (ops/dropout.py).
 
-Only the data axis is ported.  A model axis above 1 (`param_shardings`,
-tensor parallelism) raises NotImplementedError: ROADMAP Queue 1 item 7c.
+The mesh's 'model' axis splits the large parameters (tensor parallelism,
+parallel/tensor.py).  The device order is the JAX package's
+`reshape(data, model)`: the model axis varies fastest, so the `model`
+processes of one data rank are consecutive and hold the same rows.
 """
 
 from __future__ import annotations
@@ -36,20 +38,16 @@ from torch import nn
 
 from vln_imagine_tpu_torch.parallel.distributed import collective_device
 
-MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 7c"
-
 
 def make_mesh(data: int = -1, model: int = 1, device_type: str | None = None):
     """A DeviceMesh of dims ('data', 'model') over the process group
-    (`parallel.distributed.initialize` first); `data=-1` takes every
-    process over `model`.  `device_type` defaults to the backend's: 'cuda'
-    under NCCL, else 'cpu'."""
+    (`parallel.distributed.initialize` first), rank d * model + m at
+    (d, m); `data=-1` takes every process over `model`.  `device_type`
+    defaults to the backend's: 'cuda' under NCCL, else 'cpu'."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    if model != 1:
-        raise NotImplementedError(
-            f"a model axis of {model} (tensor parallelism) is not ported "
-            f"yet: {MODEL_AXIS_ITEM}")
+    if model < 1:
+        raise ValueError(f"a model axis of {model}")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call "
                            "parallel.distributed.initialize() first")

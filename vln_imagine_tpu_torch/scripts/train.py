@@ -19,12 +19,18 @@ Data parallelism, one process per card (NCCL; gloo with `--device cpu`):
 without a launcher.  Each process trains on its rows of every global
 batch of `--batch-size` items, and the step equals the one-process step.
 
+Tensor parallelism, the large parameters split over `--mesh-model M`
+processes (with `--mesh-data D`, D * M launched processes; `--mesh-data
+-1` takes every launched process over M):
+  torchrun --nproc-per-node 8 -m vln_imagine_tpu_torch.scripts.train \
+      --mesh-data 4 --mesh-model 2 ...
+`--mesh-model` without `--mesh-data` has no effect, as in the JAX
+package's CLI.
+
 Everything runs on the card unless `--device` names another device; with
 no CUDA and no `--device` the CLI exits.  `--dataset` picks the task
 variant's preset (`preset`); `--synthetic` takes the tiny test preset off
-the card and the dataset's preset on it.  Flags whose branch is not ported
-yet (`--mesh-model` above 1) exit with the ROADMAP item that will port
-them.
+the card and the dataset's preset on it.
 """
 
 from __future__ import annotations
@@ -156,7 +162,8 @@ def parse_args(argv=None):
                         "mesh, -1 = every launched process); launch them "
                         "with torchrun --nproc-per-node N")
     p.add_argument("--mesh-model", type=int, default=1,
-                   help="model-parallel axis size (only 1 is ported)")
+                   help="model-parallel axis size: the large parameters "
+                        "split over this many processes (with --mesh-data)")
     # inference mode (the reference's valid()-from-checkpoint entry,
     # main.py:370-421): evaluate every val split and exit
     p.add_argument("--eval-only", action="store_true")
@@ -170,25 +177,23 @@ def parse_args(argv=None):
 
 def join_mesh(args, device):
     """Under `--mesh-data`, join the process group (torchrun's, or a
-    one-process group at `--mesh-data 1` without a launcher) and return
-    this process's device and the data axis' size; exit on a mesh the
-    port cannot run."""
+    one-process group at `--mesh-data 1 --mesh-model 1` without a
+    launcher) and return this process's device and the data axis' size;
+    exit on a mesh that does not cover the launched processes."""
     from vln_imagine_tpu_torch.parallel.distributed import (
         initialize,
         process_count,
     )
-    from vln_imagine_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM
 
-    if args.mesh_model != 1:
-        raise SystemExit(f"--mesh-model {args.mesh_model}: a model axis "
-                         f"(tensor parallelism) is not ported yet: "
-                         f"{MODEL_AXIS_ITEM}")
+    if args.mesh_model < 1:
+        raise SystemExit(f"--mesh-model {args.mesh_model}: at least 1")
     device = initialize(device=device)
     world = process_count()
-    data = world if args.mesh_data == -1 else args.mesh_data
-    if data != world:
-        raise SystemExit(f"--mesh-data {args.mesh_data} does not match the "
-                         f"{world} launched processes")
+    data = world // args.mesh_model if args.mesh_data == -1 else args.mesh_data
+    if data < 1 or data * args.mesh_model != world:
+        raise SystemExit(f"--mesh-data {args.mesh_data} --mesh-model "
+                         f"{args.mesh_model} does not match the {world} "
+                         "launched processes")
     return device, data
 
 

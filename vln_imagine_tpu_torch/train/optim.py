@@ -21,8 +21,9 @@ its arithmetic, update order and state semantics exactly:
   b2 0.999, eps 1e-8, threshold 5: the bias-corrected first moment until
   the variance is tractable, then the rectified Adam step); ralamb and
   rangerlars `scale_by_radam` then `scale_by_trust_ratio` (per parameter,
-  ||p|| / ||u||, 1 where either norm is 0); rms `scale_by_rms` (decay 0.9,
-  eps 1e-8 inside the root, initial scale 0); sgd the identity.  Then
+  ||p|| / ||u||, 1 where either norm is 0; a parameter split over the
+  model axis takes the whole parameter's norms); rms `scale_by_rms` (decay
+  0.9, eps 1e-8 inside the root, initial scale 0); sgd the identity.  Then
   weight decay if any, then `-lr(count)`; parameters move by p + u;
 - `plain_optimizer` with rangerlars wraps the whole chain, clip included,
   in Lookahead (k 6, alpha 0.5) on the update stream, its slow weights
@@ -43,6 +44,8 @@ from __future__ import annotations
 from typing import Callable, Iterable
 
 import torch
+
+from vln_imagine_tpu_torch.parallel.tensor import split_of
 
 OPTIMS = ("adam", "adamw", "radam", "ralamb", "rangerlars", "rms", "sgd")
 
@@ -133,8 +136,13 @@ class ParamGroup:
         u = (f["r"] * mu_hat / (torch.sqrt(nu_hat) + self.eps)
              if f["rectify"] else mu_hat)
         if o != "radam":  # scale_by_trust_ratio
-            p_norm = torch.linalg.vector_norm(p)
-            u_norm = torch.linalg.vector_norm(u)
+            split = split_of(p)
+            if split is None:
+                p_norm = torch.linalg.vector_norm(p)
+                u_norm = torch.linalg.vector_norm(u)
+            else:  # the whole parameter's norms
+                p_norm, u_norm = torch.sqrt(split.shard.sum(torch.stack(
+                    [torch.sum(p * p), torch.sum(u * u)]))).unbind()
             ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                 torch.ones_like(p_norm), p_norm / u_norm)
             u = u * ratio
@@ -210,11 +218,22 @@ class ParamGroup:
 
 def global_norm(params: list[torch.nn.Parameter]) -> torch.Tensor:
     """optax.global_norm of the gradients: sqrt of the sum of their squares
-    (a missing gradient counts as zero)."""
+    (a missing gradient counts as zero).  The squares of a parameter split
+    over the model axis (its `model_split`, parallel/tensor.py) are summed
+    over the axis, in one all-reduce, so the norm is the whole model's."""
     total = torch.zeros((), device=params[0].device)
+    split_sums: dict = {}
     for p in params:
-        if p.grad is not None:
-            total = total + torch.sum(p.grad * p.grad)
+        if p.grad is None:
+            continue
+        sq = torch.sum(p.grad * p.grad)
+        split = split_of(p)
+        if split is None:
+            total = total + sq
+        else:
+            split_sums[split.shard] = split_sums.get(split.shard, 0.0) + sq
+    for shard, sq in split_sums.items():
+        total = total + shard.sum(sq)
     return torch.sqrt(total)
 
 

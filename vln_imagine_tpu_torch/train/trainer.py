@@ -25,7 +25,10 @@ With a `mesh` (parallel/mesh.py) each process trains on its block of rows
 of every global batch: the rollouts return this rank's shares of the
 global losses, one all-reduce sums the gradients of both optimizers before
 the clip, and the returned metrics are the global ones on every rank.  The
-step computes what the one-process step computes on the whole batch.
+step computes what the one-process step computes on the whole batch.  A
+model axis above 1 splits the model's and the critic's large parameters
+over its ranks (parallel/tensor.py): both are built whole from the seed,
+then cut, so each rank holds its slice of the one-process init.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from vln_imagine_tpu_torch.models.bert import (
 from vln_imagine_tpu_torch.models.hamt import HamtModel
 from vln_imagine_tpu_torch.ops.dropout import Rng
 from vln_imagine_tpu_torch.parallel.mesh import DataShard
+from vln_imagine_tpu_torch.parallel.tensor import shard_model
 from vln_imagine_tpu_torch.platform import resolve_device
 from vln_imagine_tpu_torch.train.optim import (
     plain_optimizer,
@@ -150,6 +154,9 @@ class HamtTrainer:
         init_params(critic, gen)
         self.model = model.to(self.device).eval()
         self.critic = critic.to(self.device)
+        if mesh is not None:
+            shard_model(self.model, mesh)
+            shard_model(self.critic, mesh)
         self.tables = tables.to(self.device)
         self.rng = Rng(seed, self.device, self.shard)
         self.optimizer = model_optimizer(cfg, self.model)

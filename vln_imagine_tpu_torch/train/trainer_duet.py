@@ -22,7 +22,9 @@ Under `e2e_imagination` the model holds the imagination ViT, kept out of
 the optimizer when 'frozen' (train/trainer.py:model_optimizer).
 
 With a `mesh` each process trains on its block of rows of every global
-batch and the step computes the global step, as in train/trainer.py.
+batch and the step computes the global step, as in train/trainer.py; a
+model axis above 1 splits the model's (and the critic's) large parameters
+over its ranks.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from vln_imagine_tpu_torch.models.bert import Critic
 from vln_imagine_tpu_torch.models.duet import DuetModel
 from vln_imagine_tpu_torch.ops.dropout import Rng
 from vln_imagine_tpu_torch.parallel.mesh import DataShard
+from vln_imagine_tpu_torch.parallel.tensor import shard_model
 from vln_imagine_tpu_torch.platform import resolve_device
 from vln_imagine_tpu_torch.train.optim import plain_optimizer
 from vln_imagine_tpu_torch.train.rollout_duet import make_eval_fn, rollout_duet
@@ -63,11 +66,15 @@ class DuetTrainer:
         model = DuetModel(cfg.model, feat_dropout=cfg.train.feat_dropout)
         init_params(model, gen)
         self.model = model.to(self.device).eval()
+        if mesh is not None:
+            shard_model(self.model, mesh)
         self.critic = self.critic_optimizer = None
         if cfg.train.train_alg == "rl":
             critic = Critic(cfg.model)
             init_params(critic, gen)
             self.critic = critic.to(self.device)
+            if mesh is not None:
+                shard_model(self.critic, mesh)
             self.critic_optimizer = plain_optimizer(
                 self.critic.parameters(), cfg.train.lr, cfg.train.optim,
                 max_grad_norm=None)
