@@ -500,10 +500,10 @@ def main_path_phase(torch, cfg, world):
     attention.reset_launch_counts()
     runs = {}
     for B in BATCHES:
-        before = attention.attention_fwd.launches
+        before = attention.launch_counts()["attention_fwd"]
         nodes, lens = eval_step(eps[B])
         nodes, lens = nodes.cpu().numpy(), lens.cpu().numpy()
-        runs[B] = (nodes, lens, attention.attention_fwd.launches - before)
+        runs[B] = (nodes, lens, attention.launch_counts()["attention_fwd"] - before)
     launches = attention.launch_counts()
     check(launches["attention_fwd"] > 0 and sum(launches.values())
           == launches["attention_fwd"], f"eval launches {launches}")
@@ -566,11 +566,11 @@ def parity_phase(torch, cfg, world):
     out = {}
     for dev in ("cuda", "cpu"):
         trainer = HamtTrainer(cfg32, world, device=dev)
-        before = attention.attention_fwd.launches
+        before = attention.launch_counts()["attention_fwd"]
         nodes, lens = trainer.make_eval_step()(ep)
         step0 = rollout_hamt(trainer.model, trainer.tables, ep.to(dev), cfg32,
                              max_steps=1, early_exit=False).logits[0]
-        launched = attention.attention_fwd.launches - before
+        launched = attention.launch_counts()["attention_fwd"] - before
         check(launched > 0 if dev == "cuda" else launched == 0,
               f"{dev}: {launched} kernel launches")
         out[dev] = (nodes.cpu().numpy(), lens.cpu().numpy(),
@@ -879,10 +879,10 @@ def duet_eval_phase(torch, cfg, world):
     attention.reset_launch_counts()
     runs = {}
     for B in BATCHES:
-        before = attention.attention_fwd.launches
+        before = attention.launch_counts()["attention_fwd"]
         nodes, lens = eval_step(eps[B])
         runs[B] = (nodes.cpu().numpy(), lens.cpu().numpy(),
-                   attention.attention_fwd.launches - before)
+                   attention.launch_counts()["attention_fwd"] - before)
     launches = attention.launch_counts()
     check(launches["attention_fwd"] > 0 and sum(launches.values())
           == launches["attention_fwd"], f"duet eval launches {launches}")
@@ -943,11 +943,11 @@ def duet_parity_phase(torch, cfg, world):
     out = {}
     for dev in ("cuda", "cpu"):
         trainer = DuetTrainer(cfg32, world, device=dev)
-        before = attention.attention_fwd.launches
+        before = attention.launch_counts()["attention_fwd"]
         nodes, lens = trainer.make_eval_step()(ep)
         step0 = rollout_duet(trainer.model, trainer.tables, ep.to(dev), cfg32,
                              max_steps=1).logits[0]
-        launched = attention.attention_fwd.launches - before
+        launched = attention.launch_counts()["attention_fwd"] - before
         check(launched > 0 if dev == "cuda" else launched == 0,
               f"duet {dev}: {launched} kernel launches")
         out[dev] = (nodes.cpu().numpy(), lens.cpu().numpy(),
@@ -3521,7 +3521,6 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
     q, k, v, do, bias = _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen,
                                      D)
     scale, seed = D ** -0.5, 0x5EED_1234_ABCD
-    wrapper = A.KERNELS[kernel]
     need_db = bias_kind in ("per_head", "graph")
     if kernel == "attention_fwd":
         def run():
@@ -3553,11 +3552,11 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
         def plain():
             return A.attention_bwd_reference(q, k, v, bias, do, scale)
 
-    before = wrapper.launches
+    before = A.launch_counts()[kernel]
     got = run()
     want = plain()
     torch.cuda.synchronize()
-    check(wrapper.launches == before + 1, f"{kernel} was not launched")
+    check(A.launch_counts()[kernel] == before + 1, f"{kernel} was not launched")
     if not need_db and len(want) == 4:
         want = want[:3]
     check(len(got) == len(want) or (len(got) == 4 and got[3] is None),
@@ -3796,8 +3795,8 @@ def _part_cases(torch, inputs, part, offset: dict, label: str) -> list:
     lq, lk, dt = q.shape[1], k.shape[1], str(q.dtype).split(".")[1]
     pq, pk, pv, pdo = (part(x, False) for x in (q, k, v, do))
     pb = part(bias, True)
-    before = (A.attention_dropout_fwd.launches,
-              A.attention_dropout_bwd.launches)
+    k23 = ("attention_dropout_fwd", "attention_dropout_bwd")
+    before = tuple(A.launch_counts()[name] for name in k23)
     full = (A.attention_dropout_fwd(q, k, v, bias, scale, DROPOUT, seed),
             *A.attention_dropout_bwd(q, k, v, bias, do, scale, DROPOUT, seed,
                                      need_dbias=True))
@@ -3810,7 +3809,7 @@ def _part_cases(torch, inputs, part, offset: dict, label: str) -> list:
              *A.attention_bwd_reference(pq, pk, pv, pb, pdo, scale, DROPOUT,
                                         seed, "philox", **offset))
     torch.cuda.synchronize()
-    check((A.attention_dropout_fwd.launches, A.attention_dropout_bwd.launches)
+    check(tuple(A.launch_counts()[name] for name in k23)
           == (before[0] + 2, before[1] + 2),
           f"K2 / K3 were not launched at {label}")
     bitwise = all(torch.equal(g, part(f, i == 4))

@@ -37,6 +37,12 @@ from vln_imagine_tpu_torch.ops.attention import (
 
 torch.set_num_threads(2)
 
+
+def launched(*names):
+    """The launch counts of the named wrappers."""
+    counts = launch_counts()
+    return tuple(counts[name] for name in names)
+
 F32_TOL = 1e-5
 # bf16 outputs: both sides round P and O to bf16 (8 significant bits); one
 # bf16 ulp of an O entry near 1 is 2^-8, so allow about two ulps
@@ -703,10 +709,10 @@ def test_kernel_matches_plain_on_card(cuda, lq, lk, per_head, dtype):
     else:
         keep = torch.rand(B, lk, device=cuda, generator=g) < 0.8
         bias = (1.0 - keep.float())[:, None, None, :] * -10000.0
-    before = attention_fwd.launches
+    before = launch_counts()["attention_fwd"]
     got = fused_attention(q, k, v, bias, 0.125)
     torch.cuda.synchronize()
-    assert attention_fwd.launches == before + 1
+    assert launch_counts()["attention_fwd"] == before + 1
     want = attention_reference(q, k, v, bias, 0.125)
     tol = CARD_F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -736,13 +742,13 @@ def test_dropout_kernels_match_plain_on_card(cuda, lq, lk, dtype, bits):
     q, k, v, bias, do = _card_case(cuda, lq, lk, True, dtype, lq * 7 + lk)
     seed, tol = 2 ** 40 + 17, (CARD_F32_TOL if dtype == torch.float32
                                else BF16_TOL)
-    before = (attention_dropout_fwd.launches, attention_dropout_bwd.launches)
+    names = ("attention_dropout_fwd", "attention_dropout_bwd")
+    before = launched(*names)
     out = attention_dropout_fwd(q, k, v, bias, 0.125, 0.1, seed, bits)
     grads = attention_dropout_bwd(q, k, v, bias, do, 0.125, 0.1, seed, bits,
                                   need_dbias=True)
     torch.cuda.synchronize()
-    assert (attention_dropout_fwd.launches,
-            attention_dropout_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert launched(*names) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(
         out.float(), attention_dropout_reference(
             q, k, v, bias, 0.125, 0.1, seed, bits).float(), rtol=tol, atol=tol)
@@ -757,10 +763,10 @@ def test_dropout_kernels_match_plain_on_card(cuda, lq, lk, dtype, bits):
 def test_bwd_kernel_matches_plain_on_card(cuda, lq, lk, per_head):
     q, k, v, bias, do = _card_case(cuda, lq, lk, per_head, torch.float32,
                                    lq * 11 + lk)
-    before = attention_bwd.launches
+    before = launch_counts()["attention_bwd"]
     grads = attention_bwd(q, k, v, bias, do, 0.125, need_dbias=per_head)
     torch.cuda.synchronize()
-    assert attention_bwd.launches == before + 1
+    assert launch_counts()["attention_bwd"] == before + 1
     want = attention_bwd_reference(q, k, v, bias, do, 0.125)
     for g, w in zip(grads, want if per_head else want[:3]):
         torch.testing.assert_close(g, w, rtol=CARD_F32_TOL, atol=CARD_F32_TOL)
@@ -781,13 +787,13 @@ def test_bwd_kernels_long_and_ragged_on_card(cuda, lq, lk, per_head, dtype):
                                    lq * 13 + lk)
     seed, tol = 2 ** 33 + 5, (CARD_F32_TOL if dtype == torch.float32
                               else BF16_TOL)
-    before = (attention_dropout_bwd.launches, attention_bwd.launches)
+    names = ("attention_dropout_bwd", "attention_bwd")
+    before = launched(*names)
     k3 = attention_dropout_bwd(q, k, v, bias, do, 0.125, 0.1, seed, "philox",
                                need_dbias=per_head)
     k4 = attention_bwd(q, k, v, bias, do, 0.125, need_dbias=per_head)
     torch.cuda.synchronize()
-    assert (attention_dropout_bwd.launches,
-            attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert launched(*names) == (before[0] + 1, before[1] + 1)
     for got, want in ((k3, attention_bwd_reference(
             q, k, v, bias, do, 0.125, 0.1, seed, "philox")),
             (k4, attention_bwd_reference(q, k, v, bias, do, 0.125))):
@@ -845,12 +851,12 @@ def test_fwd_kernels_long_boundary_and_head_dims_on_card(cuda, lq, lk, D,
                                   lq * 17 + lk + D, D=D)
     scale, seed = D ** -0.5, 2 ** 35 + 3
     tol = CARD_F32_TOL if dtype == torch.float32 else BF16_TOL
-    before = (attention_fwd.launches, attention_dropout_fwd.launches)
+    names = ("attention_fwd", "attention_dropout_fwd")
+    before = launched(*names)
     k1 = attention_fwd(q, k, v, bias, scale)
     k2 = attention_dropout_fwd(q, k, v, bias, scale, 0.1, seed, "philox")
     torch.cuda.synchronize()
-    assert (attention_fwd.launches,
-            attention_dropout_fwd.launches) == (before[0] + 1, before[1] + 1)
+    assert launched(*names) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(
         k1.float(), attention_reference(q, k, v, bias, scale).float(),
         rtol=tol, atol=tol)
@@ -1030,12 +1036,12 @@ def _vit_qkv(cuda, B, dtype, seed):
 def test_vit_attention_kernels_match_plain_on_card(cuda, dtype):
     tol = CARD_F32_TOL if dtype == torch.float32 else BF16_TOL
     q, k, v, do = _vit_qkv(cuda, 16, dtype, 197)
-    before = (attention_fwd.launches, attention_bwd.launches)
+    names = ("attention_fwd", "attention_bwd")
+    before = launched(*names)
     out = fused_attention(q, k, v, None, 0.125)
     dq, dk, dv, db = attention_bwd(q, k, v, None, do, 0.125)
     torch.cuda.synchronize()
-    assert (attention_fwd.launches, attention_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert launched(*names) == (before[0] + 1, before[1] + 1)
     assert db is None
     torch.testing.assert_close(out.float(), attention_reference(
         q, k, v, None, 0.125).float(), rtol=tol, atol=tol)

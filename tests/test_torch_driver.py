@@ -228,9 +228,19 @@ def test_aug_alternation_trains(tmp_path):
 
 
 def test_profile_dir_traces_the_first_interval(tmp_path, monkeypatch):
+    """The trace holds the program's spans (utils/spans.py) as annotations,
+    and no span is kept once the interval ends."""
+    from vln_imagine_tpu_torch.utils import spans
+
     monkeypatch.setenv("VLN_PROFILE_DIR", str(tmp_path / "trace"))
     _driver(tmp_path / "run").run(iters=1, log_every=1)
-    assert any(n.endswith(".json") for n in os.listdir(tmp_path / "trace"))
+    traces = [n for n in os.listdir(tmp_path / "trace") if n.endswith(".json")]
+    assert traces
+    text = (tmp_path / "trace" / traces[0]).read_text()
+    for name in ("train.step", "train.rollout", "rollout.step", "env.step",
+                 "model.visual", "train.backward", "optim.step"):
+        assert f'"name": "{name}"' in text, name
+    assert spans.take() == [] and spans.span("x") is spans.span("y")
 
 
 @pytest.mark.parametrize("part, over, item", [

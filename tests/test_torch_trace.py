@@ -1,16 +1,16 @@
-"""The device-time trace's interval arithmetic and kernel names, on the CPU
-(the trace itself needs the card)."""
+"""The device-time trace's interval arithmetic, and the kernel names the
+benchmark's roofline reads, on the CPU (the trace itself needs the card)."""
 
+import json
 import re
 from pathlib import Path
 
 import pytest
-import torch
 
-from vln_imagine_tpu_torch.eval.trace import ATTENTION_KERNELS, _busy_us
-from vln_imagine_tpu_torch.ops.attention import CSRC
+from vln_imagine_tpu_torch.eval.trace import _busy_us
 
-torch.set_num_threads(2)
+REPO = Path(__file__).resolve().parents[1]
+KERNELS = REPO / "portbench" / "kernels"
 
 
 @pytest.mark.parametrize("intervals,want", [
@@ -23,12 +23,23 @@ def test_busy_time_is_the_union_of_intervals(intervals, want):
     assert _busy_us(intervals) == want
 
 
-@pytest.mark.parametrize("fn_name", sorted(ATTENTION_KERNELS))
+def _sources() -> dict:
+    """Each attention kernel pattern the benchmark's roofline reads, with
+    the source file its entry names."""
+    out = {}
+    for f in sorted((KERNELS / "attention").glob("*.json")):
+        entry = json.loads(f.read_text())
+        out.update(dict.fromkeys(entry["patterns"],
+                                 entry["source"].split(":")[0]))
+    return out
+
+
+@pytest.mark.parametrize("fn_name", sorted(_sources()))
 def test_traced_kernel_names_are_kernels_of_their_source(fn_name):
-    """A renamed CUDA function would drop out of the trace's attention shares
-    without an error: each traced name is a __global__ of its source."""
-    _, source = ATTENTION_KERNELS[fn_name]
-    text = Path(CSRC, source).read_text()
+    """A renamed CUDA function would drop out of the roofline's kernel time
+    without an error: each pattern is a __global__ of its source."""
+    source = _sources()[fn_name]
+    text = (REPO / source).read_text()
     bounds = r"__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s+"
     assert re.search(r"__global__\s+void\s+(?:" + bounds + ")?"
                      + re.escape(fn_name) + r"\s*\(", text), (fn_name, source)

@@ -71,6 +71,7 @@ from vln_imagine_tpu_torch.parallel.mesh import (
 from vln_imagine_tpu_torch.parallel.tensor import gather_state, load_sharded
 from vln_imagine_tpu_torch.platform import resolve_device
 from vln_imagine_tpu_torch.variants import eval_batch_variant
+from vln_imagine_tpu_torch.utils import spans
 from vln_imagine_tpu_torch.utils.logger import (
     MetricsWriter,
     dump_args,
@@ -532,7 +533,10 @@ class FinetuneDriver:
     def _train_interval_profiled(self, interval: int, profile_dir: str):
         """VLN_PROFILE_DIR=<dir>: a torch.profiler trace of the interval
         (host and, on the card, device activity), written to <dir> as a
-        chrome trace for TensorBoard or Perfetto."""
+        chrome trace for TensorBoard or Perfetto.  Spans are on
+        (utils/spans.py), so the trace shows the program's phases
+        (`train.step`, `rollout.step`, `env.*`, `map.*`, `model.*`, ...)
+        above the operations they launched."""
         from torch.profiler import (
             ProfilerActivity,
             profile,
@@ -541,9 +545,13 @@ class FinetuneDriver:
 
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
-        with profile(activities=acts,
-                     on_trace_ready=tensorboard_trace_handler(profile_dir)):
-            return self.train_interval(interval)
+        try:
+            with spans.on(), profile(
+                    activities=acts,
+                    on_trace_ready=tensorboard_trace_handler(profile_dir)):
+                return self.train_interval(interval)
+        finally:
+            spans.take()  # the trace holds them; the records are not kept
 
     def run(self, iters: int | None = None, log_every: int | None = None,
             max_failures: int = 3):
@@ -563,8 +571,8 @@ class FinetuneDriver:
         self._save("save_latest")
         start = time.time()
         failures = 0
-        # profiling: VLN_PROFILE_DIR=<dir> traces the first interval.  The
-        # reference offers only a tic/toc Timer (utils/logger.py:28-57).
+        # profiling: VLN_PROFILE_DIR=<dir> traces the first interval, with
+        # the program's spans on
         profile_dir = os.environ.get("VLN_PROFILE_DIR")
         for idx in range(0, iters, log_every):
             interval = min(log_every, iters - idx)

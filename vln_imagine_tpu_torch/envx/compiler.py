@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from vln_imagine_tpu_torch.envx.tables import INF, WorldTables
+from vln_imagine_tpu_torch.utils import spans
 
 
 @dataclass
@@ -145,6 +146,7 @@ def shortest_path_nodes(graph: ScanGraph, src: int, dst: int) -> list[int]:
     return path
 
 
+@spans.spanned("setup.compile_world")
 def compile_world(
     graphs: list[ScanGraph],
     max_nodes: int | None = None,

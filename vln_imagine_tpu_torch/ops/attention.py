@@ -13,8 +13,8 @@ All of them take the [B, L, H, D] projection layout that
 product) and return [B, L, H, D], so the model needs no head transposes.
 
 Each wrapper runs its plain version only for tensors on the CPU.  For a CUDA
-tensor it launches its kernel or raises; nothing falls back.  Each wrapper's
-`launches` counts its kernel's launches.
+tensor it launches its kernel or raises; nothing falls back.
+`launch_counts()` gives each wrapper's kernel launches.
 
 `fused_attention` is the model's entry: K1 (or K2 with attention-probs
 dropout) under `torch.no_grad`, else `FusedAttention`, whose backward is K4
@@ -59,6 +59,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from vln_imagine_tpu_torch.utils import spans
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("attention_fwd.cu", "attention_bwd.cu")
@@ -299,15 +301,17 @@ _ENTRY = {"attention_fwd.cu": "vln_attention_fwd",
 
 
 def load_kernels() -> dict[str, ctypes.CDLL]:
-    """Build (if needed) and load every kernel library; source -> library."""
+    """Build (if needed) and load every kernel library; source -> library.
+    The first call, which builds or loads, is the span `setup.kernels`."""
     with _lib_lock:
         if len(_libs) < len(SOURCES):
-            for name, path in build_kernels().items():
-                lib = ctypes.CDLL(str(path))
-                fn = getattr(lib, _ENTRY[name])
-                fn.argtypes = _ARGTYPES[_ENTRY[name]]
-                fn.restype = ctypes.c_int
-                _libs[name] = lib
+            with spans.span("setup.kernels"):
+                for name, path in build_kernels().items():
+                    lib = ctypes.CDLL(str(path))
+                    fn = getattr(lib, _ENTRY[name])
+                    fn.argtypes = _ARGTYPES[_ENTRY[name]]
+                    fn.restype = ctypes.c_int
+                    _libs[name] = lib
     return dict(_libs)
 
 
@@ -515,7 +519,7 @@ def attention_fwd(q, k, v, bias, scale: float) -> torch.Tensor:
     if not _on_card(q):
         return attention_reference(q, k, v, bias, scale)
     out = _launch_fwd(q, k, v, bias, scale)
-    attention_fwd.launches += 1
+    spans.count("launches.attention_fwd")
     return out
 
 
@@ -530,7 +534,7 @@ def attention_dropout_fwd(q, k, v, bias, scale: float, rate: float, seed: int,
                                            bits, row_offset, head_offset)
     out = _launch_fwd(q, k, v, bias, scale, rate, seed, bits, row_offset,
                       head_offset)
-    attention_dropout_fwd.launches += 1
+    spans.count("launches.attention_dropout_fwd")
     return out
 
 
@@ -540,7 +544,7 @@ def attention_bwd(q, k, v, bias, do, scale: float, need_dbias: bool = False):
         dq, dk, dv, db = attention_bwd_reference(q, k, v, bias, do, scale)
         return dq, dk, dv, db if need_dbias else None
     out = _launch_bwd(q, k, v, bias, do, scale, need_dbias)
-    attention_bwd.launches += 1
+    spans.count("launches.attention_bwd")
     return out
 
 
@@ -556,13 +560,9 @@ def attention_dropout_bwd(q, k, v, bias, do, scale: float, rate: float,
         return dq, dk, dv, db if need_dbias else None
     out = _launch_bwd(q, k, v, bias, do, scale, need_dbias, rate, seed, bits,
                       row_offset, head_offset)
-    attention_dropout_bwd.launches += 1
+    spans.count("launches.attention_dropout_bwd")
     return out
 
-
-for _w in (attention_fwd, attention_dropout_fwd, attention_bwd,
-           attention_dropout_bwd):
-    _w.launches = 0
 
 KERNELS = {"attention_fwd": attention_fwd,
            "attention_dropout_fwd": attention_dropout_fwd,
@@ -571,12 +571,14 @@ KERNELS = {"attention_fwd": attention_fwd,
 
 
 def reset_launch_counts() -> None:
-    for w in KERNELS.values():
-        w.launches = 0
+    spans.reset_counts("launches.")
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: w.launches for name, w in KERNELS.items()}
+    """Each wrapper's kernel launches since the last reset (the counters
+    `launches.<wrapper>` of utils/spans.py)."""
+    n = spans.counts()
+    return {name: n.get("launches." + name, 0) for name in KERNELS}
 
 
 # ------------------------------------------------------------ autograd

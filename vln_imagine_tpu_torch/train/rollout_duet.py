@@ -94,6 +94,8 @@ from vln_imagine_tpu_torch.train.rollout_hamt import (
     shaped_reward,
     uniform_coin,
 )
+from vln_imagine_tpu_torch.utils import spans
+from vln_imagine_tpu_torch.utils.spans import span
 
 MAX_TELEPORT_HOPS = 6
 MAX_BACKTRACK_HOPS = 8
@@ -258,32 +260,40 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
     pred_obj = torch.full((B,), -1, dtype=torch.int32, device=dev)
 
     # ---- per-episode prologue (agent.py:386-398) ---------------------------
-    txt_embeds = model.text(ep.txt_ids, ep.txt_mask, drop)
-    aux_loss = zero
-    imagine_embeds = None
-    if mcfg.imagine_enc_pano:
-        imagine_embeds = model.imagine(imagination_input(ep, mcfg), drop)
-        if mcfg.use_cosine_aux_loss:
-            aux_loss, imagine_embeds = model.align_with_contrastive_loss(
-                txt_embeds, ep.txt_mask, imagine_embeds, ep.imagine_mask,
-                ep.np_weights, drop, shard=shard)
+    with span("rollout.prologue"):
+        with span("model.text"):
+            txt_embeds = model.text(ep.txt_ids, ep.txt_mask, drop)
+        aux_loss = zero
+        imagine_embeds = None
+        if mcfg.imagine_enc_pano:
+            with span("model.imagine"):
+                imagine_embeds = model.imagine(imagination_input(ep, mcfg),
+                                               drop)
+            if mcfg.use_cosine_aux_loss:
+                with span("model.align"):
+                    aux_loss, imagine_embeds = model.align_with_contrastive_loss(
+                        txt_embeds, ep.txt_mask, imagine_embeds,
+                        ep.imagine_mask, ep.np_weights, drop, shard=shard)
 
-    st = envx.reset(tables, ep, T)
-    obs = envx.observe_duet(tables, ep, st, mcfg.angle_feat_size)
-    gm = G.gmap_init(B, Gcap, tables.max_nodes, H, dev)
-    gm = _grow_map(tables, ep, gm, st, obs,
-                   torch.ones((B,), dtype=torch.bool, device=dev), shard)
-    path = torch.zeros((B, path_buffer_len(cfg) + 1), dtype=torch.int32,
-                       device=dev)
-    path[:, 0] = ep.start_node
-    plen = torch.ones((B,), dtype=torch.int32, device=dev)
+        with span("env.reset"):
+            st = envx.reset(tables, ep, T)
+            obs = envx.observe_duet(tables, ep, st, mcfg.angle_feat_size)
+            path = torch.zeros((B, path_buffer_len(cfg) + 1),
+                               dtype=torch.int32, device=dev)
+            path[:, 0] = ep.start_node
+            plen = torch.ones((B,), dtype=torch.int32, device=dev)
+            if need_dtw:
+                dtw_row = envx.dtw_init(tables, ep)
+            if train_rl:
+                last_dist = envx.distance_to_goal(tables, ep, st.node)
+                last_ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
+        with span("map.grow"):
+            gm = G.gmap_init(B, Gcap, tables.max_nodes, H, dev)
+            gm = _grow_map(tables, ep, gm, st, obs,
+                           torch.ones((B,), dtype=torch.bool, device=dev),
+                           shard)
     goal = ep.goal  # the gt path's last node
     dist_full = tables.dist
-    if need_dtw:
-        dtw_row = envx.dtw_init(tables, ep)
-    if train_rl:
-        last_dist = envx.distance_to_goal(tables, ep, st.node)
-        last_ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
 
     def dtw_extend(row, hop_nodes, hop_valid):
         """Fold the appended path nodes into the DTW row, hop by hop."""
@@ -297,286 +307,335 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
     ys = {k: [] for k in ("logp", "entropy", "state", "reward", "mask")}
     t = 0
     for t in range(T):
-        active = ~st.ended
-        gm = G.set_visited(gm, st.node, t, active)
+        spans.count("rollout.steps")
+        with span("rollout.step", step=t):
+            with span("map.visit"):
+                active = ~st.ended
+                gm = G.set_visited(gm, st.node, t, active)
 
-        pano = model.panorama_per_step(obs.img, obs.loc, obs.nav_types,
-                                       obs.valid, drop)
-        denom = torch.clamp(obs.valid.sum(dim=1, keepdim=True), min=1)
-        avg_pano = torch.sum(pano * obs.valid[:, :, None], dim=1) / denom
-        gm = G.update_embeds(gm, st.node, avg_pano, obs.cand_nodes,
-                             pano[:, :K], obs.cand_valid, active)
+            with span("model.panorama"):
+                pano = model.panorama_per_step(obs.img, obs.loc, obs.nav_types,
+                                               obs.valid, drop)
+                denom = torch.clamp(obs.valid.sum(dim=1, keepdim=True), min=1)
+                avg_pano = (torch.sum(pano * obs.valid[:, :, None], dim=1)
+                            / denom)
+            with span("map.update"):
+                gm = G.update_embeds(gm, st.node, avg_pano, obs.cand_nodes,
+                                     pano[:, :K], obs.cand_valid, active)
 
-        # ---------------- model inputs ([stop] + gmap slots)
-        gvalid_s = gm.valid()[:, :Gcap]
-        gnodes = gm.node_ids[:, :Gcap]
-        cur_slot = G._slot(gm, st.node[:, None])[:, 0].long()
-        if tcfg.act_visited_nodes:
-            # only the CURRENT node counts as visited (agent.py:107-122);
-            # the reference feeds this same mask to the expert and to the
-            # forced stop (no_vp_left) below, not the true visited set
-            act_visited_s = (g_ar[None, :] == cur_slot[:, None]) & gvalid_s
-        else:
-            act_visited_s = gm.visited[:, :Gcap] & gvalid_s
-        ones_b = torch.ones((B, 1), dtype=torch.bool, device=dev)
-        gmap_img = F.pad(G.node_embeds(gm)[:, :Gcap].to(pano.dtype),
-                         (0, 0, 1, 0))
-        gmap_step_ids = F.pad(gm.step_ids[:, :Gcap], (1, 0))
-        gmap_valid = torch.cat([ones_b, gvalid_s], dim=1)
-        gmap_visited = F.pad(act_visited_s, (1, 0))
+            # ---------------- model inputs ([stop] + gmap slots)
+            with span("map.inputs"):
+                gvalid_s = gm.valid()[:, :Gcap]
+                gnodes = gm.node_ids[:, :Gcap]
+                cur_slot = G._slot(gm, st.node[:, None])[:, 0].long()
+                if tcfg.act_visited_nodes:
+                    # only the CURRENT node counts as visited
+                    # (agent.py:107-122); the reference feeds this same mask
+                    # to the expert and to the forced stop (no_vp_left)
+                    # below, not the true visited set
+                    act_visited_s = ((g_ar[None, :] == cur_slot[:, None])
+                                     & gvalid_s)
+                else:
+                    act_visited_s = gm.visited[:, :Gcap] & gvalid_s
+                ones_b = torch.ones((B, 1), dtype=torch.bool, device=dev)
+                gmap_img = F.pad(G.node_embeds(gm)[:, :Gcap].to(pano.dtype),
+                                 (0, 0, 1, 0))
+                gmap_step_ids = F.pad(gm.step_ids[:, :Gcap], (1, 0))
+                gmap_valid = torch.cat([ones_b, gvalid_s], dim=1)
+                gmap_visited = F.pad(act_visited_s, (1, 0))
 
-        cur_heading = view_heading(st.view_index, tables.views)
-        cur_elev = view_elevation(st.view_index, tables.views)
-        obs_dist, obs_hops = _obs_dist_hops(gm, b_idx, cur_slot,
-                                            g_ar[None, :].expand(B, Gcap))
-        gpos = envx.rel_pos_features(tables, ep, st.node, cur_heading,
-                                     cur_elev, gnodes, obs_dist, obs_hops,
-                                     mcfg.angle_feat_size)
-        gmap_pos = F.pad(gpos * gvalid_s[:, :, None], (0, 0, 1, 0))
-        gmap_pair = F.pad(G.pair_dists(gm)[:, :Gcap, :Gcap], (1, 0, 1, 0))
+                cur_heading = view_heading(st.view_index, tables.views)
+                cur_elev = view_elevation(st.view_index, tables.views)
+                obs_dist, obs_hops = _obs_dist_hops(
+                    gm, b_idx, cur_slot, g_ar[None, :].expand(B, Gcap))
+                gpos = envx.rel_pos_features(tables, ep, st.node, cur_heading,
+                                             cur_elev, gnodes, obs_dist,
+                                             obs_hops, mcfg.angle_feat_size)
+                gmap_pos = F.pad(gpos * gvalid_s[:, :, None], (0, 0, 1, 0))
+                gmap_pair = F.pad(G.pair_dists(gm)[:, :Gcap, :Gcap],
+                                  (1, 0, 1, 0))
 
-        # local vp branch: [stop] + pano tokens (agent.py:173-207)
-        Tp = pano.shape[1]
-        vp_img = F.pad(pano, (0, 0, 1, 0))
-        start7 = _vp_pos7(tables, ep, st.node, cur_heading, cur_elev,
-                          ep.start_node[:, None], gm, b_idx, mcfg)[:, 0]
-        cand7 = _vp_pos7(tables, ep, st.node, cur_heading, cur_elev,
-                         obs.cand_nodes, gm, b_idx, mcfg)
-        cand7 = F.pad(cand7 * obs.cand_valid[:, :, None], (0, 0, 1, Tp - K))
-        vp_pos = torch.cat([start7[:, None, :].expand(B, Tp + 1, 7), cand7],
-                           dim=-1)
-        vp_valid = torch.cat([ones_b, obs.valid], dim=1)
-        vp_nav_valid = torch.cat([ones_b, obs.nav_types == 1], dim=1)
+                # local vp branch: [stop] + pano tokens (agent.py:173-207)
+                Tp = pano.shape[1]
+                vp_img = F.pad(pano, (0, 0, 1, 0))
+                start7 = _vp_pos7(tables, ep, st.node, cur_heading, cur_elev,
+                                  ep.start_node[:, None], gm, b_idx, mcfg)[:, 0]
+                cand7 = _vp_pos7(tables, ep, st.node, cur_heading, cur_elev,
+                                 obs.cand_nodes, gm, b_idx, mcfg)
+                cand7 = F.pad(cand7 * obs.cand_valid[:, :, None],
+                              (0, 0, 1, Tp - K))
+                vp_pos = torch.cat([start7[:, None, :].expand(B, Tp + 1, 7),
+                                    cand7], dim=-1)
+                vp_valid = torch.cat([ones_b, obs.valid], dim=1)
+                vp_nav_valid = torch.cat([ones_b, obs.nav_types == 1], dim=1)
 
-        # candidate (vp token j>0) <-> gmap slot matching
-        cand_slot = G._slot(gm, obs.cand_nodes.clamp(min=0))          # [B, K]
-        c2g = ((g_ar[None, :, None] == cand_slot[:, None, :])
-               & obs.cand_valid[:, None, :] & (cand_slot >= 0)[:, None, :])
-        cand_to_gmap = F.pad(c2g, (1, Tp - K, 1, 0))
-        vp_obj_valid = (F.pad(obs.nav_types == 2, (1, 0)) if use_obj
-                        else None)
+                # candidate (vp token j>0) <-> gmap slot matching
+                cand_slot = G._slot(gm, obs.cand_nodes.clamp(min=0))  # [B, K]
+                c2g = ((g_ar[None, :, None] == cand_slot[:, None, :])
+                       & obs.cand_valid[:, None, :]
+                       & (cand_slot >= 0)[:, None, :])
+                cand_to_gmap = F.pad(c2g, (1, Tp - K, 1, 0))
+                vp_obj_valid = (F.pad(obs.nav_types == 2, (1, 0)) if use_obj
+                                else None)
 
-        out = model.navigation_per_step(
-            txt_embeds, ep.txt_mask, gmap_img, gmap_step_ids, gmap_pos,
-            gmap_valid, gmap_pair, gmap_visited, vp_img, vp_pos, vp_valid,
-            vp_nav_valid, cand_to_gmap, imagine_embeds=imagine_embeds,
-            imagine_mask=ep.imagine_mask, vp_obj_valid=vp_obj_valid, rng=drop)
-        if use_obj:
-            # object grounding (reverie agent `_teacher_object` + og
-            # logits): the best object of the current node, and the CE
-            # against the target object where it is visible
-            obj_tok0 = 1 + K + tables.views  # first object token in vp seq
-            obj_lg = out.obj_logits[:, obj_tok0:obj_tok0 + Ko]
-            best_id = envx._take(obs.obj_ids, torch.argmax(obj_lg, dim=1))
-            store = torch.where(active, cur_slot, gm.trash)
-            node_obj = node_obj.index_put(
-                (b_idx, store), torch.where(store == gm.trash,
-                                            node_obj[:, -1], best_id))
-            if train_ml is not None:
-                gt_match = ((obs.obj_ids == ep.gt_obj_id[:, None])
-                            & obs.obj_valid)
-                og_logp = torch.log_softmax(torch.where(
-                    obs.obj_valid, obj_lg, LOGIT_NEG_INF).float(), dim=-1)
-                gt_k = torch.argmax(gt_match.to(torch.int32), dim=1)
-                og_ce = -og_logp.gather(1, gt_k[:, None])[:, 0]
-                og_acc = og_acc + torch.sum(
-                    torch.where(active & gt_match.any(1), og_ce, 0.0))
-        nav_logits = (out.local_logits if local
-                      else out.global_logits if mcfg.fusion == "global"
-                      else out.fused_logits)
+            with span("model.navigation"):
+                out = model.navigation_per_step(
+                    txt_embeds, ep.txt_mask, gmap_img, gmap_step_ids, gmap_pos,
+                    gmap_valid, gmap_pair, gmap_visited, vp_img, vp_pos,
+                    vp_valid, vp_nav_valid, cand_to_gmap,
+                    imagine_embeds=imagine_embeds,
+                    imagine_mask=ep.imagine_mask, vp_obj_valid=vp_obj_valid,
+                    rng=drop)
+                if use_obj:
+                    # object grounding (reverie agent `_teacher_object` + og
+                    # logits): the best object of the current node, and the
+                    # CE against the target object where it is visible
+                    obj_tok0 = 1 + K + tables.views  # first object token
+                    obj_lg = out.obj_logits[:, obj_tok0:obj_tok0 + Ko]
+                    best_id = envx._take(obs.obj_ids,
+                                         torch.argmax(obj_lg, dim=1))
+                    store = torch.where(active, cur_slot, gm.trash)
+                    node_obj = node_obj.index_put(
+                        (b_idx, store), torch.where(store == gm.trash,
+                                                    node_obj[:, -1], best_id))
+                    if train_ml is not None:
+                        gt_match = ((obs.obj_ids == ep.gt_obj_id[:, None])
+                                    & obs.obj_valid)
+                        og_logp = torch.log_softmax(torch.where(
+                            obs.obj_valid, obj_lg, LOGIT_NEG_INF).float(),
+                            dim=-1)
+                        gt_k = torch.argmax(gt_match.to(torch.int32), dim=1)
+                        og_ce = -og_logp.gather(1, gt_k[:, None])[:, 0]
+                        og_acc = og_acc + torch.sum(
+                            torch.where(active & gt_match.any(1), og_ce, 0.0))
+                nav_logits = (out.local_logits if local
+                              else out.global_logits if mcfg.fusion == "global"
+                              else out.fused_logits)
 
-        # the stop score at the current node (agent.py:515-520)
-        probs = torch.softmax(nav_logits.detach().float(), dim=-1)
-        stop_tgt = torch.where(active, cur_slot, gm.trash)
-        gm = gm.replace(stop_scores=gm.stop_scores.index_put(
-            (b_idx, stop_tgt), torch.where(stop_tgt == gm.trash,
-                                           gm.stop_scores[:, -1], probs[:, 0])))
+            with span("policy.select"):
+                # the stop score at the current node (agent.py:515-520)
+                probs = torch.softmax(nav_logits.detach().float(), dim=-1)
+                stop_tgt = torch.where(active, cur_slot, gm.trash)
+                gm = gm.replace(stop_scores=gm.stop_scores.index_put(
+                    (b_idx, stop_tgt),
+                    torch.where(stop_tgt == gm.trash, gm.stop_scores[:, -1],
+                                probs[:, 0])))
 
-        # ---------------- teacher (agent.py:241-287, _teacher_action_r4r):
-        # map slots j-1, or under fusion 'local' candidate tokens j-1
-        no_vp_left = ~torch.any(gvalid_s & ~act_visited_s, dim=1)
-        teacher = None  # greedy eval and the RL rollout read no teacher
-        if feedback == "teacher":
-            tgt_node = ep.gt_path[:, min(t + 1, ep.gt_path.shape[1] - 1)]
-            nodes, ok = ((obs.cand_nodes, obs.cand_valid) if local
-                         else (gnodes, gvalid_s))
-            match = (nodes == tgt_node[:, None]) & ok
-            slot = torch.argmax(match.to(torch.int32), dim=1) + 1
-            # a missing target means the map buffer overflowed: ignore it
-            teacher = torch.where(t >= ep.gt_len - 1, 0,
-                                  torch.where(match.any(dim=1), slot, ignore))
-        elif expert:
-            nodes, ok = ((obs.cand_nodes, obs.cand_valid) if local
-                         else (gnodes, gvalid_s & ~act_visited_s))
-            if ndtw_expert:
-                rows = dtw_row[:, None, :].expand(B, nodes.shape[1], -1)
-                if local:  # one step to each candidate
-                    rows = envx.dtw_push_multi(tables, ep, rows, nodes)
-                else:  # along the full-graph shortest path to each node
-                    rows = _expert_rows(tables, ep, rows, st.node, nodes)
-                cost = -envx.dtw_ndtw_multi(rows, ep, ecfg.error_margin)
-            else:  # 'spl'
-                cost = (dist_full[scan[:, None], nodes.long(),
-                                  goal.long()[:, None]]
-                        + dist_full[scan[:, None], st.node.long()[:, None],
-                                    nodes.long()])
-            cost = torch.where(ok, cost, INF)
-            slot = torch.argmin(cost, dim=1) + 1
-            teacher = torch.where(st.node == goal, 0,
-                                  torch.where(ok.any(dim=1), slot, ignore))
-        if teacher is not None:
-            teacher = torch.where(st.ended, ignore, teacher).to(torch.int32)
+                # ------------ teacher (agent.py:241-287,
+                # _teacher_action_r4r): map slots j-1, or under fusion
+                # 'local' candidate tokens j-1
+                no_vp_left = ~torch.any(gvalid_s & ~act_visited_s, dim=1)
+                teacher = None  # greedy eval and RL rollouts read no teacher
+                if feedback == "teacher":
+                    tgt_node = ep.gt_path[:, min(t + 1, ep.gt_path.shape[1] - 1)]
+                    nodes, ok = ((obs.cand_nodes, obs.cand_valid) if local
+                                 else (gnodes, gvalid_s))
+                    match = (nodes == tgt_node[:, None]) & ok
+                    slot = torch.argmax(match.to(torch.int32), dim=1) + 1
+                    # a missing target means the map buffer overflowed:
+                    # ignore it
+                    teacher = torch.where(
+                        t >= ep.gt_len - 1, 0,
+                        torch.where(match.any(dim=1), slot, ignore))
+                elif expert:
+                    nodes, ok = ((obs.cand_nodes, obs.cand_valid) if local
+                                 else (gnodes, gvalid_s & ~act_visited_s))
+                    if ndtw_expert:
+                        rows = dtw_row[:, None, :].expand(B, nodes.shape[1], -1)
+                        if local:  # one step to each candidate
+                            rows = envx.dtw_push_multi(tables, ep, rows, nodes)
+                        else:  # along the full-graph shortest path to each
+                            rows = _expert_rows(tables, ep, rows, st.node,
+                                                nodes)
+                        cost = -envx.dtw_ndtw_multi(rows, ep,
+                                                    ecfg.error_margin)
+                    else:  # 'spl'
+                        cost = (dist_full[scan[:, None], nodes.long(),
+                                          goal.long()[:, None]]
+                                + dist_full[scan[:, None],
+                                            st.node.long()[:, None],
+                                            nodes.long()])
+                    cost = torch.where(ok, cost, INF)
+                    slot = torch.argmin(cost, dim=1) + 1
+                    teacher = torch.where(
+                        st.node == goal, 0,
+                        torch.where(ok.any(dim=1), slot, ignore))
+                if teacher is not None:
+                    teacher = torch.where(st.ended, ignore,
+                                          teacher).to(torch.int32)
 
+                if train_ml is not None:
+                    logp = torch.log_softmax(nav_logits.float(), dim=-1)
+                    tgt = teacher.clamp(0, logp.shape[1] - 1).long()
+                    ce = -logp.gather(1, tgt[:, None])[:, 0]
+                    ml_acc = ml_acc + torch.sum(torch.where(teacher == ignore,
+                                                            0.0, ce))
+
+                # ------------ action selection (agent.py:545-575)
+                valid_act = (vp_nav_valid if local
+                             else gmap_valid & ~gmap_visited).clone()
+                valid_act[:, 0] = True
+                logp_a = ent = None
+                if feedback == "teacher":
+                    a_t = teacher
+                else:
+                    logp = torch.log_softmax(torch.where(
+                        valid_act, nav_logits, LOGIT_NEG_INF).float(), dim=-1)
+                    ent = -torch.sum(torch.where(valid_act, logp.exp() * logp,
+                                                 0.0), dim=-1)
+                    ent_acc = ent_acc + torch.sum(torch.where(st.ended, 0.0,
+                                                              ent))
+                    if feedback == "argmax":
+                        a_t = torch.argmax(logp, dim=-1)
+                    elif feedback == "sample":
+                        a_t = sample_categorical(logp, rng)
+                    else:  # 'expl_sample'
+                        explore = uniform_coin(B, rng) > tcfg.expl_max_ratio
+                        a_t = torch.where(explore,
+                                          sample_uniform(valid_act, rng),
+                                          torch.argmax(logp, dim=-1))
+                    a_t = a_t.to(torch.int32)
+                    logp_a = logp.gather(1, a_t.long()[:, None])[:, 0]
+
+                # stop rule (agent.py:570-575): training stops at the gt
+                # goal, inference (and A2C, 'expl_sample') on the predicted
+                # stop.  A sampled stop away from the goal ends the episode
+                # in place, with no stop-score backtrack (agent.py:584,610)
+                if train_rl or feedback not in ("teacher", "sample"):
+                    a_t_stop = a_t == 0
+                    end_in_place = torch.zeros_like(a_t_stop)
+                else:
+                    a_t_stop = st.node == goal
+                    end_in_place = ((a_t == 0) & ~a_t_stop
+                                    if feedback == "sample"
+                                    else torch.zeros_like(a_t_stop))
+                stop_now = (a_t_stop | st.ended | no_vp_left | (a_t == ignore)
+                            | end_in_place)
+                if t == T - 1:
+                    stop_now = torch.ones_like(stop_now)
+                just_ended = stop_now & ~st.ended
+
+                if local:  # a_t - 1 indexes the current candidates
+                    move_tgt = envx._take(obs.cand_nodes,
+                                          torch.clamp(a_t - 1, 0, K - 1))
+                else:
+                    move_tgt = envx._take(gnodes,
+                                          torch.clamp(a_t - 1, 0, Gcap - 1))
+                tgt_node = torch.where(stop_now, st.node, move_tgt)
+
+            with span("map.path"):
+                # ------------ teleport along the observed path
+                # (agent.py:289-305)
+                hop_nodes, hop_valid = G.follow_path(gm, st.node, tgt_node,
+                                                     MAX_TELEPORT_HOPS)
+                moving = ~stop_now & ~st.ended
+                hop_nodes, hop_valid = _fix_endpoint(
+                    hop_nodes, hop_valid & moving[:, None], tgt_node, moving)
+                path, plen = _append_path(path, plen, hop_nodes, hop_valid)
+                if need_dtw:
+                    dtw_row = dtw_extend(dtw_row, hop_nodes, hop_valid)
+
+                n_hops = hop_valid.sum(dim=1)
+                prev_node = torch.where(
+                    n_hops >= 2,
+                    envx._take(hop_nodes, torch.clamp(n_hops - 2, min=0)),
+                    st.node)
+                new_node = torch.where(moving, tgt_node, st.node)
+                # adopt the discretized view of the final approach edge
+                adj_prev = tables.adj[scan, prev_node.long()]
+                pid_prev = tables.cand_pointid[scan, prev_node.long()]
+                k_match = torch.argmax(
+                    (adj_prev == new_node[:, None]).to(torch.int32), dim=1)
+                new_view = torch.where(moving, envx._take(pid_prev, k_match),
+                                       st.view_index)
+
+                # ------------ stop-node backtrack for just-ended items
+                # (agent.py:588-601): jump to the visited node of highest
+                # stop score
+                scored = torch.where(gm.valid() & gm.visited, gm.stop_scores,
+                                     -torch.inf)
+                best_stop_slot = torch.argmax(scored, dim=1)
+                best_stop_node = envx._take(gm.node_ids, best_stop_slot)
+                has_score = torch.any(torch.isfinite(scored), dim=1)
+                do_back = (just_ended & ~end_in_place & has_score
+                           & (best_stop_node != st.node))
+                back_nodes, back_valid = G.follow_path(
+                    gm, st.node, best_stop_node, MAX_BACKTRACK_HOPS)
+                back_nodes, back_valid = _fix_endpoint(
+                    back_nodes, back_valid & do_back[:, None], best_stop_node,
+                    do_back)
+                path, plen = _append_path(path, plen, back_nodes, back_valid)
+                if need_dtw:
+                    dtw_row = dtw_extend(dtw_row, back_nodes, back_valid)
+                if use_obj:
+                    # the object of the node the item ends on: the
+                    # backtrack's target, else the current node
+                    final_slot = torch.where(
+                        has_score & just_ended & ~end_in_place,
+                        best_stop_slot, cur_slot)
+                    chosen = envx._take(node_obj,
+                                        final_slot.clamp(0, gm.trash))
+                    pred_obj = torch.where(just_ended, chosen, pred_obj)
+
+            with span("env.step"):
+                ended_pre = st.ended
+                st = st.replace(node=new_node, view_index=new_view,
+                                ended=st.ended | stop_now, step=st.step + 1)
+
+            if train_rl:
+                with span("env.reward"):
+                    # reward shaping on the node after the teleport, or after
+                    # the backtrack for just-ended items
+                    # (agent_cmt.py:615-653)
+                    eff_node = torch.where(do_back, best_stop_node, new_node)
+                    dist = dist_full[scan, eff_node.long(), goal.long()]
+                    ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
+                    ys["reward"].append(shaped_reward(
+                        dist, ndtw, last_dist, last_ndtw, just_ended,
+                        ended_pre))
+                    last_dist = torch.where(ended_pre, last_dist, dist)
+                    last_ndtw = torch.where(ended_pre, last_ndtw, ndtw)
+                    ys["mask"].append(torch.where(ended_pre, 0.0, 1.0))
+                    ys["logp"].append(logp_a)
+                    ys["entropy"].append(ent)
+                    ys["state"].append(out.gmap_embeds[:, 0]
+                                       * out.vp_embeds[:, 0])
+
+            # ------------ observe the new node, grow the graph
+            with span("env.observe"):
+                obs = envx.observe_duet(tables, ep, st, mcfg.angle_feat_size)
+            with span("map.grow"):
+                gm = _grow_map(tables, ep, gm, st, obs, ~st.ended)
+
+            if not early_exit:
+                logits_seq.append(nav_logits)
+                actions.append(a_t)
+            elif spans.host_read(st.ended.all()):  # one host sync per step
+                break
+
+    with span("rollout.epilogue"):
+        path = path.clone()
+        path[:, -1] = 0  # the trash column: a deterministic output
+        ml_loss = rl_loss = og_loss = zero
+        loss = mcfg.cosine_weight * aux_loss if mcfg.use_cosine_aux_loss else zero
+        n_items = B if shard is None else B * shard.size  # the global batch's
         if train_ml is not None:
-            logp = torch.log_softmax(nav_logits.float(), dim=-1)
-            tgt = teacher.clamp(0, logp.shape[1] - 1).long()
-            ce = -logp.gather(1, tgt[:, None])[:, 0]
-            ml_acc = ml_acc + torch.sum(torch.where(teacher == ignore, 0.0, ce))
-
-        # ---------------- action selection (agent.py:545-575)
-        valid_act = (vp_nav_valid if local
-                     else gmap_valid & ~gmap_visited).clone()
-        valid_act[:, 0] = True
-        logp_a = ent = None
-        if feedback == "teacher":
-            a_t = teacher
-        else:
-            logp = torch.log_softmax(torch.where(valid_act, nav_logits,
-                                                 LOGIT_NEG_INF).float(), dim=-1)
-            ent = -torch.sum(torch.where(valid_act, logp.exp() * logp, 0.0),
-                             dim=-1)
-            ent_acc = ent_acc + torch.sum(torch.where(st.ended, 0.0, ent))
-            if feedback == "argmax":
-                a_t = torch.argmax(logp, dim=-1)
-            elif feedback == "sample":
-                a_t = sample_categorical(logp, rng)
-            else:  # 'expl_sample'
-                explore = uniform_coin(B, rng) > tcfg.expl_max_ratio
-                a_t = torch.where(explore, sample_uniform(valid_act, rng),
-                                  torch.argmax(logp, dim=-1))
-            a_t = a_t.to(torch.int32)
-            logp_a = logp.gather(1, a_t.long()[:, None])[:, 0]
-
-        # stop rule (agent.py:570-575): training stops at the gt goal,
-        # inference (and A2C, 'expl_sample') on the predicted stop.  A sampled
-        # stop away from the goal ends the episode in place, with no
-        # stop-score backtrack (agent.py:584,610)
-        if train_rl or feedback not in ("teacher", "sample"):
-            a_t_stop = a_t == 0
-            end_in_place = torch.zeros_like(a_t_stop)
-        else:
-            a_t_stop = st.node == goal
-            end_in_place = ((a_t == 0) & ~a_t_stop if feedback == "sample"
-                            else torch.zeros_like(a_t_stop))
-        stop_now = (a_t_stop | st.ended | no_vp_left | (a_t == ignore)
-                    | end_in_place)
-        if t == T - 1:
-            stop_now = torch.ones_like(stop_now)
-        just_ended = stop_now & ~st.ended
-
-        if local:  # a_t - 1 indexes the current candidates
-            move_tgt = envx._take(obs.cand_nodes, torch.clamp(a_t - 1, 0, K - 1))
-        else:
-            move_tgt = envx._take(gnodes, torch.clamp(a_t - 1, 0, Gcap - 1))
-        tgt_node = torch.where(stop_now, st.node, move_tgt)
-
-        # ---------------- teleport along the observed path (agent.py:289-305)
-        hop_nodes, hop_valid = G.follow_path(gm, st.node, tgt_node,
-                                             MAX_TELEPORT_HOPS)
-        moving = ~stop_now & ~st.ended
-        hop_nodes, hop_valid = _fix_endpoint(
-            hop_nodes, hop_valid & moving[:, None], tgt_node, moving)
-        path, plen = _append_path(path, plen, hop_nodes, hop_valid)
-        if need_dtw:
-            dtw_row = dtw_extend(dtw_row, hop_nodes, hop_valid)
-
-        n_hops = hop_valid.sum(dim=1)
-        prev_node = torch.where(
-            n_hops >= 2, envx._take(hop_nodes, torch.clamp(n_hops - 2, min=0)),
-            st.node)
-        new_node = torch.where(moving, tgt_node, st.node)
-        # adopt the discretized view of the final approach edge
-        adj_prev = tables.adj[scan, prev_node.long()]
-        pid_prev = tables.cand_pointid[scan, prev_node.long()]
-        k_match = torch.argmax((adj_prev == new_node[:, None]).to(torch.int32),
-                               dim=1)
-        new_view = torch.where(moving, envx._take(pid_prev, k_match),
-                               st.view_index)
-
-        # ---------------- stop-node backtrack for just-ended items
-        # (agent.py:588-601): jump to the visited node of highest stop score
-        scored = torch.where(gm.valid() & gm.visited, gm.stop_scores, -torch.inf)
-        best_stop_slot = torch.argmax(scored, dim=1)
-        best_stop_node = envx._take(gm.node_ids, best_stop_slot)
-        has_score = torch.any(torch.isfinite(scored), dim=1)
-        do_back = (just_ended & ~end_in_place & has_score
-                   & (best_stop_node != st.node))
-        back_nodes, back_valid = G.follow_path(gm, st.node, best_stop_node,
-                                               MAX_BACKTRACK_HOPS)
-        back_nodes, back_valid = _fix_endpoint(
-            back_nodes, back_valid & do_back[:, None], best_stop_node, do_back)
-        path, plen = _append_path(path, plen, back_nodes, back_valid)
-        if need_dtw:
-            dtw_row = dtw_extend(dtw_row, back_nodes, back_valid)
-        if use_obj:
-            # the object of the node the item ends on: the backtrack's
-            # target, else the current node
-            final_slot = torch.where(has_score & just_ended & ~end_in_place,
-                                     best_stop_slot, cur_slot)
-            chosen = envx._take(node_obj, final_slot.clamp(0, gm.trash))
-            pred_obj = torch.where(just_ended, chosen, pred_obj)
-
-        ended_pre = st.ended
-        st = st.replace(node=new_node, view_index=new_view,
-                        ended=st.ended | stop_now, step=st.step + 1)
-
+            ml_loss = ml_acc * train_ml / n_items
+            loss = loss + ml_loss
+            if use_obj:
+                og_loss = og_acc * train_ml / n_items
+                loss = loss + og_loss
         if train_rl:
-            # reward shaping on the node after the teleport, or after the
-            # backtrack for just-ended items (agent_cmt.py:615-653)
-            eff_node = torch.where(do_back, best_stop_node, new_node)
-            dist = dist_full[scan, eff_node.long(), goal.long()]
-            ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
-            ys["reward"].append(shaped_reward(dist, ndtw, last_dist, last_ndtw,
-                                              just_ended, ended_pre))
-            last_dist = torch.where(ended_pre, last_dist, dist)
-            last_ndtw = torch.where(ended_pre, last_ndtw, ndtw)
-            ys["mask"].append(torch.where(ended_pre, 0.0, 1.0))
-            ys["logp"].append(logp_a)
-            ys["entropy"].append(ent)
-            ys["state"].append(out.gmap_embeds[:, 0] * out.vp_embeds[:, 0])
-
-        # ---------------- observe the new node, grow the graph
-        obs = envx.observe_duet(tables, ep, st, mcfg.angle_feat_size)
-        gm = _grow_map(tables, ep, gm, st, obs, ~st.ended)
-
-        if not early_exit:
-            logits_seq.append(nav_logits)
-            actions.append(a_t)
-        elif bool(st.ended.all()):  # one host sync per step
-            break
-
-    path = path.clone()
-    path[:, -1] = 0  # the trash column: a deterministic output
-    ml_loss = rl_loss = og_loss = zero
-    loss = mcfg.cosine_weight * aux_loss if mcfg.use_cosine_aux_loss else zero
-    n_items = B if shard is None else B * shard.size  # the global batch's
-    if train_ml is not None:
-        ml_loss = ml_acc * train_ml / n_items
-        loss = loss + ml_loss
-        if use_obj:
-            og_loss = og_acc * train_ml / n_items
-            loss = loss + og_loss
-    if train_rl:
-        # every item ends by T-1, so the return after the last step is 0
-        states = torch.stack(ys["state"]).float()              # [T, B, H]
-        values = critic(states, drop, batch_dim=1).float()     # [T, B]
-        # the entropy bonus only under 'sample' (not 'expl_sample')
-        rl_loss = a2c_loss(
-            values, torch.stack(ys["reward"]), torch.stack(ys["mask"]),
-            torch.stack(ys["logp"]),
-            torch.stack(ys["entropy"]) if feedback == "sample" else None,
-            torch.zeros((B,), device=dev), tcfg, n_items, shard)
-        loss = loss + rl_loss
+            # every item ends by T-1, so the return after the last step is 0
+            states = torch.stack(ys["state"]).float()              # [T, B, H]
+            values = critic(states, drop, batch_dim=1).float()     # [T, B]
+            # the entropy bonus only under 'sample' (not 'expl_sample')
+            rl_loss = a2c_loss(
+                values, torch.stack(ys["reward"]), torch.stack(ys["mask"]),
+                torch.stack(ys["logp"]),
+                torch.stack(ys["entropy"]) if feedback == "sample" else None,
+                torch.zeros((B,), device=dev), tcfg, n_items, shard)
+            loss = loss + rl_loss
     return DuetRolloutResult(
         loss=loss, ml_loss=ml_loss, aux_loss=aux_loss, path_nodes=path,
         path_len=plen,
@@ -623,8 +682,9 @@ def make_eval_fn(model: DuetModel, tables: WorldTables, cfg: Config,
     use_obj = cfg.model.obj_feat_size > 0 and tables.obj_feat is not None
 
     def eval_fn(ep: EpisodeBatch):
-        res = rollout_duet(model, tables, ep.to(dev), cfg, early_exit=True,
-                           shard=shard)
+        with span("eval.call"):
+            res = rollout_duet(model, tables, ep.to(dev), cfg, early_exit=True,
+                               shard=shard)
         eval_fn.steps = res.steps
         out = (res.path_nodes, res.path_len)
         if use_obj:

@@ -64,6 +64,8 @@ from vln_imagine_tpu_torch.ops.dropout import Rng
 from vln_imagine_tpu_torch.ops.masks import LOGIT_NEG_INF
 from vln_imagine_tpu_torch.parallel.mesh import DataShard, global_sum
 from vln_imagine_tpu_torch.platform import resolve_device
+from vln_imagine_tpu_torch.utils import spans
+from vln_imagine_tpu_torch.utils.spans import span
 
 
 class RolloutResult(NamedTuple):
@@ -240,51 +242,64 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
     shortest = cfg.dataset == "cvdn"
 
     # ---- per-episode prologue (once; agent_cmt.py:392-496) -----------------
-    txt_embeds = model.language(ep.txt_ids, ep.txt_mask, drop)
-    aux_loss = zero
-    imagine_embeds = None
-    if mcfg.imagine_enc_pano:
-        imagine_embeds = model.imagine(imagination_input(ep, mcfg),
-                                       ep.imagine_mask, drop)
-        if mcfg.use_cosine_aux_loss:
-            # a fused batch: each half normalised alone, negatives from its
-            # own half (one alignment call per rollout in the reference)
-            groups = None if il_m is None else (~il_m).to(torch.int32)
-            aux_loss, imagine_embeds = model.align_with_contrastive_loss(
-                txt_embeds, ep.txt_mask, imagine_embeds, ep.imagine_mask,
-                ep.np_weights, drop, groups=groups, shard=shard)
+    with span("rollout.prologue"):
+        with span("model.language"):
+            txt_embeds = model.language(ep.txt_ids, ep.txt_mask, drop)
+        aux_loss = zero
+        imagine_embeds = None
+        if mcfg.imagine_enc_pano:
+            with span("model.imagine"):
+                imagine_embeds = model.imagine(imagination_input(ep, mcfg),
+                                               ep.imagine_mask, drop)
+            if mcfg.use_cosine_aux_loss:
+                # a fused batch: each half normalised alone, negatives from
+                # its own half (one alignment call per rollout in the
+                # reference)
+                groups = None if il_m is None else (~il_m).to(torch.int32)
+                with span("model.align"):
+                    aux_loss, imagine_embeds = model.align_with_contrastive_loss(
+                        txt_embeds, ep.txt_mask, imagine_embeds,
+                        ep.imagine_mask, ep.np_weights, drop, groups=groups,
+                        shard=shard)
 
-    h0 = model.history_initial(B, drop)
-    hist_buf = torch.zeros((B, T + 1, mcfg.hidden_size), dtype=h0.dtype,
-                           device=dev)
-    hist_buf[:, 0] = h0
-    hist_len = torch.ones((B,), dtype=torch.int32, device=dev)
-    slots = torch.arange(T + 1, device=dev)
+        with span("model.history"):
+            h0 = model.history_initial(B, drop)
+            hist_buf = torch.zeros((B, T + 1, mcfg.hidden_size),
+                                   dtype=h0.dtype, device=dev)
+            hist_buf[:, 0] = h0
+            hist_len = torch.ones((B,), dtype=torch.int32, device=dev)
+            slots = torch.arange(T + 1, device=dev)
 
-    st = envx.reset(tables, ep, T)
-    if train_rl:
-        dtw_row = envx.dtw_init(tables, ep)
-        last_dist = (tables.dist[scan, st.node.long(), ep.midstop.long()]
-                     if two_phase else envx.distance_to_goal(tables, ep, st.node))
-        last_ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
-    first_ended = torch.zeros((B,), dtype=torch.bool, device=dev)
-    midstop_pred = torch.full((B,), -1, dtype=torch.int32, device=dev)
-    obj_pred = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        with span("env.reset"):
+            st = envx.reset(tables, ep, T)
+            if train_rl:
+                dtw_row = envx.dtw_init(tables, ep)
+                last_dist = (tables.dist[scan, st.node.long(),
+                                         ep.midstop.long()]
+                             if two_phase
+                             else envx.distance_to_goal(tables, ep, st.node))
+                last_ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
+            first_ended = torch.zeros((B,), dtype=torch.bool, device=dev)
+            midstop_pred = torch.full((B,), -1, dtype=torch.int32, device=dev)
+            obj_pred = torch.full((B,), -1, dtype=torch.int32, device=dev)
 
     def visual_forward(st, h_buf, h_len):
-        obs = envx.observe_hamt(tables, ep, st, mcfg.angle_feat_size)
-        if ecfg.ob_type == "cand":
-            # candidates + [STOP] only (agent_cmt.py:502 _candidate_variable)
-            obs = obs._replace(valid=obs.valid & (obs.nav_types != 0))
+        with span("env.observe"):
+            obs = envx.observe_hamt(tables, ep, st, mcfg.angle_feat_size)
+            if ecfg.ob_type == "cand":
+                # candidates + [STOP] only (agent_cmt.py:502
+                # _candidate_variable)
+                obs = obs._replace(valid=obs.valid & (obs.nav_types != 0))
         obj_kw = {}
         if use_obj:
             obj_kw = dict(obj_img_feats=obs.obj_img, obj_ang_feats=obs.obj_ang,
                           obj_valid=obs.obj_valid, obj_pos_feats=obs.obj_pos)
-        h_mask = slots[None, :] < h_len[:, None]
-        out = model.visual(txt_embeds, ep.txt_mask, h_buf, h_mask,
-                           obs.img, obs.ang, obs.nav_types, obs.valid,
-                           imagine_embeds=imagine_embeds,
-                           imagine_mask=ep.imagine_mask, rng=drop, **obj_kw)
+        with span("model.visual"):
+            h_mask = slots[None, :] < h_len[:, None]
+            out = model.visual(txt_embeds, ep.txt_mask, h_buf, h_mask,
+                               obs.img, obs.ang, obs.nav_types, obs.valid,
+                               imagine_embeds=imagine_embeds,
+                               imagine_mask=ep.imagine_mask, rng=drop, **obj_kw)
         return obs, out
 
     ml_acc = og_acc = ent_acc = zero
@@ -292,156 +307,181 @@ def _rollout(model, tables, ep, cfg, rng, drop, critic, feedback, train_ml,
                           "reward", "mask")}
     t = 0
     for t in range(T):
-        obs, out = visual_forward(st, hist_buf, hist_len)
-        act_logits = out.act_logits
-        teacher = (envx.teacher_hamt(tables, ep, st, t, ignore,
-                                     shortest_teacher=shortest)
-                   if feedback in ("teacher", "mixed") or train_ml is not None
-                   else None)
+        spans.count("rollout.steps")
+        with span("rollout.step", step=t):
+            obs, out = visual_forward(st, hist_buf, hist_len)
+            with span("policy.select"):
+                act_logits = out.act_logits
+                teacher = (envx.teacher_hamt(tables, ep, st, t, ignore,
+                                             shortest_teacher=shortest)
+                           if feedback in ("teacher", "mixed")
+                           or train_ml is not None else None)
 
-        # IL: summed CE with ignore index from the UNMASKED logits, as the
-        # reference computes ml_loss before the no_cand_backtrack masking
-        # (agent_cmt.py:547 vs :549-558)
+                # IL: summed CE with ignore index from the UNMASKED logits,
+                # as the reference computes ml_loss before the
+                # no_cand_backtrack masking (agent_cmt.py:547 vs :549-558)
+                if train_ml is not None:
+                    logp = torch.log_softmax(act_logits.float(), dim=-1)
+                    tgt = teacher.clamp(0, logp.shape[1] - 1).long()
+                    ce = -logp.gather(1, tgt[:, None])[:, 0]
+                    ce_skip = teacher == ignore
+                    if il_m is not None:
+                        ce_skip = ce_skip | ~il_m  # CE: the IL half only
+                    ml_acc = ml_acc + torch.sum(torch.where(ce_skip, 0.0, ce))
+
+                if tcfg.no_cand_backtrack:
+                    # mask candidates leading to already-visited nodes (incl.
+                    # the current one), agent_cmt.py:549-558; the [STOP] slot
+                    # stays open
+                    cand_nodes = tables.adj[ep.scan.long(), st.node.long()]
+                    cols = torch.arange(st.path_nodes.shape[1], device=dev)
+                    pos_ok = cols[None, :] < st.path_len[:, None]      # [B, P]
+                    bt = torch.any((st.path_nodes[:, None, :]
+                                    == cand_nodes[:, :, None])
+                                   & pos_ok[:, None, :], dim=-1)       # [B, K]
+                    bt_full = torch.nn.functional.pad(
+                        bt, (0, act_logits.shape[1] - K))
+                    act_logits = torch.where(bt_full, LOGIT_NEG_INF, act_logits)
+
+                a_t, logp_a, entropy = _select_action(
+                    act_logits, (obs.nav_types != 0) & obs.valid, teacher,
+                    feedback, rng, il_m)
+                if entropy is not None:
+                    ent_skip = st.ended if il_m is None else st.ended | il_m
+                    ent_acc = ent_acc + torch.sum(torch.where(ent_skip, 0.0,
+                                                              entropy))
+
+                # stop selected this step / the teacher says ignore (ended)
+                stop_sel = a_t == obs.stop_slot
+                if feedback in ("teacher", "mixed"):
+                    stop_sel = stop_sel | (a_t == ignore)
+                stop_sel = stop_sel & ~st.ended
+                is_stop = stop_sel | st.ended
+                a_env = torch.where(is_stop, K, a_t).to(torch.int32)
+
+                if use_obj:
+                    # ref CE when the teacher stops here (= at the goal
+                    # viewpoint, reverie/agent.py:150-158); the predicted
+                    # object is recorded the step the item stops, the forced
+                    # stop at T-1 included
+                    gt_match = ((obs.obj_ids == ep.gt_obj_id[:, None])
+                                & obs.obj_valid)
+                    og_logp = torch.log_softmax(torch.where(
+                        obs.obj_valid, out.obj_logits, LOGIT_NEG_INF).float(),
+                        dim=-1)
+                    if train_ml is not None:
+                        sup = ((teacher == obs.stop_slot) & ~st.ended
+                               & gt_match.any(1))
+                        if il_m is not None:
+                            sup = sup & il_m  # grounding CE: the IL half only
+                        gt_k = torch.argmax(gt_match.to(torch.int32), dim=1)
+                        og_ce = -og_logp.gather(1, gt_k[:, None])[:, 0]
+                        og_acc = og_acc + torch.sum(torch.where(sup, og_ce,
+                                                                0.0))
+                    best_id = envx._take(obs.obj_ids,
+                                         torch.argmax(og_logp, dim=1))
+                    stopping = stop_sel | ((t == T - 1) & ~st.ended)
+                    obj_pred = torch.where(stopping & obs.obj_valid.any(1),
+                                           best_id, obj_pred)
+                if two_phase:
+                    midstop_pred = torch.where(stop_sel & ~first_ended,
+                                               st.node, midstop_pred)
+
+            # history token for time t (appended before the env transition)
+            with span("env.history_inputs"):
+                hist_img, pano_img, pano_ang, prev_ang = envx.history_inputs(
+                    tables, ep, st, torch.where(is_stop, -1, a_env),
+                    mcfg.angle_feat_size)
+            with span("model.history"):
+                h_tok = model.history_step(hist_img, prev_ang, t, pano_img,
+                                           pano_ang, drop)
+                grow = ~st.ended  # just-stopped items still record one token
+                write = (slots[None, :] == hist_len[:, None]) & grow[:, None]
+                hist_buf = torch.where(write[:, :, None], h_tok[:, None, :],
+                                       hist_buf)
+                hist_len = torch.where(grow, hist_len + 1, hist_len)
+
+            with span("env.step"):
+                ended_pre = st.ended
+                st = envx.step_hamt(tables, ep, st, a_env)
+                if two_phase:
+                    # the first stop records the midstop and goes on
+                    # (:275-276)
+                    st = st.replace(ended=ended_pre | (stop_sel & first_ended))
+                moved = ~is_stop & ~ended_pre
+
+            if train_rl:
+                with span("env.reward"):
+                    # reward shaping on the updated pose
+                    # (agent_cmt.py:615-653); r2r_back targets the midstop
+                    # first, then the goal
+                    if two_phase:
+                        phase_goal = torch.where(first_ended, ep.goal,
+                                                 ep.midstop)
+                        dist = tables.dist[scan, st.node.long(),
+                                           phase_goal.long()]
+                    else:
+                        dist = envx.distance_to_goal(tables, ep, st.node)
+                    new_row = envx.dtw_push(tables, ep, dtw_row, st.node)
+                    dtw_row = torch.where(moved[:, None], new_row, dtw_row)
+                    ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
+                    reward = shaped_reward(dist, ndtw, last_dist, last_ndtw,
+                                           is_stop, ended_pre)
+                    if two_phase:
+                        # failing to reach the midstop ends the episode
+                        # (:252)
+                        st = st.replace(ended=st.ended | (
+                            stop_sel & ~first_ended & (dist >= 3.0)))
+                    last_dist = torch.where(ended_pre, last_dist, dist)
+                    last_ndtw = torch.where(moved, ndtw, last_ndtw)
+                    mask = torch.where(ended_pre, 0.0, 1.0)
+                    if il_m is not None:
+                        mask = mask * ~il_m  # RL terms: the sampled half only
+                    ys["reward"].append(reward)
+                    ys["mask"].append(mask)
+                    ys["logp"].append(logp_a)
+                    ys["entropy"].append(entropy)
+                    ys["state"].append(out.state)
+            first_ended = first_ended | stop_sel
+
+            if not early_exit:
+                ys["logits"].append(act_logits)
+                ys["actions"].append(a_t)
+            elif spans.host_read(st.ended.all()):  # one host sync per step
+                break
+
+    with span("rollout.epilogue"):
+        loss = (mcfg.cosine_weight * aux_loss if mcfg.use_cosine_aux_loss
+                else zero)
+        ml_loss = rl_loss = og_loss = zero
         if train_ml is not None:
-            logp = torch.log_softmax(act_logits.float(), dim=-1)
-            tgt = teacher.clamp(0, logp.shape[1] - 1).long()
-            ce = -logp.gather(1, tgt[:, None])[:, 0]
-            ce_skip = teacher == ignore
-            if il_m is not None:
-                ce_skip = ce_skip | ~il_m  # CE supervises the IL half only
-            ml_acc = ml_acc + torch.sum(torch.where(ce_skip, 0.0, ce))
-
-        if tcfg.no_cand_backtrack:
-            # mask candidates leading to already-visited nodes (incl. the
-            # current one), agent_cmt.py:549-558; the [STOP] slot stays open
-            cand_nodes = tables.adj[ep.scan.long(), st.node.long()]      # [B, K]
-            cols = torch.arange(st.path_nodes.shape[1], device=dev)
-            pos_ok = cols[None, :] < st.path_len[:, None]                # [B, P]
-            bt = torch.any((st.path_nodes[:, None, :] == cand_nodes[:, :, None])
-                           & pos_ok[:, None, :], dim=-1)                 # [B, K]
-            bt_full = torch.nn.functional.pad(bt, (0, act_logits.shape[1] - K))
-            act_logits = torch.where(bt_full, LOGIT_NEG_INF, act_logits)
-
-        a_t, logp_a, entropy = _select_action(
-            act_logits, (obs.nav_types != 0) & obs.valid, teacher, feedback,
-            rng, il_m)
-        if entropy is not None:
-            ent_skip = st.ended if il_m is None else st.ended | il_m
-            ent_acc = ent_acc + torch.sum(torch.where(ent_skip, 0.0, entropy))
-
-        # stop selected this step / the teacher says ignore (ended items)
-        stop_sel = a_t == obs.stop_slot
-        if feedback in ("teacher", "mixed"):
-            stop_sel = stop_sel | (a_t == ignore)
-        stop_sel = stop_sel & ~st.ended
-        is_stop = stop_sel | st.ended
-        a_env = torch.where(is_stop, K, a_t).to(torch.int32)
-
-        if use_obj:
-            # ref CE when the teacher stops here (= at the goal viewpoint,
-            # reverie/agent.py:150-158); the predicted object is recorded
-            # the step the item stops, the forced stop at T-1 included
-            gt_match = (obs.obj_ids == ep.gt_obj_id[:, None]) & obs.obj_valid
-            og_logp = torch.log_softmax(torch.where(
-                obs.obj_valid, out.obj_logits, LOGIT_NEG_INF).float(), dim=-1)
-            if train_ml is not None:
-                sup = (teacher == obs.stop_slot) & ~st.ended & gt_match.any(1)
-                if il_m is not None:
-                    sup = sup & il_m  # grounding CE covers the IL half only
-                gt_k = torch.argmax(gt_match.to(torch.int32), dim=1)
-                og_ce = -og_logp.gather(1, gt_k[:, None])[:, 0]
-                og_acc = og_acc + torch.sum(torch.where(sup, og_ce, 0.0))
-            best_id = envx._take(obs.obj_ids, torch.argmax(og_logp, dim=1))
-            stopping = stop_sel | ((t == T - 1) & ~st.ended)
-            obj_pred = torch.where(stopping & obs.obj_valid.any(1), best_id,
-                                   obj_pred)
-        if two_phase:
-            midstop_pred = torch.where(stop_sel & ~first_ended, st.node,
-                                       midstop_pred)
-
-        # history token for time t (appended before the env transition)
-        hist_img, pano_img, pano_ang, prev_ang = envx.history_inputs(
-            tables, ep, st, torch.where(is_stop, -1, a_env),
-            mcfg.angle_feat_size)
-        h_tok = model.history_step(hist_img, prev_ang, t, pano_img, pano_ang,
-                                   drop)
-        grow = ~st.ended  # just-stopped items still record one token
-        write = (slots[None, :] == hist_len[:, None]) & grow[:, None]
-        hist_buf = torch.where(write[:, :, None], h_tok[:, None, :], hist_buf)
-        hist_len = torch.where(grow, hist_len + 1, hist_len)
-
-        ended_pre = st.ended
-        st = envx.step_hamt(tables, ep, st, a_env)
-        if two_phase:
-            # the first stop records the midstop and goes on (:275-276)
-            st = st.replace(ended=ended_pre | (stop_sel & first_ended))
-        moved = ~is_stop & ~ended_pre
+            # per-rollout normalisation (agent_cmt.py:747): a fused batch's CE
+            # divides by the IL half's size; both over every rank
+            n_il = (n_items if il_m is None
+                    else torch.clamp(global_sum(il_m.sum(), shard), min=1))
+            ml_loss = ml_acc * train_ml / n_il
+            loss = loss + ml_loss
+            if use_obj:
+                # ref_loss / batch, unweighted by ml_weight
+                # (reverie/agent.py:449)
+                og_loss = og_acc / n_il
+                loss = loss + og_loss
 
         if train_rl:
-            # reward shaping on the updated pose (agent_cmt.py:615-653);
-            # r2r_back targets the midstop first, then the goal
-            if two_phase:
-                phase_goal = torch.where(first_ended, ep.goal, ep.midstop)
-                dist = tables.dist[scan, st.node.long(), phase_goal.long()]
-            else:
-                dist = envx.distance_to_goal(tables, ep, st.node)
-            new_row = envx.dtw_push(tables, ep, dtw_row, st.node)
-            dtw_row = torch.where(moved[:, None], new_row, dtw_row)
-            ndtw = envx.dtw_ndtw(dtw_row, ep, ecfg.error_margin)
-            reward = shaped_reward(dist, ndtw, last_dist, last_ndtw, is_stop,
-                                   ended_pre)
-            if two_phase:
-                # failing to reach the midstop ends the episode (:252)
-                st = st.replace(ended=st.ended
-                                | (stop_sel & ~first_ended & (dist >= 3.0)))
-            last_dist = torch.where(ended_pre, last_dist, dist)
-            last_ndtw = torch.where(moved, ndtw, last_ndtw)
-            mask = torch.where(ended_pre, 0.0, 1.0)
-            if il_m is not None:
-                mask = mask * ~il_m  # RL terms cover the sampled half only
-            ys["reward"].append(reward)
-            ys["mask"].append(mask)
-            ys["logp"].append(logp_a)
-            ys["entropy"].append(entropy)
-            ys["state"].append(out.state)
-        first_ended = first_ended | stop_sel
-
-        if not early_exit:
-            ys["logits"].append(act_logits)
-            ys["actions"].append(a_t)
-        elif bool(st.ended.all()):  # one host sync per step
-            break
-
-    loss = (mcfg.cosine_weight * aux_loss if mcfg.use_cosine_aux_loss
-            else zero)
-    ml_loss = rl_loss = og_loss = zero
-    if train_ml is not None:
-        # per-rollout normalisation (agent_cmt.py:747): a fused batch's CE
-        # divides by the IL half's size; both over every rank
-        n_il = (n_items if il_m is None
-                else torch.clamp(global_sum(il_m.sum(), shard), min=1))
-        ml_loss = ml_acc * train_ml / n_il
-        loss = loss + ml_loss
-        if use_obj:
-            # ref_loss / batch, unweighted by ml_weight (reverie/agent.py:449)
-            og_loss = og_acc / n_il
-            loss = loss + og_loss
-
-    if train_rl:
-        # the final state's value, under stop-gradient
-        with torch.no_grad():
-            _, last_out = visual_forward(st, hist_buf, hist_len)
-            last_value = critic(last_out.state, drop)
-        bootstrap = torch.where(st.ended, 0.0, last_value.float())
-        states = torch.stack(ys["state"])                    # [T, B, H]
-        values = critic(states, drop, batch_dim=1).float()   # [T, B]
-        n_rl = (n_items if il_m is None
-                else torch.clamp(global_sum((~il_m).sum(), shard), min=1))
-        rl_loss = a2c_loss(
-            values, torch.stack(ys["reward"]), torch.stack(ys["mask"]),
-            torch.stack(ys["logp"]), torch.stack(ys["entropy"]), bootstrap,
-            tcfg, n_rl, shard)
-        loss = loss + rl_loss
+            # the final state's value, under stop-gradient
+            with torch.no_grad():
+                _, last_out = visual_forward(st, hist_buf, hist_len)
+                last_value = critic(last_out.state, drop)
+            bootstrap = torch.where(st.ended, 0.0, last_value.float())
+            states = torch.stack(ys["state"])                    # [T, B, H]
+            values = critic(states, drop, batch_dim=1).float()   # [T, B]
+            n_rl = (n_items if il_m is None
+                    else torch.clamp(global_sum((~il_m).sum(), shard), min=1))
+            rl_loss = a2c_loss(
+                values, torch.stack(ys["reward"]), torch.stack(ys["mask"]),
+                torch.stack(ys["logp"]), torch.stack(ys["entropy"]), bootstrap,
+                tcfg, n_rl, shard)
+            loss = loss + rl_loss
 
     return RolloutResult(
         loss=loss, ml_loss=ml_loss, rl_loss=rl_loss, aux_loss=aux_loss,
@@ -466,7 +506,8 @@ def make_eval_fn(model: HamtModel, tables: WorldTables, cfg: Config,
     use_obj = cfg.model.obj_feat_size > 0 and tables.obj_feat is not None
 
     def eval_fn(ep: EpisodeBatch):
-        res = rollout_hamt(model, tables, ep.to(dev), cfg, early_exit=True)
+        with span("eval.call"):
+            res = rollout_hamt(model, tables, ep.to(dev), cfg, early_exit=True)
         eval_fn.steps = res.steps
         if use_obj:
             return res.path_nodes, res.path_len, res.pred_obj

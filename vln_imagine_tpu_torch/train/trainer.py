@@ -56,11 +56,14 @@ from vln_imagine_tpu_torch.train.optim import (
     warmup_variant4_optimizer,
 )
 from vln_imagine_tpu_torch.train.rollout_hamt import make_eval_fn, rollout_hamt
+from vln_imagine_tpu_torch.utils import spans
+from vln_imagine_tpu_torch.utils.spans import span
 
 # flax's lecun_normal: a normal truncated at +-2 std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
 
 
+@spans.spanned("setup.init_params")
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """flax's default initializers, drawn from `generator` in module order:
@@ -191,10 +194,16 @@ class HamtTrainer:
         shard = self.shard
 
         def run(ep, **kw):
-            return rollout_hamt(model, tables, ep, cfg, rng=rng, critic=critic,
-                                deterministic=False, shard=shard, **kw)
+            with span("train.rollout"):
+                return rollout_hamt(model, tables, ep, cfg, rng=rng,
+                                    critic=critic, deterministic=False,
+                                    shard=shard, **kw)
 
         def step(ep_il: EpisodeBatch, ep_rl: EpisodeBatch) -> dict:
+            with span("train.step"):
+                return _step(ep_il, ep_rl)
+
+        def _step(ep_il: EpisodeBatch, ep_rl: EpisodeBatch) -> dict:
             ep_il, ep_rl = ep_il.to(dev), ep_rl.to(dev)
             self.optimizer.zero_grad()
             self.critic_optimizer.zero_grad()
@@ -228,12 +237,14 @@ class HamtTrainer:
                 res = run(ep_rl, feedback="sample", train_rl=True)
                 loss = loss + res.loss
                 metrics.update(rl_loss=res.rl_loss, entropy=res.entropy_sum)
-            loss.backward()
-            if shard is not None:
-                shard.all_reduce_grads(self.optimizer.params()
-                                       + self.critic_optimizer.params())
-            metrics["grad_norm"] = self.optimizer.step()
-            self.critic_optimizer.step()
+            with span("train.backward"):
+                loss.backward()
+                if shard is not None:
+                    shard.all_reduce_grads(self.optimizer.params()
+                                           + self.critic_optimizer.params())
+            with span("optim.step"):
+                metrics["grad_norm"] = self.optimizer.step()
+                self.critic_optimizer.step()
             metrics["loss"] = loss
             return global_metrics({k: v.detach() for k, v in metrics.items()},
                                   shard)

@@ -46,6 +46,7 @@ from vln_imagine_tpu_torch.train.trainer import (
     init_params,
     model_optimizer,
 )
+from vln_imagine_tpu_torch.utils.spans import span
 
 
 class DuetTrainer:
@@ -117,10 +118,15 @@ class DuetTrainer:
         shard = self.shard
 
         def run(ep, **kw):
-            return rollout_duet(model, tables, ep, cfg, rng=rng,
-                                deterministic=False, shard=shard, **kw)
+            with span("train.rollout"):
+                return rollout_duet(model, tables, ep, cfg, rng=rng,
+                                    deterministic=False, shard=shard, **kw)
 
         def step(ep_il: EpisodeBatch, ep_student: EpisodeBatch) -> dict:
+            with span("train.step"):
+                return _step(ep_il, ep_student)
+
+        def _step(ep_il: EpisodeBatch, ep_student: EpisodeBatch) -> dict:
             ep_il, ep_student = ep_il.to(dev), ep_student.to(dev)
             self.optimizer.zero_grad()
             if self.critic is not None:
@@ -144,14 +150,17 @@ class DuetTrainer:
                           train_rl=True)
                 loss = loss + res.loss
                 metrics.update(rl_loss=res.rl_loss, entropy=res.entropy_sum)
-            loss.backward()
-            if shard is not None:
-                shard.all_reduce_grads(
-                    self.optimizer.params() + ([] if self.critic is None
-                                               else self.critic_optimizer.params()))
-            metrics["grad_norm"] = self.optimizer.step()
-            if self.critic is not None:
-                self.critic_optimizer.step()
+            with span("train.backward"):
+                loss.backward()
+                if shard is not None:
+                    shard.all_reduce_grads(
+                        self.optimizer.params()
+                        + ([] if self.critic is None
+                           else self.critic_optimizer.params()))
+            with span("optim.step"):
+                metrics["grad_norm"] = self.optimizer.step()
+                if self.critic is not None:
+                    self.critic_optimizer.step()
             metrics["loss"] = loss
             return global_metrics({k: v.detach() for k, v in metrics.items()},
                                   shard)

@@ -1,7 +1,7 @@
-"""Logging / profiling utilities.
+"""Logging utilities.
 
-Rebuild of the reference observability surface: record-file writer + Timer
-(VLN-HAMT/finetune_src/utils/logger.py:8-57), smoothed RunningMeter + LOGGER
+Rebuild of the reference observability surface: record-file writer
+(VLN-HAMT/finetune_src/utils/logger.py:8-25), smoothed RunningMeter + LOGGER
 (pretrain_src/utils/logger.py:20-94), training-args dump (main.py:142-143).
 TensorBoard scalars are written as JSONL (tensorboardX is not a dependency);
 each record is trivially importable into TB or any plotting stack.  The
@@ -13,7 +13,6 @@ from __future__ import annotations
 import json
 import os
 import time
-from collections import defaultdict
 from typing import Any
 
 
@@ -22,37 +21,6 @@ def write_to_record_file(data: str, path: str, verbose: bool = True):
         print(data)
     with open(path, "a") as f:
         f.write(data + "\n")
-
-
-class Timer:
-    """tic/toc accumulator (utils/logger.py:28-57)."""
-
-    def __init__(self):
-        self.culmulate: dict[str, float] = defaultdict(float)
-        self.start: dict[str, float] = {}
-        self.iteration = 0
-
-    def reset(self):
-        self.culmulate.clear()
-        self.start.clear()
-        self.iteration = 0
-
-    def tic(self, key: str):
-        self.start[key] = time.time()
-
-    def toc(self, key: str) -> float:
-        delta = time.time() - self.start[key]
-        self.culmulate[key] += delta
-        return delta
-
-    def step(self):
-        self.iteration += 1
-
-    def show(self) -> str:
-        total = sum(self.culmulate.values())
-        parts = [f"{k}: {v:.2f}s ({v / max(total, 1e-9):.0%})"
-                 for k, v in sorted(self.culmulate.items())]
-        return f"iter {self.iteration}, total {total:.2f}s | " + ", ".join(parts)
 
 
 class RunningMeter:
