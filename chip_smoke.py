@@ -10,7 +10,8 @@ JSON line and each starting with its own peak memory (`fresh_phase`); any
 failed check exits non-zero:
 
 1. build        compile every kernel source (`vln_imagine_tpu_torch/csrc/
-                attention_fwd.cu`: K1, K2; `attention_bwd.cu`: K3, K4) with
+                attention_fwd.cu`: K1, K2; `attention_bwd.cu`: K3, K4;
+                `layer_norm.cu`: the residual add and LayerNorm) with
                 nvcc for sm_90a into `build/kernels/`, one nvcc per source,
                 all started together, and load them.
 2. main_path    HAMT-Imagine greedy eval (`HamtTrainer.make_eval_step`) at the
@@ -240,7 +241,14 @@ failed check exits non-zero:
                 bitwise equal to those rows of the whole call; K2 and K3 on
                 heads [6, 12) at `head_offset` 6 (`head_offset_cases`: B 8,
                 67/67 and 200/97, bf16 and f32) bitwise equal to those heads
-                of the call on all 12.
+                of the call on all 12.  The LayerNorm kernel
+                (`csrc/layer_norm.cu`, no TPU counterpart) against the
+                plain chain it replaces at the eval cells' shapes
+                (`LAYER_NORM_CASES`: HAMT's step stream, bf16 x + f32
+                residual -> f32; DUET's map stream and text, bf16), timed
+                at the first two; its launches are counted on every path
+                beside the attention kernels' (`launches.layer_norm`), and
+                on the two eval paths every LayerNorm takes it.
                 Kernel, plain and library times
                 (CUDA-graph replays between CUDA events) beside the least
                 time the card could take.  Two K2 calls, and two K3 calls,
@@ -372,6 +380,14 @@ REPRESENTATIVE = {  # the summary line's case per kernel
     "attention_bwd": (8, 67, 67, "bfloat16", "mask"),
 }
 DROPOUT = 0.1  # attention_probs_dropout_prob of the released config
+# the LayerNorm kernel's cases, (rows, x dtype, residual dtype), H 768: the
+# B 512 eval cells' HAMT step stream (80 visual and text tokens a row of
+# the batch, bf16 x + f32 residual -> f32), DUET's map stream (98 tokens)
+# and text (200), bf16; the first two timed
+LAYER_NORM_CASES = [(512 * 80, "bfloat16", "float32"),
+                    (512 * 98, "bfloat16", "bfloat16"),
+                    (512 * 200, "bfloat16", "bfloat16")]
+LAYER_NORM_TIMED = 2
 
 
 T_START = time.perf_counter()
@@ -389,6 +405,24 @@ def check(ok: bool, what: str) -> None:
     if not ok:
         print(f"chip_smoke: FAILED: {what}", file=sys.stderr, flush=True)
         raise SystemExit(1)
+
+
+def attention_part(launches: dict) -> dict:
+    """The attention kernels' counts of `attention.launch_counts()`: what
+    the launch formulas give.  The LayerNorm kernel's count beside them is
+    read per path (`eval_layer_norm` on the eval paths)."""
+    return {k: v for k, v in launches.items() if k != "layer_norm"}
+
+
+def eval_layer_norm(launches: dict, what: str) -> None:
+    """On an eval path every LayerNorm takes the kernel: launches counted,
+    none on the plain chain since the counts were reset."""
+    from vln_imagine_tpu_torch.utils import spans
+
+    plain = spans.counts().get("layer_norm.plain", 0)
+    check(launches["layer_norm"] > 0 and plain == 0,
+          f"{what}: {launches['layer_norm']} layer_norm launches, {plain} "
+          f"plain CUDA LayerNorms")
 
 
 def card_line() -> str:
@@ -479,6 +513,7 @@ def main_path_phase(torch, cfg, world):
     from vln_imagine_tpu_torch.eval.trace import bench_episodes
     from vln_imagine_tpu_torch.ops import attention
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
+    from vln_imagine_tpu_torch.utils import spans
 
     fresh_phase(torch)
     T = cfg.env.max_action_len
@@ -498,6 +533,7 @@ def main_path_phase(torch, cfg, world):
 
     # the counted run: every count set to 0 just before, read just after
     attention.reset_launch_counts()
+    spans.reset_counts("layer_norm.plain")
     runs = {}
     for B in BATCHES:
         before = attention.launch_counts()["attention_fwd"]
@@ -505,8 +541,10 @@ def main_path_phase(torch, cfg, world):
         nodes, lens = nodes.cpu().numpy(), lens.cpu().numpy()
         runs[B] = (nodes, lens, attention.launch_counts()["attention_fwd"] - before)
     launches = attention.launch_counts()
-    check(launches["attention_fwd"] > 0 and sum(launches.values())
+    check(launches["attention_fwd"] > 0
+          and sum(attention_part(launches).values())
           == launches["attention_fwd"], f"eval launches {launches}")
+    eval_layer_norm(launches, "hamt eval")
 
     results = []
     for B in BATCHES:
@@ -678,7 +716,8 @@ def train_phase(torch, cfg, world):
         check(all(math.isfinite(v) for v in m.values()), f"train metrics {m}")
         check(m["grad_norm"] > 0, f"grad_norm {m['grad_norm']}")
     for c in counts:
-        check(c == {"attention_fwd": 0, "attention_dropout_fwd": k2_want,
+        check(attention_part(c) == {"attention_fwd": 0,
+                                    "attention_dropout_fwd": k2_want,
                     "attention_dropout_bwd": k3_want, "attention_bwd": 0},
               f"launches per train step {c}, expected K2 {k2_want} and K3 "
               f"{k3_want} only")
@@ -862,6 +901,7 @@ def duet_eval_phase(torch, cfg, world):
     from vln_imagine_tpu_torch.ops import attention
     from vln_imagine_tpu_torch.train.rollout_duet import path_buffer_len
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
+    from vln_imagine_tpu_torch.utils import spans
 
     fresh_phase(torch)
     per_episode, per_step = duet_calls(cfg)
@@ -877,6 +917,7 @@ def duet_eval_phase(torch, cfg, world):
 
     # the counted run: every count set to 0 just before, read just after
     attention.reset_launch_counts()
+    spans.reset_counts("layer_norm.plain")
     runs = {}
     for B in BATCHES:
         before = attention.launch_counts()["attention_fwd"]
@@ -884,8 +925,10 @@ def duet_eval_phase(torch, cfg, world):
         runs[B] = (nodes.cpu().numpy(), lens.cpu().numpy(),
                    attention.launch_counts()["attention_fwd"] - before)
     launches = attention.launch_counts()
-    check(launches["attention_fwd"] > 0 and sum(launches.values())
+    check(launches["attention_fwd"] > 0
+          and sum(attention_part(launches).values())
           == launches["attention_fwd"], f"duet eval launches {launches}")
+    eval_layer_norm(launches, "duet eval")
 
     results = []
     for B in BATCHES:
@@ -1009,7 +1052,8 @@ def duet_train_phase(torch, cfg, world):
         check(all(math.isfinite(v) for v in m.values()), f"duet metrics {m}")
         check(m["grad_norm"] > 0, f"duet grad_norm {m['grad_norm']}")
     for c in counts:
-        check(c == {"attention_fwd": 0, "attention_dropout_fwd": k2_want,
+        check(attention_part(c) == {"attention_fwd": 0,
+                                    "attention_dropout_fwd": k2_want,
                     "attention_dropout_bwd": k3_want, "attention_bwd": 0},
               f"launches per DAgger step {c}, expected K2 {k2_want} and K3 "
               f"{k3_want} only")
@@ -1269,7 +1313,8 @@ def driver_phase(torch, cfg, scratch: Path):
 
     want = driver_launches(d, *(train_launches_per_step(cfg) if agent == "hamt"
                                 else duet_train_launches_per_step(cfg)))
-    check(launches == want, f"{agent} driver launches {launches}, expected "
+    check(attention_part(launches) == want,
+          f"{agent} driver launches {launches}, expected "
           f"{want} ({len(d.eval_step_counts)} eval batches, steps "
           f"{d.eval_step_counts})")
     log = root / "run"
@@ -1374,7 +1419,7 @@ def cli_phase(torch, scratch: Path, phase, argv, files=CLI_FILES,
     want = driver_launches(d, *(duet_train_launches_per_step
                                 if d.cfg.agent == "duet"
                                 else train_launches_per_step)(d.cfg))
-    check(len(d.timings["train"]) == 2 and launches == want,
+    check(len(d.timings["train"]) == 2 and attention_part(launches) == want,
           f"{phase} launches {launches}, expected {want}")
     emit({"phase": phase, "argv": " ".join(argv),
           "config": f"{d.cfg.agent}_r2r_config", "dataset": d.cfg.dataset,
@@ -1456,7 +1501,8 @@ def dp_driver_phase(torch, cfg, scratch: Path):
         torch.cuda.synchronize()
         launches = attention.launch_counts()
         want = driver_launches(d, k2, k3)
-        check(launches == want, f"dp_driver {agent} {name}: launches "
+        check(attention_part(launches) == want,
+              f"dp_driver {agent} {name}: launches "
               f"{launches}, expected {want}")
         check((d.mesh is not None) == (name == "mesh")
               and (name == "plain" or d.shard.size == 1),
@@ -1511,7 +1557,8 @@ def dp_cli_phase(torch, scratch: Path):
     res = json.loads((log / "dp_cli.json").read_text())
     for name in CLI_FILES:
         check((log / name).is_file(), f"dp_cli wrote no {name}")
-    check(res["launches"] == res["expected"] and res["iters"] == 2,
+    check(attention_part(res["launches"]) == res["expected"]
+          and res["iters"] == 2,
           f"dp_cli launches {res['launches']}, expected {res['expected']}")
     emit({"phase": "dp_cli", "argv": res["argv"], "seconds": seconds,
           "launcher": "torch.distributed.run --standalone --nproc-per-node 1",
@@ -1837,7 +1884,8 @@ def tp_driver_run(torch, mesh, scratch: Path, rank: int) -> dict:
     run_s = time.perf_counter() - t0
     launches = attention.launch_counts()
     want = driver_launches(d, *train_launches_per_step(cfg))
-    check(launches == want, f"tp_driver rank {rank}: launches {launches}, "
+    check(attention_part(launches) == want,
+          f"tp_driver rank {rank}: launches {launches}, "
           f"expected {want}")
     latest = log / "ckpts" / "latest_dict"
     saved = torch.load(latest, map_location="cuda", weights_only=True)
@@ -2089,7 +2137,8 @@ def variant_steps(torch, make_trainer, ep, steps, want, k1_k4=(0, 0),
     expected = {"attention_fwd": k1_k4[0], "attention_dropout_fwd": k2,
                 "attention_dropout_bwd": k3, "attention_bwd": k1_k4[1]}
     for c in counts:
-        check(c == expected, f"launches per step {c}, expected {expected}")
+        check(attention_part(c) == expected,
+              f"launches per step {c}, expected {expected}")
     m = trainer.cfg.model
     moved, still = (split(trainer.model, model0) if split is not None
                     else stage1_split(label_hamt_param, trainer.model, model0)
@@ -2248,8 +2297,9 @@ def duet_eval_variants_phase(torch, cfg, world):
         steps = eval_step.steps
         nodes, lens = out[0].cpu().numpy(), out[1].cpu().numpy()
         want = per_episode + per_step * steps
-        check(launches == {"attention_fwd": want, "attention_dropout_fwd": 0,
-                           "attention_dropout_bwd": 0, "attention_bwd": 0},
+        check(attention_part(launches)
+              == {"attention_fwd": want, "attention_dropout_fwd": 0,
+                  "attention_dropout_bwd": 0, "attention_bwd": 0},
               f"{name}: launches {launches} for {steps} steps, expected "
               f"K1 {want}")
         jumps = check_walks(world, ep_np, nodes, lens, path_buffer_len(vcfg),
@@ -2392,8 +2442,9 @@ def variant_eval(torch, trainer, world, ep_np) -> dict:
     steps = eval_step.steps
     nodes, lens = out[0].cpu().numpy(), out[1].cpu().numpy()
     want = per_episode + per_step * steps
-    check(launches == {"attention_fwd": want, "attention_dropout_fwd": 0,
-                       "attention_dropout_bwd": 0, "attention_bwd": 0},
+    check(attention_part(launches)
+          == {"attention_fwd": want, "attention_dropout_fwd": 0,
+              "attention_dropout_bwd": 0, "attention_bwd": 0},
           f"{cfg.dataset} eval: launches {launches} for {steps} steps, "
           f"expected K1 {want}")
     duet = cfg.agent == "duet"
@@ -2595,7 +2646,8 @@ def variant_driver_phase(torch):
                                  for s in d.eval_step_counts),
             "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
             "attention_bwd": 0}
-    check(launches == want, f"reverie validate launches {launches}, "
+    check(attention_part(launches) == want,
+          f"reverie validate launches {launches}, "
           f"expected {want}")
     check({"rgs", "rgspl", "sr", "spl"} <= score.keys()
           and all(math.isfinite(v) for v in score.values()),
@@ -2746,7 +2798,8 @@ def vit_extract_phase(torch):
     want = {"attention_fwd": cfg.num_layers * VIT_BATCHES,
             "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
             "attention_bwd": 0}
-    check(launches == want, f"vit_extract launches {launches}, want {want}")
+    check(attention_part(launches) == want,
+          f"vit_extract launches {launches}, want {want}")
     check(feats.shape == (len(images), 768) and np.isfinite(feats).all(),
           f"features {feats.shape}")
     x = torch.as_tensor(images[:VIT_BATCH], device="cuda")
@@ -2871,7 +2924,8 @@ def e2e_finetune_phase(torch, cfg, dcfg, world):
     want = {"attention_fwd": per_episode + vit_calls(c) + per_step * steps,
             "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
             "attention_bwd": 0}
-    check(launches == want, f"e2e eval launches {launches}, want {want}")
+    check(attention_part(launches) == want,
+          f"e2e eval launches {launches}, want {want}")
     runs["hamt_eval"] = {"batch": BATCHES[0], "steps": steps,
                          "episodes_per_s": BATCHES[0] / dt,
                          "episode_batch_ms": dt * 1e3,
@@ -2969,7 +3023,8 @@ def hamt_pretrain_phase(torch, cfg, world):
         want = {"attention_fwd": 0, "attention_dropout_fwd": k2,
                 "attention_dropout_bwd": k3, "attention_bwd": 0}
         got = attention.launch_counts()
-        check(got == want, f"pretrain {task} launches {got}, want {want}")
+        check(attention_part(got) == want,
+              f"pretrain {task} launches {got}, want {want}")
         check(math.isfinite(float(m["loss"])), f"pretrain {task} loss")
         tasks[task] = {"step_ms": ms, "loss": float(m["loss"]),
                        "launches": got}
@@ -2983,7 +3038,8 @@ def hamt_pretrain_phase(torch, cfg, world):
                                      for t in TASKS),
             "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
             "attention_bwd": 0}
-    check(val_launches == want, f"validate launches {val_launches}")
+    check(attention_part(val_launches) == want,
+          f"validate launches {val_launches}")
     check(all(math.isfinite(v["loss"]) for v in val.values()), f"val {val}")
     launches = {k: max(max(r["launches"][k] for r in tasks.values()),
                        val_launches[k]) for k in val_launches}
@@ -3114,7 +3170,8 @@ def e2e_pretrain_phase(torch, cfg, world):
         want = {"attention_fwd": vit_cfg.num_layers * (3 if obs else 2),
                 "attention_dropout_fwd": k2, "attention_dropout_bwd": k3,
                 "attention_bwd": vit_cfg.num_layers * (2 if obs else 1)}
-        check(got == want, f"e2e pretrain {task} launches {got}, want {want}")
+        check(attention_part(got) == want,
+              f"e2e pretrain {task} launches {got}, want {want}")
         pano = E2E_PRETRAIN_BATCH * T * V
         check(calls[1] == (pano, False, False) and all(
             g and r for _, g, r in calls[:1] + calls[2:]),
@@ -3284,7 +3341,8 @@ def duet_pretrain_steps(torch, pt, state, batch: int):
         k = duet_pretrain_calls(pt.cfg, task)
         want = {"attention_fwd": 0, "attention_dropout_fwd": k,
                 "attention_dropout_bwd": k, "attention_bwd": 0}
-        check(got == want, f"duet pretrain {task} launches {got}, want {want}")
+        check(attention_part(got) == want,
+              f"duet pretrain {task} launches {got}, want {want}")
         check(math.isfinite(float(m["loss"])) and int(m["n"]) > 0,
               f"duet pretrain {task}: loss {m['loss']}, n {m['n']}")
         b = pt.batcher.task_batch(task, batch)
@@ -3408,7 +3466,8 @@ def duet_pretrain_phase(torch, dcfg, world):
                                  for t in DUET_PRETRAIN_TASKS),
             "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
             "attention_bwd": 0}
-    check(val_launches == want, f"duet validate launches {val_launches}")
+    check(attention_part(val_launches) == want,
+          f"duet validate launches {val_launches}")
     check(all(math.isfinite(v["loss"]) for v in val.values()), f"val {val}")
     del pt
     torch.cuda.empty_cache()
@@ -3766,11 +3825,83 @@ def kernels_phase(torch, parent=None):
                                      gen, bits=bits, timed=dt == "bfloat16"))
     cases += row_offset_cases(torch, gen)
     cases += head_offset_cases(torch, gen)
+    cases += layer_norm_cases(torch, gen)
     emit({"phase": "kernels", "cases": cases,
           "duet_weighted": duet_weighted(cases),
           "fwd_deterministic": determinism(torch, gen, "attention_dropout_fwd"),
           "bwd_deterministic": determinism(torch, gen, "attention_dropout_bwd")})
     return cases
+
+
+def layer_norm_cases(torch, gen) -> list:
+    """The LayerNorm kernel against the plain chain (`x + r`, the upcast,
+    ATen's f32 LayerNorm, the cast back) at `LAYER_NORM_CASES`, H 768, eps
+    1e-12: f32 outputs within 2e-6 relative and absolute; bf16 outputs 99 %
+    identical and each within one bf16 ulp or, near 0 where that is less,
+    2e-6 (an output that cancels keeps an error at the scale of its terms:
+    tests/test_torch_layer_norm.py); two calls bitwise equal.  The timed
+    ones beside the plain chain and the byte bound (x, r and the output
+    once, 3.35 TB/s)."""
+    import torch.nn.functional as F
+
+    from vln_imagine_tpu_torch.ops.layer_norm import (
+        layer_norm,
+        layer_norm_reference,
+    )
+    from vln_imagine_tpu_torch.utils import spans
+
+    H, eps = 768, 1e-12
+    w = 1 + 0.5 * torch.randn(H, device="cuda", generator=gen)
+    b = 0.5 * torch.randn(H, device="cuda", generator=gen)
+    out = []
+    for i, (rows, xd, rd) in enumerate(LAYER_NORM_CASES):
+        x = (2 * torch.randn(rows, H, device="cuda", generator=gen)
+             + 0.3).to(getattr(torch, xd))
+        r = torch.randn(rows, H, device="cuda",
+                        generator=gen).to(getattr(torch, rd))
+        before = spans.counts().get("launches.layer_norm", 0)
+        got = layer_norm(x, r, w, b, eps)
+        again = layer_norm(x, r, w, b, eps)
+        want = layer_norm_reference(x, r, w, b, eps)
+        torch.cuda.synchronize()
+        check(spans.counts()["launches.layer_norm"] == before + 2,
+              "layer_norm was not launched")
+        check(torch.equal(got, again), f"two layer_norm calls differ at "
+              f"{rows} rows {xd} + {rd}")
+        diff = (got.float() - want.float()).abs()
+        tol = 2e-6 * (1 + want.float().abs())
+        same = float((got == want).float().mean())
+        if got.dtype == torch.bfloat16:
+            a = torch.maximum(got.float().abs(), want.float().abs())
+            ulp = torch.exp2(torch.floor(torch.log2(a.clamp(min=2.0 ** -126)))
+                             - 7)
+            tol = torch.maximum(tol, ulp)
+        ok = bool((diff <= tol).all()) and (got.dtype == torch.float32
+                                             or same >= 0.99)
+        check(ok, f"layer_norm vs plain at {rows} rows {xd} + {rd}: max abs "
+              f"err {float(diff.max())}, {same:.4%} identical")
+        case = {"kernel": "layer_norm", "rows": rows, "H": H, "x": xd,
+                "residual": rd, "out": str(got.dtype).split(".")[-1],
+                "max_abs_err": float(diff.max()), "identical": same,
+                "deterministic": True}
+        if i < LAYER_NORM_TIMED:
+            nbytes = (x.numel() * x.element_size()
+                      + r.numel() * r.element_size()
+                      + got.numel() * got.element_size() + 2 * H * 4)
+
+            def plain():
+                s = x + r
+                F.layer_norm(s.float(), (H,), w, b, eps=eps).to(s.dtype)
+
+            case.update(
+                ms=time_ms(torch, lambda: layer_norm(x, r, w, b, eps)),
+                plain_ms=time_ms(torch, plain),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bytes=nbytes)
+            case["bound_share"] = case["bound_ms"] / case["ms"]
+        out.append(case)
+        del x, r, got, again, want, diff
+    return out
 
 
 # (B, first row of the rank): a data-parallel rank's rows of the DP step's
@@ -4079,6 +4210,21 @@ def main() -> None:
                    f"[B,1,1,Lk] mask, packed q/k/v"
                    + (f", {rep['bits']} bits" if rep["bits"] else "")),
         })
+    ln = next(c for c in cases if c["kernel"] == "layer_norm" and "ms" in c
+              and c["residual"] == "bfloat16")
+    by_path = {p: n["layer_norm"] for p, n in path_launches.items()}
+    check(by_path["eval"] > 0 and by_path["duet_eval"] > 0,
+          f"layer_norm launches by path {by_path}")
+    summary.append({
+        "name": "layer_norm", "route": "cuda",
+        "source": f"{CSRC}/layer_norm.cu", "replaces": None,
+        "launches": max(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(c["max_abs_err"] for c in cases
+                           if c["kernel"] == "layer_norm"),
+        "ms": ln["ms"], "plain_ms": ln["plain_ms"],
+        "bound_ms": ln["bound_ms"], "bound_by": ln["bound_by"],
+        "library_ms": None,
+        "at": f"{ln['rows']} rows H768, bf16 x + bf16 residual -> bf16"})
     emit({"kernels": summary})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from vln_imagine_tpu_torch.ops.attention import (
+    KERNELS,
     MAX_LK,
     SMEM_LIMIT,
     FusedAttention,
@@ -918,7 +919,7 @@ def test_kernels_at_duet_shapes_on_card(cuda, lq, lk, kind, dtype):
            "k4": attention_bwd(q, k, v, bias, do, 0.125, need_dbias=need_db)}
     torch.cuda.synchronize()
     after = launch_counts()
-    assert all(after[n] == before[n] + 1 for n in after)
+    assert all(after[n] == before[n] + 1 for n in KERNELS)
     want = {"k1": (attention_reference(q, k, v, bias, 0.125),),
             "k2": (attention_dropout_reference(q, k, v, bias, 0.125, 0.1,
                                                seed, "philox"),),
@@ -957,7 +958,7 @@ def test_kernels_at_the_imagination_encoder_shape_on_card(cuda, dtype):
            "k4": attention_bwd(q, k, v, bias, do, 0.125)[:3]}
     torch.cuda.synchronize()
     after = launch_counts()
-    assert all(after[n] == before[n] + 1 for n in after)
+    assert all(after[n] == before[n] + 1 for n in KERNELS)
     want = {"k1": (attention_reference(q, k, v, bias, 0.125),),
             "k2": (attention_dropout_reference(q, k, v, bias, 0.125, 0.1,
                                                seed, "philox"),),
@@ -1005,7 +1006,7 @@ def test_kernels_at_duet_pretraining_shapes_on_card(cuda, lq, lk, kind,
            "k4": attention_bwd(q, k, v, bias, do, 0.125)[:3]}
     torch.cuda.synchronize()
     after = launch_counts()
-    assert all(after[n] == before[n] + 1 for n in after)
+    assert all(after[n] == before[n] + 1 for n in KERNELS)
     want = {"k1": (attention_reference(q, k, v, bias, 0.125),),
             "k2": (attention_dropout_reference(q, k, v, bias, 0.125, 0.1,
                                                seed, "philox"),),

@@ -113,7 +113,8 @@ def test_counters_and_launch_counts_share_one_store():
     spans.count("launches.attention_fwd", 2)
     assert spans.counts() == {"x": 5, "launches.attention_fwd": 2}
     assert launch_counts() == {"attention_fwd": 2, "attention_dropout_fwd": 0,
-                               "attention_dropout_bwd": 0, "attention_bwd": 0}
+                               "attention_dropout_bwd": 0, "attention_bwd": 0,
+                               "layer_norm": 0}
     reset_launch_counts()
     assert spans.counts() == {"x": 5}
     assert set(launch_counts().values()) == {0}

@@ -5,7 +5,10 @@ cross-modal layer and pre-norm pano encoder, VLN-DUET/map_nav_src/models/
 vilmodel.py:366-412 and transformer.py:135-192):
 
 - exact erf GELU (vilmodel_cmt.py:27-33)
-- LayerNorm eps 1e-12, post-LN residual blocks, computed in f32
+- LayerNorm eps 1e-12, post-LN residual blocks, computed in f32; on the
+  card without autograd the residual add and the LayerNorm are one
+  hand-written kernel (ops/layer_norm.py, csrc/layer_norm.cu), elsewhere
+  the plain add, upcast, LayerNorm and downcast
 - additive attention masks, 0 for valid / -10000 for padding
 - parameters in f32; matmuls and attention in `ModelConfig.compute_dtype`
 - dropout at the flax blocks' sites, drawn from an explicit `Rng`
@@ -28,6 +31,7 @@ from torch import nn
 from vln_imagine_tpu_torch.config import ModelConfig
 from vln_imagine_tpu_torch.ops.attention import fused_attention
 from vln_imagine_tpu_torch.ops.dropout import Rng, dropout
+from vln_imagine_tpu_torch.ops.layer_norm import fused_layer_norm
 from vln_imagine_tpu_torch.parallel.tensor import split_of
 
 
@@ -153,7 +157,8 @@ class Embed(nn.Embedding):
 
 
 class LayerNormF32(nn.Module):
-    """LayerNorm computed in float32, output in x's dtype."""
+    """LayerNorm(x [+ residual]) computed in float32, output in the sum's
+    dtype (`ops/layer_norm.py:fused_layer_norm`)."""
 
     def __init__(self, dim: int, eps: float):
         super().__init__()
@@ -161,10 +166,9 @@ class LayerNormF32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.layer_norm(x.float(), self.weight.shape, self.weight,
-                           self.bias, eps=self.eps)
-        return out.to(x.dtype)
+    def forward(self, x: torch.Tensor,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        return fused_layer_norm(x, residual, self.weight, self.bias, self.eps)
 
 
 class LayerNorm12(LayerNormF32):
@@ -259,8 +263,8 @@ class SelfOutput(nn.Module):
         self.rate = cfg.hidden_dropout_prob
 
     def forward(self, hidden, residual, rng=None):
-        return self.LayerNorm(dropout(self.dense(hidden), self.rate, rng)
-                              + residual)
+        return self.LayerNorm(dropout(self.dense(hidden), self.rate, rng),
+                              residual=residual)
 
 
 class BertAttention(nn.Module):
@@ -311,7 +315,8 @@ class BertOutput(nn.Module):
         self.rate = cfg.hidden_dropout_prob
 
     def forward(self, x, residual, rng=None):
-        return self.LayerNorm(dropout(self.dense(x), self.rate, rng) + residual)
+        return self.LayerNorm(dropout(self.dense(x), self.rate, rng),
+                              residual=residual)
 
 
 class BertLayer(nn.Module):

@@ -14,7 +14,8 @@ product) and return [B, L, H, D], so the model needs no head transposes.
 
 Each wrapper runs its plain version only for tensors on the CPU.  For a CUDA
 tensor it launches its kernel or raises; nothing falls back.
-`launch_counts()` gives each wrapper's kernel launches.
+`launch_counts()` gives each wrapper's kernel launches, and the LayerNorm
+kernel's.
 
 `fused_attention` is the model's entry: K1 (or K2 with attention-probs
 dropout) under `torch.no_grad`, else `FusedAttention`, whose backward is K4
@@ -45,7 +46,9 @@ kernels and the plain versions produce bit for bit:
 The kernels are built at first use with nvcc into `build/kernels/` at the
 root of the checkout (one shared library with a plain C interface per
 source, loaded with ctypes, cached by content hash) and launched on
-PyTorch's current stream without synchronising.
+PyTorch's current stream without synchronising.  The loader builds and
+loads every source of the port, `csrc/layer_norm.cu` (`ops/layer_norm.py`)
+too.
 """
 
 from __future__ import annotations
@@ -63,7 +66,8 @@ import torch
 from vln_imagine_tpu_torch.utils import spans
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("attention_fwd.cu", "attention_bwd.cu")
+# every kernel source of the port; `ops/layer_norm.py` launches the last
+SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "layer_norm.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -295,9 +299,13 @@ _ARGTYPES = {
                           + [ctypes.c_float, _INT, ctypes.c_uint32,
                              ctypes.c_float, ctypes.c_uint64, ctypes.c_uint32,
                              ctypes.c_uint32, _PTR]),
+    # x r w b out | xdtype rdtype | rows H sx sr | eps | stream
+    "vln_layer_norm": ([_PTR] * 5 + [_INT, _INT, _LL, _INT, _LL, _LL,
+                                     ctypes.c_float, _PTR]),
 }
 _ENTRY = {"attention_fwd.cu": "vln_attention_fwd",
-          "attention_bwd.cu": "vln_attention_bwd"}
+          "attention_bwd.cu": "vln_attention_bwd",
+          "layer_norm.cu": "vln_layer_norm"}
 
 
 def load_kernels() -> dict[str, ctypes.CDLL]:
@@ -576,9 +584,11 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     """Each wrapper's kernel launches since the last reset (the counters
-    `launches.<wrapper>` of utils/spans.py)."""
+    `launches.<wrapper>` of utils/spans.py): the four attention wrappers'
+    and `ops/layer_norm.py:layer_norm`'s."""
     n = spans.counts()
-    return {name: n.get("launches." + name, 0) for name in KERNELS}
+    return {name: n.get("launches." + name, 0)
+            for name in (*KERNELS, "layer_norm")}
 
 
 # ------------------------------------------------------------ autograd
