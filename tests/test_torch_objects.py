@@ -4,8 +4,10 @@ CPU at the tiny config with 32-d object features and 3 objects a node:
 - `synthetic_world(max_objects=...)` and the episodes' `gt_obj_id` equal
   the JAX package's from the same seed;
 - `observe_hamt`'s object segment (its own feature dim) and
-  `observe_duet`'s object tokens (padded or truncated to the view dim, nav
-  type 2) equal the JAX package's over a walk, exactly;
+  `observe_duet`'s object tokens (nav type 2) equal the JAX package's over
+  a walk, exactly; the port's DUET observation carries the object features
+  at their own width (`obj_img`), which the JAX package pads or truncates
+  into the view features (`img`): padded or truncated alike, they are its;
 - NavRef (`HamtModel` with objects): the language stack, the visual
   logits, states and `obj_logits`, with and without a visual-concat
   imagination (objects sit before it), within 1e-4;
@@ -116,7 +118,8 @@ def test_object_world_and_targets_equal_jax():
     ("hamt", DO), ("duet", DO), ("duet", 24), ("duet", 40)])
 def test_observe_with_objects_equals_jax(agent, obj_dim):
     """Three steps along candidate slot 0; DUET object features narrower
-    and wider than the view features are padded / truncated."""
+    and wider than the view features keep their own width in the port, and
+    padded / truncated to the view width they are the JAX package's."""
     jcfg, cfg = _cfgs(agent)
     jw, jep = (jax.tree.map(jnp.asarray, x)
                for x in _world_ep(j_world, j_episodes, jcfg, obj_dim))
@@ -134,9 +137,14 @@ def test_observe_with_objects_equals_jax(agent, obj_dim):
             names = ("img", "loc", "nav_types", "valid", "obj_ids",
                      "obj_valid")
             K, V = w.max_candidates, w.views
-            assert o.img.shape[1] == K + V + KO
+            assert o.img.shape[1] == K + V and o.nav_types.shape[1] == K + V + KO
+            assert o.obj_img.shape == (ep.batch, KO, obj_dim)
             np.testing.assert_array_equal(o.nav_types[:, K + V:] == 2,
                                           o.obj_valid)
+            Df = o.img.shape[-1]
+            fit = (torch.nn.functional.pad(o.obj_img, (0, Df - obj_dim))
+                   if obj_dim < Df else o.obj_img[..., :Df])
+            o = o._replace(img=torch.cat([o.img, fit], 1))
         for name in names:
             np.testing.assert_allclose(getattr(o, name).numpy(),
                                        np.asarray(getattr(jo, name)),

@@ -5,7 +5,8 @@ configuration means the same thing in both packages.  The presets are the
 released recipes: `hamt_r2r_config` and `duet_r2r_config` (R2R,
 VLN-HAMT/finetune_src/scripts/run_r2r.sh and
 VLN-DUET/map_nav_src/scripts/run_r2r.sh), the task variants `rxr_config`,
-`r4r_config`, `cvdn_config`, `soon_config` and `reverie_config`, and
+`r4r_config`, `cvdn_config`, `soon_config` and `reverie_config`,
+`soon_butd_config` (SOON with its released 2,048-d object features), and
 `tiny_test_config` of either agent.
 """
 
@@ -267,6 +268,16 @@ def soon_config() -> Config:
     cfg = _replace(cfg, "env", max_instr_len=100, max_action_len=20,
                    max_gt_path_len=24)
     return cfg
+
+
+def soon_butd_config() -> Config:
+    """SOON as the release runs it (run_soon.sh: `obj_features=butd`,
+    `obj_ft_dim=2048`): `soon_config` with the BUTD detector's 2,048-d
+    object features (Faster R-CNN ResNet-101 pooled, Anderson et al., CVPR
+    2018) beside the 768-d views, so that the objects go through their own
+    projection, `obj_linear` / `obj_layer_norm`.  It keeps REVERIE's single
+    imagination (`max_imagination_len` 1), as `soon_config` does."""
+    return _replace(soon_config(), "model", obj_feat_size=2048)
 
 
 def reverie_config(agent: str = "duet") -> Config:

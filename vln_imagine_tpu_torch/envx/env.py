@@ -41,6 +41,7 @@ from vln_imagine_tpu_torch.ops.angles import (
     view_elevation,
     view_heading,
 )
+from vln_imagine_tpu_torch.utils.spans import span
 
 
 class HamtObs(NamedTuple):
@@ -222,7 +223,7 @@ def distance_to_goal(tables: WorldTables, ep: EpisodeBatch,
 
 
 class DuetObs(NamedTuple):
-    img: torch.Tensor         # [B, T_pano, Df]
+    img: torch.Tensor         # [B, K+V, Df] candidate and view features
     loc: torch.Tensor         # [B, T_pano, A+3] (angle feats + [1,1,1] box)
     nav_types: torch.Tensor   # [B, T_pano] i32 (0 pano, 1 candidate, 2 object)
     valid: torch.Tensor       # [B, T_pano] bool
@@ -230,6 +231,8 @@ class DuetObs(NamedTuple):
     cand_valid: torch.Tensor  # [B, K] bool
     obj_ids: Optional[torch.Tensor] = None    # [B, Ko] dataset object ids
     obj_valid: Optional[torch.Tensor] = None  # [B, Ko] bool
+    # object features at their own width Do, zero where invalid
+    obj_img: Optional[torch.Tensor] = None    # [B, Ko, Do]
 
 
 def observe_duet(tables: WorldTables, ep: EpisodeBatch, state: EnvState,
@@ -237,7 +240,10 @@ def observe_duet(tables: WorldTables, ep: EpisodeBatch, state: EnvState,
     """DUET pano token bank (no STOP token; the local branch prepends it):
     slots [0..K-1] candidates, [K..K+V-1] panorama views; views claimed by a
     candidate are masked (agent.py:53-96 `_panorama_feature_variable`).
-    REVERIE/SOON object tokens follow the views."""
+    REVERIE/SOON object tokens follow the views: T_pano = K + V + Ko.  `img`
+    holds the K + V view tokens' features and `obj_img` the objects' at
+    their own width, which the model embeds through its own projection
+    where it differs from the view width (vilmodel.py:1087-1131)."""
     if tables.feat is None:
         raise ValueError("observe_duet needs view features")
     B = ep.batch
@@ -268,28 +274,27 @@ def observe_duet(tables: WorldTables, ep: EpisodeBatch, state: EnvState,
                     dim=1)
     valid = torch.cat([adj_valid, ~used], dim=1)
 
-    obj_ids = obj_valid = None
+    obj_ids = obj_valid = obj_img = None
     if tables.obj_feat is not None:
         # REVERIE/SOON: object tokens after the views, nav type 2
-        # (reverie agent `_object_variable`, obj dims padded/truncated to Df)
-        o_feat = _gather_sn(tables.obj_feat, ep.scan, state.node)
-        o_ang = _gather_sn(tables.obj_ang, ep.scan, state.node)
-        obj_valid = _gather_sn(tables.obj_valid, ep.scan, state.node)
-        obj_ids = _gather_sn(tables.obj_ids, ep.scan, state.node)
-        Do = o_feat.shape[-1]
-        o_feat = F.pad(o_feat, (0, Df - Do)) if Do < Df else o_feat[..., :Df]
-        o_ang_f = angle_feature(o_ang[..., 0] - base_h, o_ang[..., 1],
-                                angle_feat_size)
-        o_loc = torch.cat([o_ang_f, torch.ones_like(o_ang_f[..., :3])], -1)
-        img = torch.cat([img, o_feat * obj_valid[:, :, None]], 1)
-        loc = torch.cat([loc, o_loc], 1)
-        nav = torch.cat([nav, 2 * obj_valid.to(torch.int32)], 1)
-        valid = torch.cat([valid, obj_valid], 1)
+        # (reverie agent `_object_variable`), features at their own width
+        with span("env.objects"):
+            o_feat = _gather_sn(tables.obj_feat, ep.scan, state.node)
+            o_ang = _gather_sn(tables.obj_ang, ep.scan, state.node)
+            obj_valid = _gather_sn(tables.obj_valid, ep.scan, state.node)
+            obj_ids = _gather_sn(tables.obj_ids, ep.scan, state.node)
+            obj_img = o_feat * obj_valid[:, :, None]
+            o_ang_f = angle_feature(o_ang[..., 0] - base_h, o_ang[..., 1],
+                                    angle_feat_size)
+            o_loc = torch.cat([o_ang_f, torch.ones_like(o_ang_f[..., :3])], -1)
+            loc = torch.cat([loc, o_loc], 1)
+            nav = torch.cat([nav, 2 * obj_valid.to(torch.int32)], 1)
+            valid = torch.cat([valid, obj_valid], 1)
 
     loc = loc * valid[:, :, None]
     return DuetObs(img=img, loc=loc, nav_types=nav, valid=valid,
                    cand_nodes=adj, cand_valid=adj_valid,
-                   obj_ids=obj_ids, obj_valid=obj_valid)
+                   obj_ids=obj_ids, obj_valid=obj_valid, obj_img=obj_img)
 
 
 def rel_pos_features(tables: WorldTables, ep: EpisodeBatch,

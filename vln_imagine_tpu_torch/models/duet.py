@@ -24,11 +24,13 @@ Module names are the reference's torch keys (`lang_encoder.layer.*`,
 so a released state_dict loads with `load_state_dict`.  Every mode takes
 `rng` (ops/dropout.py); without it dropout is off.
 
-Object tokens reach the pano encoder through the view embedding:
-`observe_duet` pads or truncates their features to the view dim.  So
-`img_embeddings.obj_linear` / `obj_layer_norm`, which the model holds when
-`obj_feat_size != image_feat_size` as the JAX package does, are never
-applied (they keep a released checkpoint's keys).
+Object tokens (REVERIE / SOON) reach the pano encoder at their own width:
+where `obj_feat_size != image_feat_size` (SOON's 2,048-d BUTD features,
+`soon_butd_config`) through `img_embeddings.obj_linear` / `obj_layer_norm`,
+as the release does; where the widths agree (REVERIE) through the view
+embedding, one projection over views and objects together.  Here the port
+departs from the JAX package, which pads or truncates object features to
+the view width and holds `obj_linear` / `obj_layer_norm` unapplied.
 
 Under `e2e_imagination` the imagine mode embeds raw imagination images
 with the in-model ViT (`imagine_vit`, models/vit.py), as HAMT's does.
@@ -70,6 +72,7 @@ from vln_imagine_tpu_torch.models.vit import (
 )
 from vln_imagine_tpu_torch.ops.dropout import dropout
 from vln_imagine_tpu_torch.ops.masks import extend_neg_mask, mask_logits
+from vln_imagine_tpu_torch.utils.spans import span
 
 
 class CrossmodalEncoder(nn.Module):
@@ -124,7 +127,7 @@ class ImageEmbeddings(nn.Module):
         self.layer_norm = LayerNorm12(H)
         self.pano_encoder = PreNormEncoder(cfg, cfg.num_pano_layers)
         if objects and 0 < cfg.obj_feat_size != cfg.image_feat_size:
-            # created and never applied, as in the JAX package
+            # objects at their own width (the release's ImageEmbeddings)
             self.obj_linear = Dense(cfg.obj_feat_size, H, dt)
             self.obj_layer_norm = LayerNorm12(H)
 
@@ -231,13 +234,23 @@ class DuetModel(nn.Module):
                                  imagine_mask, np_weights, rng, shard=shard)
 
     def panorama_per_step(self, view_img_fts, loc_fts, nav_types, valid,
-                          rng=None):
-        """[B, T_pano, Df] view features (+ [B, T_pano, A+3] loc features)
-        -> pano token embeddings (vilmodel.py:1087-1131)."""
+                          rng=None, obj_img_fts=None):
+        """[B, K+V, Df] view features, then [B, Ko, Do] object features
+        if any (+ [B, T_pano, A+3] loc features over both) -> pano token
+        embeddings (vilmodel.py:1087-1131).  Objects of another width go
+        through `obj_linear` / `obj_layer_norm`, the others with the views
+        through `img_linear`."""
         cfg, emb = self.config, self.img_embeddings
+        own = obj_img_fts is not None and hasattr(emb, "obj_linear")
+        if obj_img_fts is not None and not own:
+            view_img_fts = torch.cat([view_img_fts, obj_img_fts], 1)
         with _stop_gradient(cfg.fix_pano_embedding or cfg.fix_local_branch):
             x = emb.img_layer_norm(emb.img_linear(
                 self.drop_env(view_img_fts, rng)))
+            if own:
+                with span("model.objects"):
+                    x = torch.cat([x, emb.obj_layer_norm(emb.obj_linear(
+                        self.drop_env(obj_img_fts, rng)))], 1)
             type_ids = torch.ones((1, 1), dtype=torch.long,
                                   device=nav_types.device)
             x = (x + emb.loc_layer_norm(emb.loc_linear(loc_fts))
@@ -298,8 +311,9 @@ class DuetModel(nn.Module):
         # object grounding logits (REVERIE/SOON; vilmodel.py:1221-1225)
         obj_logits = None
         if cfg.obj_feat_size > 0 and vp_obj_valid is not None:
-            obj_logits = mask_logits(self.og_head(vp_embeds)[..., 0],
-                                     vp_obj_valid)
+            with span("model.ground"):
+                obj_logits = mask_logits(self.og_head(vp_embeds)[..., 0],
+                                         vp_obj_valid)
         return NavOut(global_logits=global_logits, local_logits=local_logits,
                       fused_logits=fused, gmap_embeds=gmap_embeds,
                       vp_embeds=vp_embeds, obj_logits=obj_logits)

@@ -51,7 +51,11 @@ Semantics kept from the JAX package:
   every step whose node shows the target object, * train_ml / batch, and
   `pred_obj` read from the node the item ends on, after the stop-node
   backtrack.  A node without valid objects stores the id in its first
-  object slot (the argmax over all-masked logits), as the JAX package does
+  object slot (the argmax over all-masked logits), as the JAX package does.
+  Object features reach the model at their own width (models/duet.py);
+  only with objects do the spans `env.objects`, `model.objects`,
+  `model.ground` and `policy.ground` open, and the counter `objects.slots`
+  (B x Ko object tokens a step through the pano encoder) count
 
 Under data parallelism (`shard`, parallel/mesh.py) the batch is this
 rank's block of the global batch, as in the HAMT rollout: the losses
@@ -314,8 +318,11 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
                 gm = G.set_visited(gm, st.node, t, active)
 
             with span("model.panorama"):
+                if obs.obj_img is not None:  # object tokens encoded
+                    spans.count("objects.slots", obs.obj_img.shape[0]
+                                * obs.obj_img.shape[1])
                 pano = model.panorama_per_step(obs.img, obs.loc, obs.nav_types,
-                                               obs.valid, drop)
+                                               obs.valid, drop, obs.obj_img)
                 denom = torch.clamp(obs.valid.sum(dim=1, keepdim=True), min=1)
                 avg_pano = (torch.sum(pano * obs.valid[:, :, None], dim=1)
                             / denom)
@@ -386,28 +393,6 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
                     imagine_embeds=imagine_embeds,
                     imagine_mask=ep.imagine_mask, vp_obj_valid=vp_obj_valid,
                     rng=drop)
-                if use_obj:
-                    # object grounding (reverie agent `_teacher_object` + og
-                    # logits): the best object of the current node, and the
-                    # CE against the target object where it is visible
-                    obj_tok0 = 1 + K + tables.views  # first object token
-                    obj_lg = out.obj_logits[:, obj_tok0:obj_tok0 + Ko]
-                    best_id = envx._take(obs.obj_ids,
-                                         torch.argmax(obj_lg, dim=1))
-                    store = torch.where(active, cur_slot, gm.trash)
-                    node_obj = node_obj.index_put(
-                        (b_idx, store), torch.where(store == gm.trash,
-                                                    node_obj[:, -1], best_id))
-                    if train_ml is not None:
-                        gt_match = ((obs.obj_ids == ep.gt_obj_id[:, None])
-                                    & obs.obj_valid)
-                        og_logp = torch.log_softmax(torch.where(
-                            obs.obj_valid, obj_lg, LOGIT_NEG_INF).float(),
-                            dim=-1)
-                        gt_k = torch.argmax(gt_match.to(torch.int32), dim=1)
-                        og_ce = -og_logp.gather(1, gt_k[:, None])[:, 0]
-                        og_acc = og_acc + torch.sum(
-                            torch.where(active & gt_match.any(1), og_ce, 0.0))
                 nav_logits = (out.local_logits if local
                               else out.global_logits if mcfg.fusion == "global"
                               else out.fused_logits)
@@ -567,7 +552,30 @@ def _rollout(model, tables, ep, cfg, rng, drop, feedback, train_ml,
                 path, plen = _append_path(path, plen, back_nodes, back_valid)
                 if need_dtw:
                     dtw_row = dtw_extend(dtw_row, back_nodes, back_valid)
-                if use_obj:
+
+            if use_obj:
+                with span("policy.ground"):
+                    # object grounding (reverie agent `_teacher_object` + og
+                    # logits): the best object of the current node, and the
+                    # CE against the target object where it is visible
+                    obj_tok0 = 1 + K + tables.views  # first object token
+                    obj_lg = out.obj_logits[:, obj_tok0:obj_tok0 + Ko]
+                    best_id = envx._take(obs.obj_ids,
+                                         torch.argmax(obj_lg, dim=1))
+                    store = torch.where(active, cur_slot, gm.trash)
+                    node_obj = node_obj.index_put(
+                        (b_idx, store), torch.where(store == gm.trash,
+                                                    node_obj[:, -1], best_id))
+                    if train_ml is not None:
+                        gt_match = ((obs.obj_ids == ep.gt_obj_id[:, None])
+                                    & obs.obj_valid)
+                        og_logp = torch.log_softmax(torch.where(
+                            obs.obj_valid, obj_lg, LOGIT_NEG_INF).float(),
+                            dim=-1)
+                        gt_k = torch.argmax(gt_match.to(torch.int32), dim=1)
+                        og_ce = -og_logp.gather(1, gt_k[:, None])[:, 0]
+                        og_acc = og_acc + torch.sum(
+                            torch.where(active & gt_match.any(1), og_ce, 0.0))
                     # the object of the node the item ends on: the
                     # backtrack's target, else the current node
                     final_slot = torch.where(
