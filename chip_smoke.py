@@ -40,7 +40,10 @@ failed check exits non-zero:
                 and 8: paths that start at the start node and move along
                 edges (a teleport longer than its 6-hop cap records its
                 endpoint: counted, not failed), K1's launch count (9 + 18
-                per step, K2-K4 none), episodes/s, SR/SPL/nDTW, peak memory.
+                per step, K2-K4 none), episodes/s, SR/SPL/nDTW, peak memory;
+                then one call a batch with spans on, on these episodes and
+                on the same with R2R-sized texts (`r2r_sizes`), for K1's
+                live share of key sub-tiles (`attention.key_tile_counts`).
 7. duet_parity  the same in f32 at batch 4, card against CPU: identical
                 paths, step-0 fused logits within LOGIT_TOL.
 8. duet_train   the DAgger step (`DuetTrainer.make_train_step`: teacher-
@@ -241,7 +244,13 @@ failed check exits non-zero:
                 bitwise equal to those rows of the whole call; K2 and K3 on
                 heads [6, 12) at `head_offset` 6 (`head_offset_cases`: B 8,
                 67/67 and 200/97, bf16 and f32) bitwise equal to those heads
-                of the call on all 12.  The LayerNorm kernel
+                of the call on all 12.  K1 over DUET's key rows with
+                R2R-sized texts and imaginations (`DUET_R2R_SHAPES`, the
+                `r2r` key validity) at B 64 and 512, timed beside SDPA and
+                the least time over the valid keys alone (`bound_valid_ms`).
+                Wherever the forward's bias is one key row an item, its
+                key sub-tile counter under spans equals `key_tile_plan`'s
+                (`key_tiles`).  The LayerNorm kernel
                 (`csrc/layer_norm.cu`, no TPU counterpart) against the
                 plain chain it replaces at the eval cells' shapes
                 (`LAYER_NORM_CASES`: HAMT's step stream, bf16 x + f32
@@ -259,7 +268,8 @@ failed check exits non-zero:
 also builds DIR's forward source (another checkout, e.g. a `git archive` of
 the parent commit) and times its K1/K2 beside this checkout's on the same
 inputs, in turns (`parent_ms` in the kernels phase).  DIR's C entry must
-take the `row_offset` and `head_offset` arguments this checkout's does.
+take the `row_offset` and `head_offset` arguments this checkout's does; its
+last argument, the key sub-tile counter, it may lack.
 
 Then the kernel summary line `{"kernels": [...]}`, the card's name and power
 limit, and last the result line.  Without a CUDA device, or outside a
@@ -367,6 +377,12 @@ VIT_SHAPE = (197, 197)
 # rows (two thirds) with every key masked
 DUET_PRETRAIN_SHAPES = [(200, 97, "mask"), (200, 51, "mask")]
 PANO_ROWS, PANO_ROWS_SHAPE = 960, (50, 50, "pad_rows")
+# K1 over DUET's key rows where R2R's texts and imaginations fill them
+# (`r2r_sizes`): the text encoder 200/200 and the global and local branches'
+# cross-attentions over 200 text + 20 imagination slots, at chip_smoke's
+# eval batch and at the benchmark's
+DUET_R2R_SHAPES = [(200, 200), (97, 220), (51, 220)]
+DUET_R2R_BATCHES = (64, 512)
 DUET_TEXT_CALLS = 9
 DUET_STEP_CALLS = {(50, 50): 2, (97, 220): 4, (97, 97): 4, (51, 220): 4,
                    (51, 51): 4}
@@ -962,13 +978,48 @@ def duet_eval_phase(torch, cfg, world):
             "nDTW": summary["nDTW"],
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         })
+
+    def key_tiles(ep) -> dict:  # one call with spans on
+        before = attention.key_tile_counts()
+        with spans.on():
+            eval_step(ep)
+        spans.take()
+        after = attention.key_tile_counts()
+        live, total = (after[n] - before[n]
+                       for n in ("k1.key_tiles_live", "k1.key_tiles"))
+        check(0 < live <= total, f"duet eval: {live} of {total} key sub-tiles")
+        return {"live": live, "total": total, "live_share": live / total}
+
+    tiles = {}
+    for B in BATCHES:
+        tiles[f"bench_B{B}"] = key_tiles(eps[B])
+        tiles[f"r2r_sized_B{B}"] = key_tiles(
+            r2r_episodes(eps_np[B], B).to("cuda"))
     emit({"phase": "duet_eval", "config": "duet_r2r_config",
           "compute_dtype": cfg.model.compute_dtype,
           "params": sum(p.numel() for p in trainer.model.parameters()),
-          "setup_s": setup_s, "launches": launches, "runs": results})
+          "setup_s": setup_s, "launches": launches, "runs": results,
+          "key_tiles": tiles})
     del trainer
     torch.cuda.empty_cache()
     return launches
+
+
+def r2r_episodes(ep, seed: int):
+    """The numpy episodes `ep` with R2R-sized texts and imaginations
+    (`r2r_sizes`): each text cut to its drawn length (where shorter), the
+    imaginations past the drawn count masked."""
+    import numpy as np
+
+    (B, L), I = ep.txt_mask.shape, ep.imagine_mask.shape[1]
+    text, imagine = r2r_sizes(B, L, I, seed)
+    text = np.minimum(text, ep.txt_mask.sum(1))
+    txt = np.arange(L)[None, :] < text[:, None]
+    img = np.arange(I)[None, :] < imagine[:, None]
+    return ep.replace(
+        txt_ids=np.where(txt, ep.txt_ids, 0), txt_mask=txt, imagine_mask=img,
+        imagine_feats=ep.imagine_feats * img[:, :, None],
+        np_weights=ep.np_weights * txt[:, None, :] * img[:, :, None])
 
 
 def duet_parity_phase(torch, cfg, world):
@@ -3517,6 +3568,22 @@ def duet_pretrain_phase(torch, dcfg, world):
 
 
 # --------------------------------------------------------------- phase 6
+def r2r_sizes(B: int, max_text: int, max_imagine: int, seed: int):
+    """Text tokens and imaginations of B R2R-sized episodes, numpy [B]
+    each: words log-normal about R2R's 29 (sigma 0.4), x 1.1 word pieces
+    plus [CLS] and [SEP], cut at `max_text`; 1 + Poisson sub-instructions
+    about FG-R2R's 3.6, scaled by the words, each imagined with probability
+    0.85 (the sizes of the benchmark's traffic `eval_b512`)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = rng.lognormal(np.log(29) - 0.4 ** 2 / 2, 0.4, B)
+    text = np.clip(np.rint(words * 1.1) + 2, 4, max_text).astype(np.int64)
+    subs = 1 + rng.poisson(2.6 * words / 29)
+    subs = np.minimum(subs, np.minimum(max_imagine, text - 1))
+    return text, rng.binomial(subs, 0.85)
+
+
 def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen, D=HEAD_DIM):
     from vln_imagine_tpu_torch.ops.masks import extend_neg_mask
 
@@ -3552,6 +3619,16 @@ def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen, D=HEAD_DIM):
         elif bias_kind == "pad_rows":  # padding steps: two thirds of the
             keep[:2 * B // 3] = False  # rows have every key masked
             bias = torch.where(keep, 0.0, -1e9)[:, None, None, :]
+        elif bias_kind == "r2r":  # DUET's text (and imagination) slots as
+            # R2R's episodes fill them: the text a prefix of the first 200
+            text, imagine = (torch.as_tensor(x, device=dev) for x in r2r_sizes(
+                B, min(lk, 200), 20,
+                int(torch.randint(2 ** 31, (1,), device=dev, generator=gen))))
+            pos = torch.arange(lk, device=dev)
+            keep = pos[None, :] < text[:, None]
+            if lk > 200:
+                keep |= (pos[None, :] >= 200) & (pos[None, :] < 200 + imagine[:, None])
+            bias = extend_neg_mask(keep)
     return q, k, v, do, bias
 
 
@@ -3630,6 +3707,9 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
     case = {"kernel": kernel, "B": B, "Lq": lq, "Lk": lk, "D": D,
             "dtype": dtype_name, "bias": bias_kind, "bits": bits,
             "max_abs_err": err, "tol": tol}
+    one_row = bias is not None and bias.shape[1:3] == (1, 1)
+    if one_row and kernel in ("attention_fwd", "attention_dropout_fwd"):
+        case["key_tiles"] = key_tile_case(torch, run, q, bias)
     if not timed:
         return case
 
@@ -3645,6 +3725,13 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if kernel in ("attention_fwd", "attention_dropout_fwd"):
         bound = _bound(qkv_bytes + o_bytes + bias_bytes, 4 * mn, dtype_name)
+        if one_row:  # the least time where only the valid keys are read
+            from vln_imagine_tpu_torch.ops.masks import NEG_INF_MASK
+
+            valid = int((bias[:, 0, 0] > NEG_INF_MASK).sum())
+            vb = _bound((B * lq + 2 * valid) * HEADS * D * elt + o_bytes
+                        + bias_bytes, 4 * HEADS * lq * valid * D, dtype_name)
+            case.update(valid_keys=valid, bound_valid_ms=vb["bound_ms"])
         p = DROPOUT if kernel == "attention_dropout_fwd" else 0.0
 
         def library():
@@ -3675,7 +3762,7 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
         def parent_run():
             out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
             check(parent(*A.fwd_args(q, k, v, bias, out, scale, rate, seed,
-                                     bits or "philox")) == 0,
+                                     bits or "philox")[:parent.nargs]) == 0,
                   "the parent's forward kernel did not launch")
             return (out,)
 
@@ -3700,6 +3787,32 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
         case["library_ms"] = time_ms(torch, library, stream=lib_stream)
     case.update(bound)
     return case
+
+
+def key_tile_case(torch, run, q, bias) -> dict:
+    """One forward call with spans on: the key sub-tiles the kernel counts
+    against `key_tile_plan`'s for each item, times the (16 query rows,
+    head) blocks of an item."""
+    from vln_imagine_tpu_torch.ops import attention as A
+    from vln_imagine_tpu_torch.utils import spans
+
+    B, lq, H, D = q.shape
+    lk = bias.shape[-1]
+    rows = bias.expand(B, 1, 1, lk)[:, 0, 0].cpu()
+    plans = [A.key_tile_plan(rows[b], lk, D) for b in range(B)]
+    blocks = H * -(-lq // 16)
+    want = (blocks * sum(p["live"] for p in plans),
+            blocks * sum(p["total"] for p in plans))
+    before = A.key_tile_counts()
+    with spans.on():
+        run()
+    after = A.key_tile_counts()
+    got = tuple(after[n] - before[n]
+                for n in ("k1.key_tiles_live", "k1.key_tiles"))
+    check(got == want, f"key sub-tiles counted {got}, planned {want} at "
+          f"B{B} {lq}x{lk}")
+    return {"live": got[0], "total": got[1], "live_share": got[0] / got[1],
+            "one_chunk_items": sum(p["one_chunk"] for p in plans)}
 
 
 def kernels_phase(torch, parent=None):
@@ -3815,6 +3928,12 @@ def kernels_phase(torch, parent=None):
             for B in (TRAIN_BATCH, DUET_PRETRAIN_BATCH)[:2 if timed else 1]:
                 cases.append(kernel_case(torch, "attention_bwd", B, lq, lk, dt,
                                          bk, gen, timed=timed))
+    for B in DUET_R2R_BATCHES:  # K1 over DUET's rows with R2R-sized texts
+        for lq, lk in DUET_R2R_SHAPES:
+            for dt in ("bfloat16", "float32"):
+                cases.append(kernel_case(torch, "attention_fwd", B, lq, lk, dt,
+                                         "r2r", gen, timed=dt == "bfloat16",
+                                         parent=parent))
     lq, lk, bk = PANO_ROWS_SHAPE  # the pano encoder over whole trajectories
     for dt in ("bfloat16", "float32"):
         for kernel, bits in (("attention_fwd", None),
@@ -4053,7 +4172,9 @@ def determinism(torch, gen, kernel) -> list:
 def build_parent_fwd(parent: Path):
     """The C entry `vln_attention_fwd` of another checkout's forward source
     (`--parent`), built with this checkout's flags, to time it beside this
-    one's kernel on the same inputs.  Its arguments are the same."""
+    one's kernel on the same inputs.  Its arguments are the same, but for
+    the key sub-tile counter where its source has none; `nargs` says how
+    many of `fwd_args` it takes."""
     import ctypes
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -4068,8 +4189,11 @@ def build_parent_fwd(parent: Path):
     subprocess.run([nvcc, *A.NVCC_FLAGS, "-o", str(out), str(src)],
                    check=True, capture_output=True, text=True, timeout=600)
     fn = ctypes.CDLL(str(out)).vln_attention_fwd
-    fn.argtypes = A._ARGTYPES["vln_attention_fwd"]
+    # a source without the key sub-tile counter takes every argument but it
+    takes = "tile_counts" in src.read_text()
+    fn.argtypes = A._ARGTYPES["vln_attention_fwd"][:None if takes else -1]
     fn.restype = ctypes.c_int
+    fn.nargs = len(fn.argtypes)
     return fn
 
 

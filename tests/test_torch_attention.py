@@ -32,9 +32,13 @@ from vln_imagine_tpu_torch.ops.attention import (
     bwd_tile_plan,
     dropout_mask,
     fused_attention,
+    key_tile_counts,
+    key_tile_plan,
     launch_counts,
     philox4x32,
 )
+from vln_imagine_tpu_torch.ops.masks import NEG_INF_MASK
+from vln_imagine_tpu_torch.utils import spans
 
 torch.set_num_threads(2)
 
@@ -435,9 +439,11 @@ def test_bwd_kernel_arithmetic_within_bf16_tolerance(lq, lk):
 # 16 at a time in key order (each warp does so for its own columns of O),
 # chunk after chunk; O is rounded to bf16.  With one chunk sweep 1 reuses
 # sweep 0's S; past one chunk it stages K again and recomputes S the same
-# way.  The emulation is held against the interpret-mode Pallas K1 and K2
-# (hash bits) within BF16_TOL at main-path shapes, one key past a chunk, and
-# long rows.
+# way.  Where the bias is one key row an item, the keys are those of the
+# item's live sub-tiles (`key_tile_plan`), packed in order before the
+# chunks are cut.  The emulation is held against the interpret-mode Pallas
+# K1 and K2 (hash bits) within BF16_TOL at main-path shapes, one key past a
+# chunk, and long rows.
 
 FWD_EMULATION_SHAPES = [(67, 80), (80, 80), (36, 36), (80, 129), (220, 220),
                         (40, 1024)]
@@ -447,7 +453,29 @@ def _emulate_fwd_kernel(q, k, v, bias, scale, mask=None, sub=16, warps=4,
                         chunk=128):
     """The forward kernel's order on bf16 q, k, v [B, L, H, D] (f32 tensors
     holding bf16 values), the f32 bias [B, 1|H, 1|Lq, Lk] and the keep mask
-    [B, H, Lq, Lk] or None; returns the bf16-rounded O as f32."""
+    [B, H, Lq, Lk] or None; returns the bf16-rounded O as f32.  Each item
+    runs over the keys of the sub-tiles it sweeps, packed in order."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    one_row = bias.shape[1] == 1 and bias.shape[2] == 1
+    bias = bias.expand(B, -1, -1, -1)
+    outs = []
+    for b in range(B):
+        tiles = (key_tile_plan(bias[b, 0, 0], Lk, D)["tiles"] if one_row
+                 else range(-(-Lk // sub)))
+        keys = torch.tensor([j for t in tiles for j in range(t * sub,
+                                                             (t + 1) * sub)
+                             if j < Lk])
+        outs.append(_emulate_fwd_item(
+            q[b:b + 1], k[b:b + 1, keys], v[b:b + 1, keys],
+            bias[b:b + 1, ..., keys], scale,
+            None if mask is None else mask[b:b + 1, ..., keys], sub, warps,
+            chunk))
+    return torch.cat(outs)
+
+
+def _emulate_fwd_item(q, k, v, bias, scale, mask, sub, warps, chunk):
+    """`_emulate_fwd_kernel` over one item's packed keys."""
     B, Lq, H, _ = q.shape
     Lk = k.shape[1]
     chunks = [(c0, min(chunk, Lk - c0)) for c0 in range(0, Lk, chunk)]
@@ -491,18 +519,47 @@ def _emulate_fwd_kernel(q, k, v, bias, scale, mask=None, sub=16, warps=4,
 @pytest.mark.parametrize("kernel", ["K1", "K2"])
 @pytest.mark.parametrize("lq,lk", FWD_EMULATION_SHAPES)
 def test_fwd_kernel_arithmetic_within_bf16_tolerance(lq, lk, kernel):
+    _check_fwd_emulation(lq, lk, kernel, np.random.default_rng(lq * 10000 + lk))
+
+
+# DUET's calls over padded key rows: the text encoder 200/200 and the two
+# cross-attentions over 200 text + 20 imagination slots
+PADDED_EMULATION_SHAPES = [(200, 200), (97, 220), (51, 220)]
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("lq,lk", PADDED_EMULATION_SHAPES)
+def test_fwd_kernel_arithmetic_skipping_padded_tiles(lq, lk, kernel):
+    """The emulation where most sub-tiles are padding and are left out:
+    items with an R2R-sized text, one with a single valid key in its last
+    sub-tile, one with no valid key (which sweeps them all)."""
+    rng = np.random.default_rng(lq * 7 + lk)
+    keep = np.zeros((4, lk), bool)
+    keep[0, :33] = True
+    keep[1, :97] = True
+    if lk == 220:
+        keep[0, 200:204] = True
+        keep[1, 200:213] = True
+    keep[2, lk - 1] = True
+    _check_fwd_emulation(lq, lk, kernel, rng, keep)
+
+
+def _check_fwd_emulation(lq, lk, kernel, rng, keep=None):
+    """The emulated kernel against interpret-mode Pallas and the plain
+    version, for the key validity `keep` [B, Lk] (by default two items with
+    a random 80 % of their keys and the first)."""
     import jax.numpy as jnp
 
     from vln_imagine_tpu.ops import attention as A
 
-    B, H, D = 2, 2, 64
-    rng = np.random.default_rng(lq * 10000 + lk)
+    B, H, D = 2 if keep is None else keep.shape[0], 2, 64
     q = _bf16(torch.from_numpy(rng.standard_normal((B, lq, H, D)).astype(
         np.float32)))
     k, v = (_bf16(torch.from_numpy(rng.standard_normal(
         (B, lk, H, D)).astype(np.float32))) for _ in range(2))
-    keep = rng.random((B, lk)) < 0.8
-    keep[:, 0] = True
+    if keep is None:
+        keep = rng.random((B, lk)) < 0.8
+        keep[:, 0] = True
     bias = torch.from_numpy(
         ((1.0 - keep[:, None, None, :]) * -10000.0).astype(np.float32))
     scale, rate = 1.0 / np.sqrt(D), 0.1
@@ -590,6 +647,50 @@ def test_bwd_tile_plan_fits_shared_memory(D, dtype):
                   for key in ("smem_dq", "smem_dkdv"))
             for n in range(129, MAX_LK + 1)}
     assert len(tail) == 1
+
+
+def _rows(lk, valid):
+    row = torch.zeros(lk, dtype=torch.bool)
+    row[list(valid)] = True
+    return row
+
+
+# (mask row, Lk, D, swept sub-tiles, chunks): a text prefix; DUET's text of
+# 200 slots and 20 imaginations (Lk 220) with 33 tokens and 4 imaginations;
+# all valid, past one chunk; none valid (every sub-tile); Lk not a multiple
+# of 16; one valid key, in the last sub-tile; D 128, whose chunk is 64 keys;
+# a row that fits one chunk, whose sub-tiles are all swept
+KEY_TILE_CASES = {
+    "text_prefix": (_rows(200, range(33)), 200, 64, [0, 1, 2], [[0, 1, 2]]),
+    "duet_text_imagine": (_rows(220, [*range(33), *range(200, 204)]), 220, 64,
+                          [0, 1, 2, 12], [[0, 1, 2, 12]]),
+    "all_valid": (_rows(220, range(220)), 220, 64, list(range(14)),
+                  [list(range(8)), list(range(8, 14))]),
+    "none_valid": (_rows(220, []), 220, 64, list(range(14)),
+                   [list(range(8)), list(range(8, 14))]),
+    "ragged_lk": (_rows(150, [*range(10), 149]), 150, 64, [0, 9], [[0, 9]]),
+    "last_tile_only": (_rows(220, [219]), 220, 64, [13], [[13]]),
+    "d128_chunk_64": (_rows(220, [*range(80), 210]), 220, 128,
+                      [0, 1, 2, 3, 4, 13], [[0, 1, 2, 3], [4, 13]]),
+    "one_chunk_row": (_rows(67, range(20)), 67, 64, [0, 1, 2, 3, 4],
+                      [[0, 1, 2, 3, 4]]),
+}
+
+
+@pytest.mark.parametrize("padding", [NEG_INF_MASK, -1e9])
+@pytest.mark.parametrize("case", sorted(KEY_TILE_CASES))
+def test_key_tile_plan(case, padding):
+    """The sub-tiles the forward kernel sweeps for one item's additive key
+    row, with the -10000 mask or the pano encoder's -1e9 at the padding."""
+    valid, lk, D, tiles, chunks = KEY_TILE_CASES[case]
+    row = torch.where(valid, 0.0, padding)
+    plan = key_tile_plan(row, lk, D)
+    assert plan["tiles"] == tiles and plan["chunks"] == chunks
+    assert plan["live"] == len(tiles) and plan["total"] == -(-lk // 16)
+    assert plan["one_chunk"] == (len(chunks) == 1)
+    assert plan["staged_keys"] == min(128 if D <= 64 else 64,
+                                      -(-lk // 16) * 16)
+    assert all(len(c) * 16 <= plan["staged_keys"] for c in chunks)
 
 
 # ------------------------------------------------------- philox bits
@@ -933,6 +1034,105 @@ def test_kernels_at_duet_shapes_on_card(cuda, lq, lk, kind, dtype):
         for a, b in zip(got[name], w):
             torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol,
                                        msg=f"{name} {lq}x{lk} {kind}")
+
+
+# DUET's calls over padded key rows: the text encoder 200/200, the global
+# and local cross-attentions over 200 text + 20 imagination slots, SOON's
+# local branch against 100 + 1 text keys and its pano encoder over 150
+# tokens (-1e9 at the padding)
+PADDED_KEY_CASES = [(200, 200, "text"), (97, 220, "text"), (51, 220, "text"),
+                    (151, 101, "text"), (150, 150, "pad")]
+
+
+def _ragged_keys(cuda, g, B, lk):
+    """[B, Lk] key validity: item 0 has no valid key, item 1 one (key 5),
+    item 2 valid keys only in the last sub-tile, the rest a text prefix of
+    R2R's size (3 to 111 tokens) and, at Lk 220, 0 to 20 imaginations."""
+    n = torch.randint(3, min(lk, 112), (B,), device=cuda, generator=g)
+    keep = torch.arange(lk, device=cuda)[None, :] < n[:, None]
+    if lk == 220:
+        m = torch.randint(0, 21, (B,), device=cuda, generator=g)
+        img = torch.arange(20, device=cuda)[None, :] < m[:, None]
+        keep = torch.cat([keep[:, :200], img], dim=1)
+    keep[0] = False
+    keep[1] = False
+    keep[1, 5] = True
+    keep[2] = False
+    keep[2, (lk - 1) // 16 * 16:] = True
+    return keep
+
+
+def _padded_case(cuda, lq, lk, kind, dtype, seed):
+    q, k, v, _, _ = _card_case(cuda, lq, lk, False, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    keep = _ragged_keys(cuda, g, q.shape[0], lk)
+    if kind == "pad":
+        bias = torch.where(keep, 0.0, -1e9)[:, None, None, :]
+    else:
+        bias = (1.0 - keep.float())[:, None, None, :] * NEG_INF_MASK
+    return q, k, v, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,kind", PADDED_KEY_CASES)
+def test_fwd_kernels_skip_padded_key_tiles_on_card(cuda, lq, lk, kind, dtype):
+    """K1 and K2 (Philox and hash bits) over ragged [B, 1, 1, Lk] key rows,
+    which past one chunk they sweep only where live, against the plain
+    versions;
+    an item with no valid key gets the plain version's uniform weights; two
+    calls give the same bits."""
+    q, k, v, bias = _padded_case(cuda, lq, lk, kind, dtype, lq * 31 + lk)
+    seed, tol = 2 ** 36 + 5, (CARD_F32_TOL if dtype == torch.float32
+                              else BF16_TOL)
+    calls = {
+        "k1": (lambda: attention_fwd(q, k, v, bias, 0.125),
+               lambda: attention_reference(q, k, v, bias, 0.125)),
+        **{f"k2_{bits}": (
+            lambda bits=bits: attention_dropout_fwd(q, k, v, bias, 0.125, 0.1,
+                                                    seed, bits),
+            lambda bits=bits: attention_dropout_reference(
+                q, k, v, bias, 0.125, 0.1, seed, bits))
+           for bits in ("philox", "hash")}}
+    for name, (run, plain) in calls.items():
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        assert torch.isfinite(first).all(), name
+        assert torch.equal(first, second), f"{name}: two calls differ"
+        torch.testing.assert_close(first.float(), plain().float(), rtol=tol,
+                                   atol=tol, msg=f"{name} {lq}x{lk}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,kind", PADDED_KEY_CASES)
+def test_key_tile_counter_on_card(cuda, lq, lk, kind):
+    """With spans on, the forward kernel's counter gives the sub-tiles
+    `key_tile_plan` predicts, each (16 query rows, head) block counting its
+    item's; an all-valid row, a per-head bias and no bias sweep every
+    sub-tile (100 %); with spans off nothing is counted."""
+    q, k, v, bias = _padded_case(cuda, lq, lk, kind, torch.bfloat16, lq + lk)
+    B, H, blocks = q.shape[0], q.shape[2], -(-lq // 16)
+    plans = [key_tile_plan(bias[b, 0, 0], lk, q.shape[3]) for b in range(B)]
+    want = (H * blocks * sum(p["live"] for p in plans),
+            H * blocks * sum(p["total"] for p in plans))
+    # packed past one chunk of 128 keys; a one-chunk row sweeps them all
+    assert want[0] < want[1] if lk > 128 else want[0] == want[1]
+
+    def counted(b):
+        before = key_tile_counts()
+        with spans.on():
+            attention_fwd(q, k, v, b, 0.125)
+        after = key_tile_counts()
+        return tuple(after[n] - before[n]
+                     for n in ("k1.key_tiles_live", "k1.key_tiles"))
+
+    assert counted(bias) == want
+    for full in (torch.zeros_like(bias),
+                 torch.randn(B, H, 1, lk, device=cuda), None):
+        assert counted(full) == (want[1], want[1])
+    before = key_tile_counts()
+    attention_fwd(q, k, v, bias, 0.125)
+    assert key_tile_counts() == before
 
 
 @pytest.mark.cuda

@@ -60,9 +60,31 @@
 // chunk) under the card's 227 KB.  A register budget for six blocks (24
 // warps) an SM at bf16 D <= 64 serves the B 64 eval calls.  On an H100, a
 // warp per 16 query rows walking every key (no merges, K and V staged once
-// per block) was slower than the key split at every eval and training
-// shape: it needs far more registers a thread and five sub-tiles a warp in
-// place of two.
+// per block) was slower than the key split at every eval and training shape:
+// it needs far more registers a thread and five sub-tiles a warp in place of
+// two.
+//
+// Padded keys.  Where the bias is one key row an item (f32, stride 0 over
+// heads and query rows: the [B,1,1,Lk] padding mask) and the keys take more
+// than one staged chunk, a block sweeps only its item's live 16-key sub-tiles,
+// those with a key above the padding value -10000 (ops/masks.py:NEG_INF_MASK)
+// (attention_fwd_kernel<T, D, true>).  Each warp reads the row itself and
+// lists the live sub-tiles in order, so no block-wide barrier comes before the
+// first chunk's copies; their K, V and bias are staged packed, one strided
+// copy a run of consecutive sub-tiles, in as few chunks as they need.  DUET's
+// text of some 33 of 200 slots then takes one chunk in place of two, with S
+// kept in registers and V's copy overlapped.  For an item with a valid key a
+// padded key's exp(S - max) is exactly 0 in f32 (S lies some 10,000 below the
+// max), so the sub-tiles left out add nothing to any row's sum or to P V;
+// dealing the live sub-tiles to other warps reorders the row sums by an ulp at
+// most.  Every key keeps its own index for the -inf past Lk and for K2's
+// dropout bits.  An item with no valid key, or with every sub-tile live,
+// sweeps them all.  Keys that fit one chunk, no bias, and a per-head or
+// per-row bias take the sweep over every sub-tile (attention_fwd_kernel<T, D,
+// false>): on an H100, finding the live sub-tiles of a one-chunk row cost more
+// than they saved at every eval shape.  A non-null counter buffer gets each
+// block's swept and total sub-tiles (the wrapper passes one only while spans
+// are on).
 //
 // Products (attention_tiles.cuh).  bf16: mma.sync.m16n8k16 (bf16 in, f32
 // accumulate), Q, K and P through ldmatrix, V through ldmatrix.trans, from
@@ -78,7 +100,11 @@
 // 0.0052 to 0.0077 ms at B 8 (SDPA 0.0079 to 0.0119).  K2 with Philox bits
 // at the eight training shapes, B 8: 0.0067 to 0.0098 ms (SDPA with dropout
 // 0.0121 to 0.0163; before 0.0143 to 0.0256).  The byte bound is 0.0042 to
-// 0.0094 ms at B 64 and 0.0005 to 0.0012 ms at B 8.
+// 0.0094 ms at B 64 and 0.0005 to 0.0012 ms at B 8.  K1 over DUET's key rows
+// with R2R-sized texts and imaginations at B 512: 97/220 0.418 ms, 51/220
+// 0.244, 200/200 0.677 (the sweep over every sub-tile: 0.949, 0.545, 1.667;
+// SDPA 0.265, 0.257, 0.506); with every key valid at 97/220, 1.043 against
+// 0.949.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,6 +121,16 @@ namespace {
 
 using namespace vln;
 
+// a key whose bias is at or below this is padding (ops/masks.py)
+constexpr float kNegInfMask = -10000.f;
+// key sub-tiles of the longest Lk the kernel takes (ops/attention.py:MAX_LK)
+constexpr int kMaxTiles = 64;
+// slots of the sub-tile counters, so that the blocks' atomics spread
+constexpr int kCountSlots = 64;
+// shared memory the packed sweep adds: each warp's copy of the live
+// sub-tiles (a byte each)
+constexpr size_t kPackSmem = kWarps * kMaxTiles;
+
 struct Params {
   const void* q;
   const void* k;
@@ -110,12 +146,16 @@ struct Params {
   long long sbb, sbh, sbq, sbk;
   float scale;
   vln::DropoutParams drop;  // drop.bits == kBitsNone: K1
+  unsigned long long* counts;  // nullptr, or [kCountSlots][swept, total]
 };
 
 // blocks per SM the register budget must allow: six at bf16 D <= 64 (at
-// most 85 registers a thread), so that B 64 eval calls keep 24 warps an SM
-template <typename T, int D>
-constexpr int min_blocks() { return std::is_same<T, float>::value || D > 64 ? 2 : 6; }
+// most 85 registers a thread), so that B 64 eval calls keep 24 warps an SM;
+// five for the packed sweep, whose full chunk of keys fits five blocks an SM
+template <typename T, int D, bool kPack>
+constexpr int min_blocks() {
+  return std::is_same<T, float>::value || D > 64 ? 2 : kPack ? 5 : 6;
+}
 
 // key sub-tiles a warp takes in one staged chunk, at most
 template <int D>
@@ -137,8 +177,26 @@ __host__ __device__ constexpr size_t fwd_smem(int kc, int brows) {
 template <int D>
 __host__ __device__ constexpr int col_warps() { return D / 16 < kWarps ? D / 16 : kWarps; }
 
+// the key sub-tiles tiles[0, n) of a strided [L, D] slice, packed in order
+// into a [n * kSub, D + pad] tile, one strided copy a run of consecutive
+// sub-tiles; rows >= L are zero-filled
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
+__device__ __forceinline__ void stage_tiles(T* dst, const T* src, long long row_stride,
+                                            const unsigned char* tiles, int n, int L) {
+  constexpr int LD = D + pad<T>();
+  int u = 0;
+  while (u < n) {
+    int e = u + 1;
+    while (e < n && tiles[e] == tiles[e - 1] + 1) ++e;
+    stage<T, D>(dst + u * kSub * LD, src, row_stride, tiles[u] * kSub, L, (e - u) * kSub);
+    u = e;
+  }
+}
+
+// kPack: the bias is one key row an item and the keys take more than one
+// staged chunk; the block sweeps its item's live sub-tiles, packed
+template <typename T, int D, bool kPack>
+__global__ void __launch_bounds__(kThreads, min_blocks<T, D, kPack>())
     attention_fwd_kernel(const Params p) {
   static_assert(D % 32 == 0, "D must be a multiple of 32");
   constexpr int LD = D + pad<T>();
@@ -164,35 +222,88 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
   const T* vg = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
   const float* bias = p.bias == nullptr ? nullptr : p.bias + b * p.sbb + h * p.sbh;
   const int bld = p.brows == 1 ? 0 : kc;  // row stride of the staged bias
+  const int ntiles = (Lk + kSub - 1) / kSub;
 
   stage<T, D>(qs, qg, p.sql, row0, Lq, kRows);
+
+  int nkeys = Lk;       // the keys the chunks stage, in all
+  int swept = ntiles;   // the sub-tiles the block sweeps
+  bool packed = false;  // the live sub-tiles, packed
+  // kPack: this warp's copy of the live sub-tiles, in order
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(ps + kRows * LDP) + warp * kMaxTiles;
+  if constexpr (kPack) {
+    // every warp alike: bit t of m says whether sub-tile t holds a valid key
+    // (a ballot covers two)
+    unsigned long long m = 0;
+    for (int base = 0; base < Lk; base += 8 * 32) {
+      bool valid[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {  // every load before the first ballot
+        const int j = base + 32 * k + lane;
+        valid[k] = j < Lk && __ldg(bias + j * p.sbk) > kNegInfMask;
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const unsigned w = __ballot_sync(0xffffffffu, valid[k]);
+        const int t0 = (base + 32 * k) / kSub;  // at most 62: Lk <= 1024
+        m |= static_cast<unsigned long long>((w & 0xffffu) != 0u) << t0;
+        m |= static_cast<unsigned long long>((w >> kSub) != 0u) << (t0 + 1);
+      }
+    }
+    // an item with no valid key, or none padded, sweeps every sub-tile
+    const int n = __popcll(m);
+    if (n > 0 && n < ntiles) {
+      const unsigned m0 = static_cast<unsigned>(m), m1 = static_cast<unsigned>(m >> 32);
+      const unsigned below = (1u << lane) - 1u;
+      if ((m0 >> lane) & 1u) tiles[__popc(m0 & below)] = lane;
+      if ((m1 >> lane) & 1u) tiles[__popc(m0) + __popc(m1 & below)] = lane + 32;
+      __syncwarp();
+      swept = n;
+      nkeys = n * kSub;
+      packed = true;
+    }
+  }
 
   const int rows[2] = {row0 + g, row0 + g + 8};
   float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, inv[2];
   float o[NC / 8][4] = {};
   float sk[kSubs][kNT][4];  // sweep 0's S, kept for sweep 1 in one chunk
-  const int nchunks = (Lk + kc - 1) / kc;
+  const int nchunks = (nkeys + kc - 1) / kc;
   const bool keep_s = nchunks == 1;
 
   for (int sweep = 0; sweep < 2; ++sweep) {
     for (int c = 0; c < nchunks; ++c) {
-      const int c0 = c * kc, nk = min(kc, Lk - c0);
+      const int c0 = c * kc, nk = min(kc, nkeys - c0);
+      const unsigned char* ct = tiles + c0 / kSub;  // kPack: the chunk's sub-tiles
       if (sweep == 0 || !keep_s) {
         __syncthreads();  // every warp is done with the previous chunk
-        stage<T, D>(ks, kg, p.skl, c0, Lk, round_up(nk, kSub));
+        if (packed)
+          stage_tiles<T, D>(ks, kg, p.skl, ct, nk / kSub, Lk);
+        else
+          stage<T, D>(ks, kg, p.skl, c0, Lk, round_up(nk, kSub));
         for (int x = threadIdx.x; x < p.brows * kc; x += kThreads) {
-          const int i = row0 + x / kc, j = c0 + x % kc;
+          const int i = row0 + x / kc, jj = x % kc;
+          int j = c0 + jj;
+          if (packed) j = jj < nk ? ct[jj / kSub] * kSub + jj % kSub : Lk;
           const bool valid = bias != nullptr && i < Lq && j < Lk;
           cp_async4(bs + x, valid ? bias + i * p.sbq + j * p.sbk : p.q, valid);
         }
         if (keep_s) {
           // V's copy overlaps sweep 0; it is waited for before the merge
           cp_async_commit();
-          stage<T, D>(vs, vg, p.svl, c0, Lk, round_up(nk, kSub));
+          if (packed)
+            stage_tiles<T, D>(vs, vg, p.svl, ct, nk / kSub, Lk);
+          else
+            stage<T, D>(vs, vg, p.svl, c0, Lk, round_up(nk, kSub));
           cp_async_commit();
           cp_async_wait<1>();
         } else {
-          if (sweep == 1) stage<T, D>(vs, vg, p.svl, c0, Lk, round_up(nk, kSub));
+          if (sweep == 1) {
+            if (packed)
+              stage_tiles<T, D>(vs, vg, p.svl, ct, nk / kSub, Lk);
+            else
+              stage<T, D>(vs, vg, p.svl, c0, Lk, round_up(nk, kSub));
+          }
           cp_async_wait_all();
         }
         __syncthreads();
@@ -203,6 +314,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
       for (int u = 0; u < kSubs; ++u) {
         const int s0 = (warp + u * kWarps) * kSub;
         if (s0 >= nk) break;
+        int j0 = c0 + s0;  // the sub-tile's first key
+        if (packed) j0 = ct[s0 / kSub] * kSub;
         float s[kNT][4];
         if (sweep == 1 && keep_s) {
 #pragma unroll
@@ -220,10 +333,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
           for (int n = 0; n < kNT; ++n) {
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
-              const int col = s0 + 8 * n + 2 * t;
+              const int col = s0 + 8 * n + 2 * t, j = j0 + 8 * n + 2 * t;
               const float2 bv = *reinterpret_cast<const float2*>(bs + (g + 8 * r) * bld + col);
-              s[n][2 * r] = c0 + col < Lk ? s[n][2 * r] * p.scale + bv.x : -INFINITY;
-              s[n][2 * r + 1] = c0 + col + 1 < Lk ? s[n][2 * r + 1] * p.scale + bv.y : -INFINITY;
+              s[n][2 * r] = j < Lk ? s[n][2 * r] * p.scale + bv.x : -INFINITY;
+              s[n][2 * r + 1] = j + 1 < Lk ? s[n][2 * r + 1] * p.scale + bv.y : -INFINITY;
             }
           }
           if (sweep == 0 && keep_s) {
@@ -255,7 +368,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
           for (int n = 0; n < kNT; ++n) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const int r = e >> 1, j = c0 + s0 + 8 * n + 2 * t + (e & 1);
+              const int r = e >> 1, j = j0 + 8 * n + 2 * t + (e & 1);
               float pv = __expf(s[n][e] - mx[r]) * inv[r];
               if (dropout && rows[r] < Lq && j < Lk)
                 pv *= vln::dropout_mask(p.drop, b, h, rows[r], j);
@@ -302,6 +415,14 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
     }
   }
 
+  if (p.counts != nullptr && threadIdx.x == 0) {
+    unsigned long long* slot =
+        p.counts +
+        2 * ((blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)) % kCountSlots);
+    atomicAdd(slot, static_cast<unsigned long long>(swept));
+    atomicAdd(slot + 1, static_cast<unsigned long long>(ntiles));
+  }
+
   if (warp < col_warps<D>()) {
     T* og = static_cast<T*>(p.o);
 #pragma unroll
@@ -321,11 +442,16 @@ template <typename T, int D>
 cudaError_t launch(Params p, cudaStream_t stream) {
   // the most shared memory a block takes: a full staged chunk
   constexpr size_t kSmemLimit = 232448;  // bytes a block may use on an H100
-  static_assert(fwd_smem<T, D>(chunk_rows(D), kRows) <= kSmemLimit, "block too large");
+  static_assert(fwd_smem<T, D>(chunk_rows(D), kRows) <= kSmemLimit &&
+                    fwd_smem<T, D>(chunk_rows(D), 1) + kPackSmem <= kSmemLimit,
+                "block too large");
   p.kc = staged_rows(p.Lk, D);
   p.brows = p.bias == nullptr || p.sbq == 0 ? 1 : kRows;
-  const size_t smem = fwd_smem<T, D>(p.kc, p.brows);
-  auto kernel = attention_fwd_kernel<T, D>;
+  // the packed sweep: one key row an item (stride 0 over heads and query
+  // rows), past one staged chunk
+  const bool pack = p.bias != nullptr && p.sbq == 0 && p.sbh == 0 && p.Lk > p.kc;
+  const size_t smem = fwd_smem<T, D>(p.kc, p.brows) + (pack ? kPackSmem : 0);
+  auto kernel = pack ? attention_fwd_kernel<T, D, true> : attention_fwd_kernel<T, D, false>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -350,8 +476,9 @@ cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
 // bits: 0 = no dropout (K1), 1 = hash, 2 = Philox (K2), with the keep
 // threshold, the kept value, the seed, the global batch row of row 0 and the
 // model's head of head 0 (the bits' counter takes b + row_offset and
-// h + head_offset).  Returns the cudaError_t of the
-// launch.
+// h + head_offset).  tile_counts: null, or kCountSlots pairs of u64 (swept,
+// total) to which each block adds its key sub-tiles.  Returns the
+// cudaError_t of the launch.
 extern "C" int vln_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     int dtype, int B, int H, int Lq, int Lk, int D,
@@ -361,12 +488,13 @@ extern "C" int vln_attention_fwd(
     long long sbb, long long sbh, long long sbq, long long sbk,
     float scale, int bits, unsigned int threshold, float keep_scale,
     unsigned long long seed, unsigned int row_offset,
-    unsigned int head_offset, void* stream) {
+    unsigned int head_offset, void* stream, void* tile_counts) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.bias = static_cast<const float*>(bias);
   p.B = B; p.H = H; p.Lq = Lq; p.Lk = Lk;
   p.kc = p.brows = 0;
+  p.counts = static_cast<unsigned long long*>(tile_counts);
   p.sqb = sqb; p.sql = sql; p.sqh = sqh;
   p.skb = skb; p.skl = skl; p.skh = skh;
   p.svb = svb; p.svl = svl; p.svh = svh;
@@ -379,7 +507,8 @@ extern "C" int vln_attention_fwd(
   p.drop.row_offset = row_offset;
   p.drop.head_offset = head_offset;
   if (bits < vln::kBitsNone || bits > vln::kBitsPhilox) return cudaErrorInvalidValue;
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || Lk > kMaxTiles * kSub)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (dtype) {

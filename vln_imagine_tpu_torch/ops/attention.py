@@ -17,6 +17,14 @@ tensor it launches its kernel or raises; nothing falls back.
 `launch_counts()` gives each wrapper's kernel launches, and the LayerNorm
 kernel's.
 
+Padded keys.  Where the bias is one key row an item (the [B, 1, 1, Lk]
+padding mask) and the keys take more than one staged chunk, the forward
+kernel sweeps only the 16-key sub-tiles that hold a valid key, packed
+(`key_tile_plan` gives them for one row).  While spans are on
+(`utils/spans.py`), K1 and K2 launches add their swept and total sub-tiles
+to a counter on the device, which `key_tile_counts()` reads into the spans
+counters `k1.key_tiles_live` and `k1.key_tiles`.
+
 `fused_attention` is the model's entry: K1 (or K2 with attention-probs
 dropout) under `torch.no_grad`, else `FusedAttention`, whose backward is K4
 (or K3).  The backward recomputes P from q, k and the bias, as the TPU
@@ -63,6 +71,7 @@ from pathlib import Path
 
 import torch
 
+from vln_imagine_tpu_torch.ops.masks import NEG_INF_MASK
 from vln_imagine_tpu_torch.utils import spans
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -287,11 +296,11 @@ def build_kernels() -> dict[str, Path]:
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     # q k v bias o | dtype B H Lq Lk D | 13 strides | scale | bits threshold
-    # keep_scale seed row_offset head_offset | stream
+    # keep_scale seed row_offset head_offset | stream | tile counters
     "vln_attention_fwd": ([_PTR] * 5 + [_INT] * 6 + [_LL] * 13
                           + [ctypes.c_float, _INT, ctypes.c_uint32,
                              ctypes.c_float, ctypes.c_uint64, ctypes.c_uint32,
-                             ctypes.c_uint32, _PTR]),
+                             ctypes.c_uint32, _PTR, _PTR]),
     # q k v bias do dq dk dv ds lse delta keep | dtype B H Lq Lk D |
     # 16 strides | scale | bits threshold keep_scale seed row_offset
     # head_offset | stream
@@ -382,9 +391,10 @@ def _check_aligned(**tensors) -> None:
 
 
 def fwd_args(q, k, v, bias, out, scale, rate=0.0, seed=0, bits="philox",
-             row_offset=0, head_offset=0):
+             row_offset=0, head_offset=0, tile_counts=None):
     """The arguments of the C entry `vln_attention_fwd` for one call, after
-    the checks of `_launch_fwd`; `out` is the [B, Lq, H, D] output."""
+    the checks of `_launch_fwd`; `out` is the [B, Lq, H, D] output and
+    `tile_counts` None or the int64 [TILE_COUNT_SLOTS, 2] counter."""
     bias = _check(q, k, v, bias)
     _check_aligned(q=q, k=k, v=v)
     B, Lq, H, D = q.shape
@@ -397,14 +407,46 @@ def fwd_args(q, k, v, bias, out, scale, rate=0.0, seed=0, bits="philox",
             v.stride(0), v.stride(1), v.stride(2),
             *bstrides, float(scale),
             *_dropout_args(rate, seed, bits, row_offset, head_offset),
-            _stream(q))
+            _stream(q), None if tile_counts is None else tile_counts.data_ptr())
+
+
+# K1 / K2's sub-tile counters, one int64 [TILE_COUNT_SLOTS, 2] (swept, total)
+# a device, made at the first launch with spans on; the kernel spreads its
+# blocks' atomics over the slots
+TILE_COUNT_SLOTS = 64
+_tile_counts: dict[torch.device, torch.Tensor] = {}
+
+
+def _tile_counter(device: torch.device) -> torch.Tensor:
+    buf = _tile_counts.get(device)
+    if buf is None:
+        buf = torch.zeros((TILE_COUNT_SLOTS, 2), dtype=torch.int64,
+                          device=device)
+        _tile_counts[device] = buf
+    return buf
+
+
+def key_tile_counts() -> dict[str, int]:
+    """Adds the key sub-tiles K1 and K2 swept (`k1.key_tiles_live`) and
+    had (`k1.key_tiles`) while spans were on, since the last call, to the
+    spans counters of those names, and returns them.  One host read a
+    device: call it outside the rollout's steps."""
+    for buf in _tile_counts.values():
+        live, total = buf.sum(0).tolist()
+        buf.zero_()
+        spans.count("k1.key_tiles_live", live)
+        spans.count("k1.key_tiles", total)
+    n = spans.counts()
+    return {name: n.get(name, 0)
+            for name in ("k1.key_tiles_live", "k1.key_tiles")}
 
 
 def _launch_fwd(q, k, v, bias, scale, rate=0.0, seed=0, bits="philox",
                 row_offset=0, head_offset=0):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    counts = _tile_counter(q.device) if spans.enabled() else None
     args = fwd_args(q, k, v, bias, out, scale, rate, seed, bits, row_offset,
-                    head_offset)
+                    head_offset, counts)
     err = load_kernels()["attention_fwd.cu"].vln_attention_fwd(*args)
     if err != 0:
         raise RuntimeError(f"attention forward kernel launch failed: CUDA "
@@ -449,6 +491,38 @@ def bwd_tile_plan(Lq: int, Lk: int, D: int, dtype: torch.dtype) -> dict:
             # + max, 1 / sum, delta and keep word per query, bias [qc, 16]
             "smem_dkdv": (rows + max(2 * qc * ld * elt, partials) + 2 * buf
                           + (4 + BWD_ROWS) * qc * 4)}
+
+
+# the forward's key sub-tile (csrc/attention_tiles.cuh: kSub)
+FWD_SUB = 16
+
+
+def key_tile_plan(mask_row: torch.Tensor, Lk: int, D: int) -> dict:
+    """The key sub-tiles the forward kernel (K1, K2) sweeps for one batch
+    item whose bias is one key row, as `attention_fwd_kernel` picks them.
+    `mask_row` is the item's additive [Lk] row, where a key at or below
+    NEG_INF_MASK is padding.  The keys are staged `staged_keys` at a time
+    (128, 64 at D 128, or every key rounded up to a sub-tile where fewer).
+    Where they take more than one chunk, a sub-tile of 16 keys is live
+    where one of its keys is valid, and the live ones are staged packed in
+    order (an item with no valid key sweeps them all); where they fit one,
+    every sub-tile is swept.  `chunks` lists each chunk's sub-tiles, and
+    `one_chunk` says whether sweep 1 reuses sweep 0's scores."""
+    row = torch.as_tensor(mask_row).detach().cpu()
+    if row.shape != (Lk,):
+        raise ValueError(f"mask row of shape {tuple(row.shape)}, want ({Lk},)")
+    total = -(-Lk // FWD_SUB)
+    staged = min(128 if D <= 64 else 64, total * FWD_SUB)
+    valid = torch.zeros(total * FWD_SUB, dtype=torch.bool)
+    valid[:Lk] = row > NEG_INF_MASK
+    tiles = valid.view(total, FWD_SUB).any(1).nonzero().flatten().tolist()
+    if not tiles or Lk <= staged:
+        tiles = list(range(total))
+    per = staged // FWD_SUB
+    chunks = [tiles[i:i + per] for i in range(0, len(tiles), per)]
+    return {"tiles": tiles, "live": len(tiles), "total": total,
+            "staged_keys": staged, "chunks": chunks,
+            "one_chunk": len(chunks) == 1}
 
 
 def _aligned(t: torch.Tensor) -> bool:

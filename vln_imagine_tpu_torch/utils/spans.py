@@ -119,6 +119,11 @@ def spanned(name: str):
     return wrap
 
 
+def enabled() -> bool:
+    """Whether spans are on."""
+    return _state.on
+
+
 @contextlib.contextmanager
 def on():
     """Spans on inside the block, as they were after it."""
