@@ -301,12 +301,6 @@ KERNELS = {
     "attention_bwd": (KERNEL_SOURCES[1], f"{TPU}:67"),           # _bwd_kernel
 }
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
-# rate of the kernels' arithmetic for their input type (bf16 on tensor
-# cores, f32 outside them: TF32 stays off)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-
 # kernel vs plain, both on the card.  f32: the same products summed in
 # another order (64-term dot products, <= 80-term sums over keys or query
 # rows) differ by ~1e-6; 1e-4 leaves room.  bf16: P and O are rounded to
@@ -424,7 +418,7 @@ def check(ok: bool, what: str) -> None:
 
 
 def attention_part(launches: dict) -> dict:
-    """The attention kernels' counts of `attention.launch_counts()`: what
+    """The attention kernels' counts of `kernels.launch_counts()`: what
     the launch formulas give.  The LayerNorm kernel's count beside them is
     read per path (`eval_layer_norm` on the eval paths)."""
     return {k: v for k, v in launches.items() if k != "layer_norm"}
@@ -492,6 +486,55 @@ def fresh_phase(torch) -> None:
 
 
 # --------------------------------------------------------------- phase 2
+def bench_world(cfg):
+    """bench.py's synthetic world: 2 scans x 96 nodes, 36 views, 768-d."""
+    from vln_imagine_tpu_torch.envx import synthetic_world
+
+    world, _ = synthetic_world(num_scans=2, num_nodes=96,
+                               max_candidates=cfg.env.max_candidates, views=36,
+                               feat_dim=cfg.model.image_feat_size, seed=0)
+    return world
+
+
+def bench_episodes(world, cfg, batch: int):
+    """bench.py's episodes (seed 1) at `batch`."""
+    from vln_imagine_tpu_torch.envx import synthetic_episodes
+
+    return synthetic_episodes(world, batch=batch,
+                              max_gt_path_len=cfg.env.max_gt_path_len,
+                              max_instr_len=cfg.env.max_instr_len,
+                              max_imaginations=cfg.model.max_imagination_len,
+                              vocab_size=cfg.model.vocab_size,
+                              feat_dim=cfg.model.hidden_size, seed=1)
+
+
+def eval_steps(trainer, ep, path_len) -> int:
+    """Steps the greedy eval loop ran.  HAMT records one node a step, so its
+    paths say it: the loop breaks after the step at which the last item
+    stopped, and an item that stops at step s has path_len s + 1.  A DUET
+    step may record several nodes (teleports, the stop-node backtrack), so
+    the rollout is run once more for its step count."""
+    if trainer.cfg.agent == "hamt":
+        return min(int(path_len.max()), trainer.cfg.env.max_action_len)
+    from vln_imagine_tpu_torch.train.rollout_duet import rollout_duet
+
+    return rollout_duet(trainer.model, trainer.tables, ep, trainer.cfg,
+                        early_exit=True).steps
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
 def check_walks(world, ep, nodes, lens, max_len, jumps_allowed=False) -> int:
     """Every path starts at its start node, has at most `max_len` entries of
     valid nodes, and each move follows a valid edge of `adj`.  With
@@ -526,8 +569,7 @@ def main_path_phase(torch, cfg, world):
         eval_batch,
         trajectories_from_rollout,
     )
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
     from vln_imagine_tpu_torch.utils import spans
 
@@ -548,15 +590,15 @@ def main_path_phase(torch, cfg, world):
     setup_s = time.perf_counter() - t0
 
     # the counted run: every count set to 0 just before, read just after
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     spans.reset_counts("layer_norm.plain")
     runs = {}
     for B in BATCHES:
-        before = attention.launch_counts()["attention_fwd"]
+        before = kernels.launch_counts()["attention_fwd"]
         nodes, lens = eval_step(eps[B])
         nodes, lens = nodes.cpu().numpy(), lens.cpu().numpy()
-        runs[B] = (nodes, lens, attention.launch_counts()["attention_fwd"] - before)
-    launches = attention.launch_counts()
+        runs[B] = (nodes, lens, kernels.launch_counts()["attention_fwd"] - before)
+    launches = kernels.launch_counts()
     check(launches["attention_fwd"] > 0
           and sum(attention_part(launches).values())
           == launches["attention_fwd"], f"eval launches {launches}")
@@ -609,8 +651,7 @@ def parity_phase(torch, cfg, world):
     import numpy as np
 
     from vln_imagine_tpu_torch.config import _replace
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.train.rollout_hamt import rollout_hamt
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
 
@@ -620,11 +661,11 @@ def parity_phase(torch, cfg, world):
     out = {}
     for dev in ("cuda", "cpu"):
         trainer = HamtTrainer(cfg32, world, device=dev)
-        before = attention.launch_counts()["attention_fwd"]
+        before = kernels.launch_counts()["attention_fwd"]
         nodes, lens = trainer.make_eval_step()(ep)
         step0 = rollout_hamt(trainer.model, trainer.tables, ep.to(dev), cfg32,
                              max_steps=1, early_exit=False).logits[0]
-        launched = attention.launch_counts()["attention_fwd"] - before
+        launched = kernels.launch_counts()["attention_fwd"] - before
         check(launched > 0 if dev == "cuda" else launched == 0,
               f"{dev}: {launched} kernel launches")
         out[dev] = (nodes.cpu().numpy(), lens.cpu().numpy(),
@@ -688,8 +729,7 @@ def train_launches_per_step(cfg) -> tuple[int, int]:
 
 
 def train_phase(torch, cfg, world):
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.train.optim import label_hamt_param
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
 
@@ -710,10 +750,10 @@ def train_phase(torch, cfg, world):
     setup_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     times, metrics, counts = [], [], []
     for _ in range(3):
-        before = attention.launch_counts()
+        before = kernels.launch_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -723,9 +763,9 @@ def train_phase(torch, cfg, world):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
         metrics.append({k: float(v) for k, v in m.items()})
-        after = attention.launch_counts()
+        after = kernels.launch_counts()
         counts.append({k: after[k] - before[k] for k in after})
-    launches = attention.launch_counts()
+    launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     for m in metrics:
@@ -805,7 +845,7 @@ def f32_parity(torch, phase, make_trainer, make_step, keys, lr, draws=None,
     `grads(trainer)` names within TRAIN_TOL relative; every updated element
     within 2 * lr * 10 and all but UPDATE_FRACTION of the moved ones within
     UPDATE_TOL.  Returns the card's launches."""
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
 
     fresh_phase(torch)
     out, launches = {}, None
@@ -820,13 +860,13 @@ def f32_parity(torch, phase, make_trainer, make_step, keys, lr, draws=None,
         before = {k: v.detach().cpu().clone()
                   for k, v in trainer.model.named_parameters()}
         step = make_step(trainer)
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         with (contextlib.nullcontext() if draws is None
               else same_draws(torch, draws)):
             m = step(ep, ep)
         if dev == "cuda":
             torch.cuda.synchronize()
-            launches = attention.launch_counts()
+            launches = kernels.launch_counts()
         out[dev] = ({k: float(v) for k, v in m.items()},
                     {k: v.detach().cpu() - before[k]
                      for k, v in trainer.model.named_parameters()},
@@ -867,7 +907,6 @@ def f32_parity(torch, phase, make_trainer, make_step, keys, lr, draws=None,
 
 def train_parity_phase(torch, cfg, world):
     """One HAMT teacher step, f32, batch 2, card vs CPU (`f32_parity`)."""
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
 
     cfg32 = cfg_f32(cfg)
@@ -913,8 +952,8 @@ def duet_eval_phase(torch, cfg, world):
         eval_batch,
         trajectories_from_rollout,
     )
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes, eval_steps
     from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.train.rollout_duet import path_buffer_len
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
     from vln_imagine_tpu_torch.utils import spans
@@ -932,15 +971,15 @@ def duet_eval_phase(torch, cfg, world):
     setup_s = time.perf_counter() - t0
 
     # the counted run: every count set to 0 just before, read just after
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     spans.reset_counts("layer_norm.plain")
     runs = {}
     for B in BATCHES:
-        before = attention.launch_counts()["attention_fwd"]
+        before = kernels.launch_counts()["attention_fwd"]
         nodes, lens = eval_step(eps[B])
         runs[B] = (nodes.cpu().numpy(), lens.cpu().numpy(),
-                   attention.launch_counts()["attention_fwd"] - before)
-    launches = attention.launch_counts()
+                   kernels.launch_counts()["attention_fwd"] - before)
+    launches = kernels.launch_counts()
     check(launches["attention_fwd"] > 0
           and sum(attention_part(launches).values())
           == launches["attention_fwd"], f"duet eval launches {launches}")
@@ -1026,8 +1065,7 @@ def duet_parity_phase(torch, cfg, world):
     import numpy as np
 
     from vln_imagine_tpu_torch.config import _replace
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.train.rollout_duet import rollout_duet
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
 
@@ -1037,11 +1075,11 @@ def duet_parity_phase(torch, cfg, world):
     out = {}
     for dev in ("cuda", "cpu"):
         trainer = DuetTrainer(cfg32, world, device=dev)
-        before = attention.launch_counts()["attention_fwd"]
+        before = kernels.launch_counts()["attention_fwd"]
         nodes, lens = trainer.make_eval_step()(ep)
         step0 = rollout_duet(trainer.model, trainer.tables, ep.to(dev), cfg32,
                              max_steps=1).logits[0]
-        launched = attention.launch_counts()["attention_fwd"] - before
+        launched = kernels.launch_counts()["attention_fwd"] - before
         check(launched > 0 if dev == "cuda" else launched == 0,
               f"duet {dev}: {launched} kernel launches")
         out[dev] = (nodes.cpu().numpy(), lens.cpu().numpy(),
@@ -1061,8 +1099,7 @@ def duet_parity_phase(torch, cfg, world):
 
 
 def duet_train_phase(torch, cfg, world):
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.train.optim import label_hamt_param
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
 
@@ -1081,10 +1118,10 @@ def duet_train_phase(torch, cfg, world):
     setup_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     times, metrics, counts = [], [], []
     for _ in range(3):
-        before = attention.launch_counts()
+        before = kernels.launch_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -1094,9 +1131,9 @@ def duet_train_phase(torch, cfg, world):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
         metrics.append({k: float(v) for k, v in m.items()})
-        after = attention.launch_counts()
+        after = kernels.launch_counts()
         counts.append({k: after[k] - before[k] for k in after})
-    launches = attention.launch_counts()
+    launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     for m in metrics:
@@ -1134,7 +1171,6 @@ def duet_train_phase(torch, cfg, world):
 def duet_train_parity_phase(torch, cfg, world):
     """One DUET 'imitation' step, f32, batch 2, card vs CPU (`f32_parity`),
     with the gradient that K4's dBias carries into `sprel_linear`."""
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
 
     cfg32 = cfg_f32(cfg, train_alg="imitation")
@@ -1336,7 +1372,7 @@ def driver_phase(torch, cfg, scratch: Path):
     recipe on files written from the bench world; then a fresh driver's
     `load_checkpoint`, and a NaN injected into its first interval."""
     from vln_imagine_tpu_torch.driver import FinetuneDriver
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
 
     fresh_phase(torch)
     agent = cfg.agent
@@ -1354,12 +1390,12 @@ def driver_phase(torch, cfg, scratch: Path):
 
     # the counted run: every count set to 0 just before, read just after
     torch.cuda.reset_peak_memory_stats()
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     d.run(iters=DRIVER_ITERS, log_every=DRIVER_LOG_EVERY)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = attention.launch_counts()
+    launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     want = driver_launches(d, *(train_launches_per_step(cfg) if agent == "hamt"
@@ -1450,20 +1486,20 @@ def cli_phase(torch, scratch: Path, phase, argv, files=CLI_FILES,
     giving more fields to emit).  Gates: it ran on the card, wrote
     `files`, and launched K1 = 9 + 18 a step over its eval steps and K2 /
     K3 = iters x the agent's per-step counts, K4 none."""
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.scripts import train as cli
 
     fresh_phase(torch)
     t_phase = time.perf_counter()
     log = scratch / phase
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     d = cli.main(argv + ["--log-dir", str(log)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     extra = {} if after is None else after(d, log)
     torch.cuda.synchronize()
-    launches = attention.launch_counts()
+    launches = kernels.launch_counts()
     check(d.device.type == "cuda", f"the CLI ran on {d.device}")
     for name in files:
         check((log / name).is_file(), f"the CLI wrote no {name}")
@@ -1528,7 +1564,7 @@ def dp_driver_phase(torch, cfg, scratch: Path):
     the scores are bitwise equal; both runs launch what the formulas say."""
     from vln_imagine_tpu_torch.config import _replace
     from vln_imagine_tpu_torch.driver import FinetuneDriver
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
 
     fresh_phase(torch)
     agent = cfg.agent
@@ -1545,12 +1581,12 @@ def dp_driver_phase(torch, cfg, scratch: Path):
         d.setup()
         torch.cuda.synchronize()
         # the counted run: every count set to 0 just before, read just after
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
         d.run(iters=DP_DRIVER_ITERS, log_every=DP_DRIVER_LOG_EVERY)
         score = d.validate(val)
         torch.cuda.synchronize()
-        launches = attention.launch_counts()
+        launches = kernels.launch_counts()
         want = driver_launches(d, k2, k3)
         check(attention_part(launches) == want,
               f"dp_driver {agent} {name}: launches "
@@ -1621,15 +1657,15 @@ def dp_cli_child(log: Path) -> None:
     """The `--dp-cli-child` role of this script, under the launcher."""
     import torch
 
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.scripts import train as cli
 
     argv = ["--synthetic", "--iters", "2", "--log-every", "1",
             "--mesh-data", "1"]
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     d = cli.main(argv + ["--log-dir", str(log)])
     torch.cuda.synchronize()
-    launches = attention.launch_counts()
+    launches = kernels.launch_counts()
     check(d.device.type == "cuda" and d.shard is not None
           and d.shard.size == 1, f"dp_cli ran on {d.device}, shard {d.shard}")
     k2, k3 = train_launches_per_step(d.cfg)
@@ -1672,8 +1708,7 @@ def dp_steps(torch, mesh, world) -> dict:
     its rows (None: the whole batch): metrics, the updated parameters'
     abs-sum and the launches of each step."""
     from vln_imagine_tpu_torch.config import duet_r2r_config, hamt_r2r_config
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.parallel.mesh import shard_batch
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
@@ -1689,13 +1724,13 @@ def dp_steps(torch, mesh, world) -> dict:
         step = (tr.make_train_step("sample") if agent == "hamt"
                 else tr.make_train_step())
         torch.cuda.synchronize()
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
         m = step(ep, ep)
         torch.cuda.synchronize()
         out[agent] = {
             "step_s": time.perf_counter() - t0,
-            "launches": attention.launch_counts(),
+            "launches": kernels.launch_counts(),
             "metrics": {k: float(v) for k, v in m.items()},
             "param_sum": sum(float(p.detach().double().abs().sum())
                              for p in tr.model.parameters()),
@@ -1774,7 +1809,6 @@ def dp_rank_child(rank: int, out_dir: Path) -> None:
     import torch.distributed as dist
 
     from vln_imagine_tpu_torch.config import hamt_r2r_config
-    from vln_imagine_tpu_torch.eval.trace import bench_world
     from vln_imagine_tpu_torch.parallel.distributed import initialize
     from vln_imagine_tpu_torch.parallel.mesh import make_mesh
 
@@ -1834,8 +1868,7 @@ def tp_steps(torch, mesh, world) -> dict:
         duet_r2r_config,
         hamt_r2r_config,
     )
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.parallel.tensor import gather_state
     from vln_imagine_tpu_torch.train.rollout_duet import rollout_duet
     from vln_imagine_tpu_torch.train.rollout_hamt import rollout_hamt
@@ -1844,11 +1877,11 @@ def tp_steps(torch, mesh, world) -> dict:
 
     def counted(fn):
         torch.cuda.synchronize()
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return out, attention.launch_counts(), time.perf_counter() - t0
+        return out, kernels.launch_counts(), time.perf_counter() - t0
 
     def whole_sum(module) -> float:
         return sum(float(v.detach().double().abs().sum())
@@ -1915,7 +1948,7 @@ def tp_driver_run(torch, mesh, scratch: Path, rank: int) -> dict:
     slices bitwise equal to the file's."""
     from vln_imagine_tpu_torch.config import hamt_r2r_config
     from vln_imagine_tpu_torch.driver import FinetuneDriver
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.parallel.tensor import split_of
 
     cfg = hamt_r2r_config()
@@ -1927,13 +1960,13 @@ def tp_driver_run(torch, mesh, scratch: Path, rank: int) -> dict:
     d.setup()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     d.run(iters=TP_DRIVER_ITERS, log_every=TP_DRIVER_LOG_EVERY)
     score = d.validate(val)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = attention.launch_counts()
+    launches = kernels.launch_counts()
     want = driver_launches(d, *train_launches_per_step(cfg))
     check(attention_part(launches) == want,
           f"tp_driver rank {rank}: launches {launches}, "
@@ -1984,7 +2017,6 @@ def tp_rank_child(rank: int, out_dir: Path) -> None:
     import torch.distributed as dist
 
     from vln_imagine_tpu_torch.config import hamt_r2r_config
-    from vln_imagine_tpu_torch.eval.trace import bench_world
     from vln_imagine_tpu_torch.parallel.distributed import initialize
     from vln_imagine_tpu_torch.parallel.mesh import make_mesh
 
@@ -2156,7 +2188,7 @@ def variant_steps(torch, make_trainer, ep, steps, want, k1_k4=(0, 0),
     stage-1 semantics (`plain_split` where the recipe has no warm-up; or
     `split(model, before)`), the critic moved (when there is one).  Returns
     (trainer, record)."""
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.train.optim import label_hamt_param
 
     fresh_phase(torch)
@@ -2174,12 +2206,12 @@ def variant_steps(torch, make_trainer, ep, steps, want, k1_k4=(0, 0),
     times, metrics, counts = [], [], []
     for _ in range(steps - 1):
         # the counted run of one step: every count to 0 just before
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         t = time.perf_counter()
         m = step(ep, ep)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-        counts.append(attention.launch_counts())
+        counts.append(kernels.launch_counts())
         metrics.append({k: float(v) for k, v in m.items()})
     for m in metrics:
         check(all(math.isfinite(v) for v in m.values()), f"metrics {m}")
@@ -2222,7 +2254,6 @@ def hamt_train_variants_phase(torch, cfg, world):
     every dropout on, batch 8 (+ 8 in the fused rollout); then one f32
     fused step card vs CPU with the same draws, at batch 1 (+ 1)."""
     from vln_imagine_tpu_torch.config import _replace
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
     from vln_imagine_tpu_torch.train import rollout_hamt as RH
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
 
@@ -2270,7 +2301,6 @@ def duet_train_variants_phase(torch, cfg, world):
     every dropout on, batch 8; then one f32 'rl' step card vs CPU with the
     same draws, at batch 2."""
     from vln_imagine_tpu_torch.config import _replace
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
     from vln_imagine_tpu_torch.train import rollout_duet as RD
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
 
@@ -2324,8 +2354,7 @@ def duet_eval_variants_phase(torch, cfg, world):
     import numpy as np
 
     from vln_imagine_tpu_torch.config import _replace
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.train.rollout_duet import path_buffer_len
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
 
@@ -2341,10 +2370,10 @@ def duet_eval_variants_phase(torch, cfg, world):
         trainer = DuetTrainer(vcfg, world, device="cuda")
         eval_step = trainer.make_eval_step(detailed=detailed)
         eval_step(ep)  # warm-up
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         out = eval_step(ep)
         torch.cuda.synchronize()
-        launches = attention.launch_counts()
+        launches = kernels.launch_counts()
         steps = eval_step.steps
         nodes, lens = out[0].cpu().numpy(), out[1].cpu().numpy()
         want = per_episode + per_step * steps
@@ -2434,7 +2463,6 @@ def out_and_back(ep):
 
 
 def variant_episodes(world, cfg, batch: int):
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
 
     ep = bench_episodes(world, cfg, batch)
     return out_and_back(ep) if cfg.dataset == "r2r_back" else ep
@@ -2477,7 +2505,7 @@ def variant_eval(torch, trainer, world, ep_np) -> dict:
     grounded objects or the midstops), then two timed runs."""
     import numpy as np
 
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.train.rollout_duet import path_buffer_len
 
     cfg = trainer.cfg
@@ -2486,10 +2514,10 @@ def variant_eval(torch, trainer, world, ep_np) -> dict:
     ep = ep_np.to("cuda")
     eval_step(ep)  # warm-up
     torch.cuda.synchronize()
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     out = eval_step(ep)
     torch.cuda.synchronize()
-    launches = attention.launch_counts()
+    launches = kernels.launch_counts()
     steps = eval_step.steps
     nodes, lens = out[0].cpu().numpy(), out[1].cpu().numpy()
     want = per_episode + per_step * steps
@@ -2658,7 +2686,7 @@ def variant_driver_phase(torch):
 
     from vln_imagine_tpu_torch.data.features import build_object_tables
     from vln_imagine_tpu_torch.driver import FinetuneDriver, SplitData
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
 
     fresh_phase(torch)
     t_phase = time.perf_counter()
@@ -2684,13 +2712,13 @@ def variant_driver_phase(torch):
                            device="cuda")
         d.setup()
         d.validate(val)  # warm-up
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         d.eval_step_counts.clear()
         t0 = time.perf_counter()
         score = d.validate(val, write_outputs=True)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = attention.launch_counts()
+        launches = kernels.launch_counts()
         sub = json.loads((Path(tmp) / "submit_val_unseen.json").read_text())
     per_episode, per_step = eval_calls(cfg)
     want = {"attention_fwd": sum(per_episode + per_step * s
@@ -2828,7 +2856,7 @@ def vit_extract_phase(torch):
         ViTConfig,
         VisionTransformer,
     )
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.train.trainer import init_params
 
     fresh_phase(torch)
@@ -2841,11 +2869,11 @@ def vit_extract_phase(torch):
     ext.extract(images[:VIT_BATCH])  # warm-up
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     t = time.perf_counter()
     feats = ext.extract(images)  # returns host arrays: the device is done
     host_s = time.perf_counter() - t
-    launches = attention.launch_counts()
+    launches = kernels.launch_counts()
     want = {"attention_fwd": cfg.num_layers * VIT_BATCHES,
             "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
             "attention_bwd": 0}
@@ -2929,7 +2957,7 @@ def e2e_finetune_phase(torch, cfg, dcfg, world):
     trainable), valid walks and K1 = 9 + 12 + 18 a step in eval."""
     import numpy as np
 
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.train.trainer import HamtTrainer
     from vln_imagine_tpu_torch.train.trainer_duet import DuetTrainer
 
@@ -2963,12 +2991,12 @@ def e2e_finetune_phase(torch, cfg, dcfg, world):
     ep = ep_np.to("cuda")
     eval_step(ep)  # warm-up
     torch.cuda.synchronize()
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     t = time.perf_counter()
     nodes, lens = eval_step(ep)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
-    launches = attention.launch_counts()
+    launches = kernels.launch_counts()
     nodes, lens = nodes.cpu().numpy(), lens.cpu().numpy()
     check_walks(world, ep_np, nodes, lens, c.env.max_action_len + 1)
     steps = min(int(lens.max()), c.env.max_action_len)
@@ -3034,8 +3062,7 @@ def hamt_pretrain_phase(torch, cfg, world):
     within TRAIN_TOL."""
     import copy
 
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.pretrain.data import TrajectoryBatcher
     from vln_imagine_tpu_torch.pretrain.hamt_model import (
         TASKS,
@@ -3064,7 +3091,7 @@ def hamt_pretrain_phase(torch, cfg, world):
     tasks = {}
     for task in TASKS:
         batch = pt.batcher.task_batch(task, PRETRAIN_BATCH)
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, m = pt.train_step(state, task, batch)
@@ -3073,18 +3100,18 @@ def hamt_pretrain_phase(torch, cfg, world):
         k2, k3 = pretrain_calls(cfg, task)
         want = {"attention_fwd": 0, "attention_dropout_fwd": k2,
                 "attention_dropout_bwd": k3, "attention_bwd": 0}
-        got = attention.launch_counts()
+        got = kernels.launch_counts()
         check(attention_part(got) == want,
               f"pretrain {task} launches {got}, want {want}")
         check(math.isfinite(float(m["loss"])), f"pretrain {task} loss")
         tasks[task] = {"step_ms": ms, "loss": float(m["loss"]),
                        "launches": got}
     peak = torch.cuda.max_memory_allocated()
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     t = time.perf_counter()
     val = pt.validate(state, batch_size=8, num_batches=2)
     val_s = time.perf_counter() - t
-    val_launches = attention.launch_counts()
+    val_launches = kernels.launch_counts()
     want = {"attention_fwd": 2 * sum(pretrain_calls(cfg, t)[0]
                                      for t in TASKS),
             "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
@@ -3109,7 +3136,7 @@ def hamt_pretrain_phase(torch, cfg, world):
         image_prob_size=PRETRAIN_PROBS, vocab_size=cfg.model.vocab_size,
         seed=4)
     parity = {}
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     for task in TASKS:
         batch = batcher.task_batch(task, 2)
         out = []
@@ -3125,7 +3152,7 @@ def hamt_pretrain_phase(torch, cfg, world):
                         "loss_rel_err": rel, "grad_rel_err": grad}
         check(rel <= TRAIN_TOL and grad <= TRAIN_TOL,
               f"pretrain f32 {task}: loss {rel}, gradients {grad}")
-    f32_launches = attention.launch_counts()
+    f32_launches = kernels.launch_counts()
     check(f32_launches["attention_fwd"] > 0 and f32_launches["attention_bwd"]
           > 0 and f32_launches["attention_dropout_fwd"] == 0,
           f"pretrain f32 launches {f32_launches}")
@@ -3171,9 +3198,8 @@ def e2e_pretrain_phase(torch, cfg, world):
     with autograd off and returns no graph; finite losses."""
     import numpy as np
 
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
     from vln_imagine_tpu_torch.models.vit import ViTConfig
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.pretrain.hamt_model import TASKS
     from vln_imagine_tpu_torch.pretrain.trainer import (
         E2E_TASK_ARGS,
@@ -3209,13 +3235,13 @@ def e2e_pretrain_phase(torch, cfg, world):
     for task in TASKS:
         batch = pt.batcher.task_batch(task, E2E_PRETRAIN_BATCH)
         calls.clear()
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, m = pt.train_step(state, task, batch)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
-        got = attention.launch_counts()
+        got = kernels.launch_counts()
         obs = "ob_images" in E2E_TASK_ARGS[task]
         k2, k3 = pretrain_calls(cfg, task)
         want = {"attention_fwd": vit_cfg.num_layers * (3 if obs else 2),
@@ -3258,7 +3284,7 @@ def pretrain_cli_phase(torch, scratch: Path):
     import io
     import re
 
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.scripts import pretrain as pcli
     from vln_imagine_tpu_torch.scripts import train as tcli
 
@@ -3271,12 +3297,12 @@ def pretrain_cli_phase(torch, scratch: Path):
                                  "32", "--batch-size", "2"]),
                         ("duet", ["--agent", "duet"])):
         log = scratch / name
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         t = time.perf_counter()
         pt, state = pcli.main(base + extra + ["--log-dir", str(log)])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
-        launches = attention.launch_counts()
+        launches = kernels.launch_counts()
         record = (log / "pretrain.txt").read_text()
         losses = [float(x) for x in re.findall(r"loss=([^\s,]+)", record)]
         check(pt.device.type == "cuda" and state.step == 4,
@@ -3304,7 +3330,7 @@ def pretrain_cli_phase(torch, scratch: Path):
     for name, agent, source in (("finetune", "hamt", "features"),
                                 ("finetune_duet", "duet", "duet")):
         out = io.StringIO()
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         t = time.perf_counter()
         with contextlib.redirect_stdout(out):
             d = tcli.main(["--agent", agent, "--synthetic", "--iters", "2",
@@ -3318,7 +3344,7 @@ def pretrain_cli_phase(torch, scratch: Path):
               f"--init-from-pretrain ({agent}): {out.getvalue()[-500:]}")
         runs[name] = {"seconds": time.perf_counter() - t,
                       "leaves_transferred": int(m.group(1)),
-                      "launches": attention.launch_counts()}
+                      "launches": kernels.launch_counts()}
         del d
         torch.cuda.empty_cache()
     emit({"phase": "pretrain_cli", "argv": " ".join(base), "runs": runs,
@@ -3358,7 +3384,6 @@ def device_busy_ms(torch, fn):
     ms: the union of the traced kernels' and copies' intervals)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from vln_imagine_tpu_torch.eval.trace import _busy_us
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
@@ -3375,20 +3400,20 @@ def duet_pretrain_steps(torch, pt, state, batch: int):
     the host first), then one more under the profiler for the device's
     busy time.  Gates: K2 = K3 = `duet_pretrain_calls`, K1 / K4 none,
     finite losses, a count > 0."""
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
 
     tasks = {}
     for task in pt.cfg.pretrain.tasks:
         t = time.perf_counter()
         b = pt.batcher.task_batch(task, batch)
         host_ms = (time.perf_counter() - t) * 1e3
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, m = pt.train_step(state, task, b)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t) * 1e3
-        got = attention.launch_counts()
+        got = kernels.launch_counts()
         k = duet_pretrain_calls(pt.cfg, task)
         want = {"attention_fwd": 0, "attention_dropout_fwd": k,
                 "attention_dropout_bwd": k, "attention_bwd": 0}
@@ -3416,7 +3441,7 @@ def duet_pretrain_parity(torch, cfg, world, ep, tasks, image_prob_size):
     import copy
     import dataclasses
 
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.pretrain.duet_data import (
         DuetTrajectoryBatcher,
     )
@@ -3437,7 +3462,7 @@ def duet_pretrain_parity(torch, cfg, world, ep, tasks, image_prob_size):
         image_prob_size=image_prob_size, vocab_size=cfg.model.vocab_size,
         seed=4)
     out = {}
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     for task in tasks:
         for _ in range(50):  # og: a batch in which a target object shows
             batch = batcher.task_batch(task, 2)
@@ -3469,7 +3494,7 @@ def duet_pretrain_parity(torch, cfg, world, ep, tasks, image_prob_size):
             out[task]["sprel_grad_rel_err"] = err
             check(float(w.abs().max()) > 0 and err <= TRAIN_TOL,
                   f"duet pretrain f32 sap: sprel_linear gradient {err}")
-    launches = attention.launch_counts()
+    launches = kernels.launch_counts()
     check(launches["attention_fwd"] > 0 and launches["attention_bwd"] > 0
           and launches["attention_dropout_fwd"] == 0
           and launches["attention_dropout_bwd"] == 0,
@@ -3487,8 +3512,7 @@ def duet_pretrain_phase(torch, dcfg, world):
     bench world with 20 objects a node, batch 8, and its `validate`; each
     task's f32 loss and gradients at batch 2 card vs CPU."""
     from vln_imagine_tpu_torch.config import reverie_config
-    from vln_imagine_tpu_torch.eval.trace import bench_episodes
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
     from vln_imagine_tpu_torch.pretrain.trainer import DuetPretrainer
 
     fresh_phase(torch)
@@ -3508,11 +3532,11 @@ def duet_pretrain_phase(torch, dcfg, world):
     torch.cuda.reset_peak_memory_stats()
     state, tasks = duet_pretrain_steps(torch, pt, state, DUET_PRETRAIN_BATCH)
     peak = torch.cuda.max_memory_allocated()
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     t = time.perf_counter()
     val = pt.validate(state, batch_size=DUET_PRETRAIN_BATCH, num_batches=1)
     val_s = time.perf_counter() - t
-    val_launches = attention.launch_counts()
+    val_launches = kernels.launch_counts()
     want = {"attention_fwd": sum(duet_pretrain_calls(cfg, t)
                                  for t in DUET_PRETRAIN_TASKS),
             "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
@@ -3536,9 +3560,9 @@ def duet_pretrain_phase(torch, dcfg, world):
     ostate, og = duet_pretrain_steps(torch, ops, ostate, DUET_OG_BATCH)
     tasks.update(og)
     og_peak = torch.cuda.max_memory_allocated()
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     oval = ops.validate(ostate, batch_size=DUET_OG_BATCH, num_batches=2)
-    oval_launches = attention.launch_counts()
+    oval_launches = kernels.launch_counts()
     check(oval_launches["attention_fwd"] == 2 * duet_pretrain_calls(ocfg, "og")
           and math.isfinite(oval["og"]["loss"]),
           f"og validate {oval} launches {oval_launches}")
@@ -3632,8 +3656,19 @@ def _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen, D=HEAD_DIM):
     return q, k, v, do, bias
 
 
+def h100_peaks() -> dict:
+    """The H100 SXM's published peaks as the benchmark reads them
+    (`portbench/peaks.json`): HBM bytes/s (`bytes_per_s`) and the rate of
+    the kernels' arithmetic by input type (`flops`: bf16 on tensor cores,
+    f32 outside them, TF32 staying off)."""
+    cards = json.loads((ROOT / "portbench" / "peaks.json").read_text())
+    return next(c for c in cards["cards"] if c["match"] == "H100")
+
+
 def _bound(nbytes: int, flops: int, dtype_name: str) -> dict:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    peaks = h100_peaks()
+    t_bytes = nbytes / peaks["bytes_per_s"]
+    t_ops = flops / peaks["flops"][dtype_name]
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -3652,6 +3687,7 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
     import torch.nn.functional as F
 
     from vln_imagine_tpu_torch.ops import attention as A
+    from vln_imagine_tpu_torch.ops import kernels
 
     dtype = getattr(torch, dtype_name)
     q, k, v, do, bias = _case_inputs(torch, B, lq, lk, dtype, bias_kind, gen,
@@ -3688,11 +3724,11 @@ def kernel_case(torch, kernel, B, lq, lk, dtype_name, bias_kind, gen,
         def plain():
             return A.attention_bwd_reference(q, k, v, bias, do, scale)
 
-    before = A.launch_counts()[kernel]
+    before = kernels.launch_counts()[kernel]
     got = run()
     want = plain()
     torch.cuda.synchronize()
-    check(A.launch_counts()[kernel] == before + 1, f"{kernel} was not launched")
+    check(kernels.launch_counts()[kernel] == before + 1, f"{kernel} was not launched")
     if not need_db and len(want) == 4:
         want = want[:3]
     check(len(got) == len(want) or (len(got) == 4 and got[3] is None),
@@ -4015,7 +4051,8 @@ def layer_norm_cases(torch, gen) -> list:
             case.update(
                 ms=time_ms(torch, lambda: layer_norm(x, r, w, b, eps)),
                 plain_ms=time_ms(torch, plain),
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bound_ms=nbytes / h100_peaks()["bytes_per_s"] * 1e3,
+                bound_by="bytes",
                 bytes=nbytes)
             case["bound_share"] = case["bound_ms"] / case["ms"]
         out.append(case)
@@ -4039,6 +4076,7 @@ def _part_cases(torch, inputs, part, offset: dict, label: str) -> list:
     versions at that offset (within KERNEL_TOL).  `part(x, bias_like)`
     cuts the part from a [B, L, H, D] tensor or from a bias-shaped one."""
     from vln_imagine_tpu_torch.ops import attention as A
+    from vln_imagine_tpu_torch.ops import kernels
 
     scale, seed = HEAD_DIM ** -0.5, 0x5EED_0FF5E7
     q, k, v, do, bias = inputs
@@ -4046,7 +4084,7 @@ def _part_cases(torch, inputs, part, offset: dict, label: str) -> list:
     pq, pk, pv, pdo = (part(x, False) for x in (q, k, v, do))
     pb = part(bias, True)
     k23 = ("attention_dropout_fwd", "attention_dropout_bwd")
-    before = tuple(A.launch_counts()[name] for name in k23)
+    before = tuple(kernels.launch_counts()[name] for name in k23)
     full = (A.attention_dropout_fwd(q, k, v, bias, scale, DROPOUT, seed),
             *A.attention_dropout_bwd(q, k, v, bias, do, scale, DROPOUT, seed,
                                      need_dbias=True))
@@ -4059,7 +4097,7 @@ def _part_cases(torch, inputs, part, offset: dict, label: str) -> list:
              *A.attention_bwd_reference(pq, pk, pv, pb, pdo, scale, DROPOUT,
                                         seed, "philox", **offset))
     torch.cuda.synchronize()
-    check(tuple(A.launch_counts()[name] for name in k23)
+    check(tuple(kernels.launch_counts()[name] for name in k23)
           == (before[0] + 2, before[1] + 2),
           f"K2 / K3 were not launched at {label}")
     bitwise = all(torch.equal(g, part(f, i == 4))
@@ -4171,28 +4209,23 @@ def determinism(torch, gen, kernel) -> list:
 
 def build_parent_fwd(parent: Path):
     """The C entry `vln_attention_fwd` of another checkout's forward source
-    (`--parent`), built with this checkout's flags, to time it beside this
-    one's kernel on the same inputs.  Its arguments are the same, but for
-    the key sub-tile counter where its source has none; `nargs` says how
-    many of `fwd_args` it takes."""
+    (`--parent`), built with this checkout's flags into `build/parent/`, to
+    time it beside this one's kernel on the same inputs.  Its arguments are
+    the same, but for the key sub-tile counter where its source has none;
+    `nargs` says how many of `fwd_args` it takes."""
     import ctypes
 
-    from torch.utils.cpp_extension import CUDA_HOME
-
     from vln_imagine_tpu_torch.ops import attention as A
+    from vln_imagine_tpu_torch.ops import kernels
 
     src = parent / KERNEL_SOURCES[0]
     check(src.is_file(), f"--parent: no {src}")
-    out = A.BUILD_DIR / "parent_attention_fwd.so"
-    A.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME else "nvcc"
-    subprocess.run([nvcc, *A.NVCC_FLAGS, "-o", str(out), str(src)],
-                   check=True, capture_output=True, text=True, timeout=600)
-    fn = ctypes.CDLL(str(out)).vln_attention_fwd
+    lib = kernels.kernel_library(src, kernels.BUILD_DIR.parent / "parent")
+    kernels.build({src: lib})
+    fn = A.FWD.bind(ctypes.CDLL(str(lib)))
     # a source without the key sub-tile counter takes every argument but it
-    takes = "tile_counts" in src.read_text()
-    fn.argtypes = A._ARGTYPES["vln_attention_fwd"][:None if takes else -1]
-    fn.restype = ctypes.c_int
+    if "tile_counts" not in src.read_text():
+        fn.argtypes = fn.argtypes[:-1]
     fn.nargs = len(fn.argtypes)
     return fn
 
@@ -4254,15 +4287,14 @@ def main() -> None:
                              Path(args.tp_rank_child[1]))
 
     from vln_imagine_tpu_torch.config import duet_r2r_config, hamt_r2r_config
-    from vln_imagine_tpu_torch.eval.trace import bench_world
-    from vln_imagine_tpu_torch.ops import attention
+    from vln_imagine_tpu_torch.ops import kernels
 
     t = time.perf_counter()
-    libs = attention.load_kernels()
+    libs = kernels.load()
     parent = None if args.parent is None else build_parent_fwd(args.parent)
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "libraries": [Path(lib._name).name for lib in libs.values()],
-          "nvcc_flags": attention.NVCC_FLAGS,
+          "nvcc_flags": kernels.NVCC_FLAGS,
           "parent": None if args.parent is None else str(args.parent)})
 
     cfg, dcfg = hamt_r2r_config(), duet_r2r_config()

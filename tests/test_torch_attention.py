@@ -34,9 +34,9 @@ from vln_imagine_tpu_torch.ops.attention import (
     fused_attention,
     key_tile_counts,
     key_tile_plan,
-    launch_counts,
     philox4x32,
 )
+from vln_imagine_tpu_torch.ops.kernels import launch_counts
 from vln_imagine_tpu_torch.ops.masks import NEG_INF_MASK
 from vln_imagine_tpu_torch.utils import spans
 
@@ -595,11 +595,12 @@ def test_launch_fwd_raises_on_unaligned_view_before_any_build(which,
     """q, k or v one element past 16 bytes is refused before the kernels
     are built or loaded: the forward's 16-byte copies cannot take it."""
     from vln_imagine_tpu_torch.ops import attention as A
+    from vln_imagine_tpu_torch.ops import kernels
 
     def no_build():
         raise AssertionError("the kernels were built or loaded")
 
-    monkeypatch.setattr(A, "load_kernels", no_build)
+    monkeypatch.setattr(kernels, "load", no_build)
     B, L, H, D = 2, 5, 3, 64
     t = {n: torch.randn(B, L, H, D).to(torch.bfloat16) for n in "qkv"}
     shifted = torch.zeros(t[which].numel() + 1,

@@ -189,28 +189,23 @@ def test_failed_interval_rolls_back_to_latest_dict(tmp_path, monkeypatch,
         d.run(iters=6, log_every=2, max_failures=1)
 
 
-def _per_item(d, monkeypatch, **env):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    d.validate(d.val_splits[0], batch_size=4, write_outputs=True)
+def _per_item(d, batch_size):
+    d.validate(d.val_splits[0], batch_size=batch_size, write_outputs=True)
     m = json.loads(_read(os.path.join(d.log_dir,
                                       "individual_metrics_val_unseen.json")))
     return {iid: {k: v[i] for k, v in m.items() if k != "instr_id"}
             for i, iid in enumerate(m["instr_id"])}
 
 
-def test_bucketed_validation_equals_sequential(tmp_path, monkeypatch):
-    d = _driver(tmp_path)
-    seq = _per_item(d, monkeypatch, VLN_EVAL_BUCKET="0")
-    buck = _per_item(d, monkeypatch, VLN_EVAL_BUCKET="1")
-    assert len(seq) == 6 and seq == buck
-
-
-def test_pipelined_validation_equals_synchronous(tmp_path, monkeypatch):
-    d = _driver(tmp_path, "duet")
-    sync = _per_item(d, monkeypatch, VLN_EVAL_PIPELINE="1")
-    pipe = _per_item(d, monkeypatch, VLN_EVAL_PIPELINE="16")
-    assert len(sync) == 6 and sync == pipe
+@pytest.mark.parametrize("agent", ["hamt", "duet"])
+def test_bucketed_validation_equals_sequential(tmp_path, agent):
+    """A batch that holds the whole split runs it in order; batches of 4
+    run it bucketed by gt path length: every item scores the same."""
+    d = _driver(tmp_path, agent)
+    n = d.val_splits[0].episodes.scan.shape[0]
+    seq = _per_item(d, batch_size=n)
+    buck = _per_item(d, batch_size=4)
+    assert len(seq) == n == 6 and seq == buck
 
 
 def test_aug_alternation_trains(tmp_path):

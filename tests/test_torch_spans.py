@@ -11,7 +11,7 @@ import torch
 from portbench.spans import Attribution, host_table, issue_ns, measure
 from vln_imagine_tpu_torch.config import tiny_test_config
 from vln_imagine_tpu_torch.envx import synthetic_episodes, synthetic_world
-from vln_imagine_tpu_torch.ops.attention import (
+from vln_imagine_tpu_torch.ops.kernels import (
     launch_counts,
     reset_launch_counts,
 )

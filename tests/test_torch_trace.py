@@ -7,7 +7,7 @@ from pathlib import Path
 
 import pytest
 
-from vln_imagine_tpu_torch.eval.trace import _busy_us
+from chip_smoke import _busy_us
 
 REPO = Path(__file__).resolve().parents[1]
 KERNELS = REPO / "portbench" / "kernels"

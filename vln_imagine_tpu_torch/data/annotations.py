@@ -425,52 +425,3 @@ def ndh_episodes_from_annotations(
         resolved, graphs, AuxMetadata(), max_instr_len, max_gt_path_len,
         max_imaginations, clamp_gt_path=True)
     return ep, ids, end_panos_all
-
-
-class RoundRobinSampler:
-    """Training batch order: sequential with reshuffle-on-wrap
-    (R2RBatch._next_minibatch, env.py:188-204)."""
-
-    def __init__(self, n: int, batch_size: int, seed: int = 0):
-        self.n = n
-        self.bs = batch_size
-        self.rng = np.random.default_rng(seed)
-        self.order = self.rng.permutation(n)
-        self.ix = 0
-
-    def next_batch(self) -> np.ndarray:
-        take = self.order[self.ix: self.ix + self.bs]
-        if len(take) < self.bs:
-            self.order = self.rng.permutation(self.n)
-            self.ix = self.bs - len(take)
-            take = np.concatenate([take, self.order[: self.ix]])
-        else:
-            self.ix += self.bs
-        return take
-
-
-class EvalSampler:
-    """Whole-epoch eval order with 'looped' detection
-    (BaseAgent.test, agent_base.py:25-49): batches wrap; items seen twice are
-    dropped by the caller via the returned fresh-mask."""
-
-    def __init__(self, n: int, batch_size: int):
-        self.n = n
-        self.bs = batch_size
-        self.ix = 0
-        self.seen: set[int] = set()
-
-    def __iter__(self):
-        self.ix = 0
-        self.seen = set()
-        while len(self.seen) < self.n:
-            idxs = [(self.ix + k) % self.n for k in range(self.bs)]
-            self.ix = (self.ix + self.bs) % self.n
-            # mark as seen item by item so WITHIN-batch duplicates (bs > n,
-            # e.g. after the driver's mesh rounding raised bs above a tiny
-            # split) are not fresh twice and never scored twice
-            fresh = np.empty(len(idxs), bool)
-            for k, i in enumerate(idxs):
-                fresh[k] = i not in self.seen
-                self.seen.add(i)
-            yield np.asarray(idxs), fresh

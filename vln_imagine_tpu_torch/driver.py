@@ -45,7 +45,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -389,45 +388,24 @@ class FinetuneDriver:
             mine = slice(self.shard.rank * m, (self.shard.rank + 1) * m)
         # every fresh item's results, by its place in the sequential order
         items = []
-        # a window of eval calls in flight (VLN_EVAL_PIPELINE, default 4;
-        # 1 is fully synchronous).  The port's eval step waits for the
-        # device once a step for its early exit, so a call returns with its
-        # work done and the window gives no overlap; it is kept so that a
-        # step that does not wait keeps the JAX package's semantics.
-        depth = max(int(os.environ.get("VLN_EVAL_PIPELINE", "4")), 1)
-        # length bucketing (VLN_EVAL_BUCKET=0 disables): the early-exit
-        # loop runs every batch to its SLOWEST episode, so grouping
-        # episodes by expected length (gt path length as the proxy) cuts the
-        # steps wasted on already-ended items.  Pure scheduling: each item's
-        # rollout is independent of its batchmates (ended items are frozen),
-        # so per-item results are identical to sequential order.
-        if os.environ.get("VLN_EVAL_BUCKET", "1") != "0" and n > bs:
-            gt_len = np.asarray(split.episodes.gt_len)
-            perm = np.argsort(gt_len, kind="stable").astype(np.int64)
-        else:
-            perm = np.arange(n, dtype=np.int64)
-        inflight: deque = deque()
-        sampler = iter(EvalSampler(n, bs))
-        exhausted = False
-        n_batches = 0
+        # length bucketing: the early-exit loop runs every batch to its
+        # SLOWEST episode, so grouping episodes by expected length (gt path
+        # length as the proxy) cuts the steps wasted on already-ended items.
+        # Pure scheduling: each item's rollout is independent of its
+        # batchmates (ended items are frozen), so per-item results are
+        # identical to sequential order.
         gt_path = np.asarray(split.episodes.gt_path)
         gt_len = np.asarray(split.episodes.gt_len)
         scan = np.asarray(split.episodes.scan)
-        while inflight or not exhausted:
-            while not exhausted and len(inflight) < depth:
-                nxt = next(sampler, None)
-                if nxt is None:
-                    exhausted = True
-                    break
-                pos, fresh = nxt
-                idxs, fresh = perm[pos][mine], fresh[mine]
-                out = self._eval_step(_take(split.episodes, idxs))
-                self.eval_step_counts.append(self._eval_step.steps)
-                inflight.append((n_batches, idxs, fresh, out))
-                n_batches += 1
-            if not inflight:
-                break
-            batch, idxs, fresh, out = inflight.popleft()
+        perm = (np.argsort(gt_len, kind="stable").astype(np.int64) if n > bs
+                else np.arange(n, dtype=np.int64))
+        # one call a batch, its outputs read before the next call (the
+        # port's eval step waits for the device once a step for its early
+        # exit, so a call returns with its work done)
+        for batch, (pos, fresh) in enumerate(EvalSampler(n, bs)):
+            idxs, fresh = perm[pos][mine], fresh[mine]
+            out = self._eval_step(_take(split.episodes, idxs))
+            self.eval_step_counts.append(self._eval_step.steps)
             if self._eval_detailed:
                 det_nodes, det_scores, det_valid = (x.cpu().numpy()
                                                     for x in out[-1])

@@ -8,22 +8,22 @@ which the pre-training batcher reads on the real-data path.
 
 The source is read where it is; the shared library is built with g++ at
 first use into `build/native/` at the root of the checkout, named by the
-content hash of the source and the flags, so a changed source is rebuilt
-and nothing is written into `native/`.  This is host code: no kernel.
+content hash of the source and the flags (`utils/build.py`), so a changed
+source is rebuilt and nothing is written into `native/`.  This is host
+code: no kernel.
 """
 
 from __future__ import annotations
 
 import ctypes as C
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from vln_imagine_tpu_torch.utils import build
 
 _ROOT = Path(__file__).resolve().parents[1]
 SOURCE = _ROOT / "native" / "vln_native.cc"
@@ -35,29 +35,14 @@ _lock = threading.Lock()
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libvln_native_{h.hexdigest()[:16]}.so"
+    return build.library_path(BUILD_DIR, "libvln_native", [SOURCE], CXX_FLAGS)
 
 
 def ensure_built() -> Path:
     """Build the library for the current source unless it exists."""
     path = library_path()
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", tmp, str(SOURCE),
-             "-lpthread"], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed to build {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    build.build_libraries([os.environ.get("CXX", "g++"), *CXX_FLAGS],
+                          {SOURCE: path}, link=["-lpthread"])
     return path
 
 

@@ -10,3 +10,7 @@ from vln_imagine_tpu_torch.ops.masks import (
     length_to_mask,
     masked_softmax,
 )
+
+# the op modules that declare the C entries of ops/kernels.py, so that its
+# launch_counts() knows every wrapper whichever module was imported first
+from vln_imagine_tpu_torch.ops import attention, layer_norm  # noqa: F401

@@ -13,9 +13,8 @@ All of them take the [B, L, H, D] projection layout that
 product) and return [B, L, H, D], so the model needs no head transposes.
 
 Each wrapper runs its plain version only for tensors on the CPU.  For a CUDA
-tensor it launches its kernel or raises; nothing falls back.
-`launch_counts()` gives each wrapper's kernel launches, and the LayerNorm
-kernel's.
+tensor it launches its kernel or raises; nothing falls back.  Each wrapper
+counts its launches (`ops/kernels.py:launch_counts`).
 
 Padded keys.  Where the bias is one key row an item (the [B, 1, 1, Lk]
 padding mask) and the keys take more than one staged chunk, the forward
@@ -51,44 +50,25 @@ kernels and the plain versions produce bit for bit:
   call's head 0: under tensor parallelism a rank holds heads
   [head_offset, head_offset + H), and draws their bits.
 
-The kernels are built at first use with nvcc into `build/kernels/` at the
-root of the checkout (one shared library with a plain C interface per
-source, loaded with ctypes, cached by content hash) and launched on
-PyTorch's current stream without synchronising.  The loader builds and
-loads every source of the port, `csrc/layer_norm.cu` (`ops/layer_norm.py`)
-too.
+The C entries `vln_attention_fwd` and `vln_attention_bwd` are declared here
+(`FWD`, `BWD`) and built, loaded and launched by `ops/kernels.py`, on
+PyTorch's current stream without synchronising.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 
 import torch
 
+from vln_imagine_tpu_torch.ops.kernels import DTYPE_CODE, Entry, stream
 from vln_imagine_tpu_torch.ops.masks import NEG_INF_MASK
 from vln_imagine_tpu_torch.utils import spans
-
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-# every kernel source of the port; `ops/layer_norm.py` launches the last
-SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "layer_norm.cu")
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 MAX_LK = 1024  # the backward's packed keep bits of a row fit shared memory
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on an H100
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BITS = {"hash": 1, "philox": 2}
-
-_libs: dict[str, ctypes.CDLL] = {}
-_lib_lock = threading.Lock()
 
 _M32 = 0xFFFFFFFF
 
@@ -240,96 +220,23 @@ def attention_bwd_reference(q, k, v, bias, do, scale: float, rate: float = 0.0,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
-# ------------------------------------------------------------ building
-def _source_digest(name: str) -> str:
-    """Content hash of a source, the headers it may include, and the flags."""
-    h = hashlib.sha256((CSRC / name).read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
-def _lib_path(name: str) -> Path:
-    return BUILD_DIR / f"{Path(name).stem}_{_source_digest(name)}.so"
-
-
-def build_kernels() -> dict[str, Path]:
-    """Compile every source that has no library for its content yet, one
-    nvcc process per source, all started together.  Returns name -> path."""
-    paths = {name: _lib_path(name) for name in SOURCES}
-    todo = [name for name, path in paths.items() if not path.exists()]
-    if not todo:
-        return paths
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME else "nvcc"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    try:
-        for name in todo:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            proc = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / name)],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            jobs.append((name, tmp, proc))
-        errors = []
-        for name, tmp, proc in jobs:
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                errors.append(f"nvcc failed to build {CSRC / name}:\n{err}")
-            else:
-                os.replace(tmp, paths[name])
-        if errors:
-            raise RuntimeError("\n".join(errors))
-    finally:
-        for _, tmp, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    return paths
-
-
+# ------------------------------------------------------------ C entries
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = {
-    # q k v bias o | dtype B H Lq Lk D | 13 strides | scale | bits threshold
-    # keep_scale seed row_offset head_offset | stream | tile counters
-    "vln_attention_fwd": ([_PTR] * 5 + [_INT] * 6 + [_LL] * 13
-                          + [ctypes.c_float, _INT, ctypes.c_uint32,
-                             ctypes.c_float, ctypes.c_uint64, ctypes.c_uint32,
-                             ctypes.c_uint32, _PTR, _PTR]),
-    # q k v bias do dq dk dv ds lse delta keep | dtype B H Lq Lk D |
-    # 16 strides | scale | bits threshold keep_scale seed row_offset
-    # head_offset | stream
-    "vln_attention_bwd": ([_PTR] * 12 + [_INT] * 6 + [_LL] * 16
-                          + [ctypes.c_float, _INT, ctypes.c_uint32,
-                             ctypes.c_float, ctypes.c_uint64, ctypes.c_uint32,
-                             ctypes.c_uint32, _PTR]),
-    # x r w b out | xdtype rdtype | rows H sx sr | eps | stream
-    "vln_layer_norm": ([_PTR] * 5 + [_INT, _INT, _LL, _INT, _LL, _LL,
-                                     ctypes.c_float, _PTR]),
-}
-_ENTRY = {"attention_fwd.cu": "vln_attention_fwd",
-          "attention_bwd.cu": "vln_attention_bwd",
-          "layer_norm.cu": "vln_layer_norm"}
-
-
-def load_kernels() -> dict[str, ctypes.CDLL]:
-    """Build (if needed) and load every kernel library; source -> library.
-    The first call, which builds or loads, is the span `setup.kernels`."""
-    with _lib_lock:
-        if len(_libs) < len(SOURCES):
-            with spans.span("setup.kernels"):
-                for name, path in build_kernels().items():
-                    lib = ctypes.CDLL(str(path))
-                    fn = getattr(lib, _ENTRY[name])
-                    fn.argtypes = _ARGTYPES[_ENTRY[name]]
-                    fn.restype = ctypes.c_int
-                    _libs[name] = lib
-    return dict(_libs)
+# q k v bias o | dtype B H Lq Lk D | 13 strides | scale | bits threshold
+# keep_scale seed row_offset head_offset | stream | tile counters
+FWD = Entry("vln_attention_fwd",
+            [_PTR] * 5 + [_INT] * 6 + [_LL] * 13
+            + [ctypes.c_float, _INT, ctypes.c_uint32, ctypes.c_float,
+               ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32, _PTR, _PTR],
+            launches=("attention_fwd", "attention_dropout_fwd"))
+# q k v bias do dq dk dv ds lse delta keep | dtype B H Lq Lk D |
+# 16 strides | scale | bits threshold keep_scale seed row_offset
+# head_offset | stream
+BWD = Entry("vln_attention_bwd",
+            [_PTR] * 12 + [_INT] * 6 + [_LL] * 16
+            + [ctypes.c_float, _INT, ctypes.c_uint32, ctypes.c_float,
+               ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32, _PTR],
+            launches=("attention_dropout_bwd", "attention_bwd"))
 
 
 # ------------------------------------------------------------ launching
@@ -338,7 +245,7 @@ def _check(q, k, v, bias):
     [B, H, Lq, Lk] (a view, stride 0 where broadcast) or None."""
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention kernels take bf16 or f32 q/k/v of one "
                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if k.shape != (B, Lk, H, D) or v.shape != k.shape:
@@ -378,10 +285,6 @@ def _dropout_args(rate: float, seed: int, bits: str, row_offset: int = 0,
             seed & (2**64 - 1), row_offset, head_offset)
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _check_aligned(**tensors) -> None:
     for name, t in tensors.items():
         if not _aligned(t):
@@ -401,13 +304,13 @@ def fwd_args(q, k, v, bias, out, scale, rate=0.0, seed=0, bits="philox",
     bias_ptr, bstrides = (None, (0, 0, 0, 0)) if bias is None else (
         bias.data_ptr(), bias.stride())
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, H, Lq, k.shape[1], D,
+            DTYPE_CODE[q.dtype], B, H, Lq, k.shape[1], D,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             *bstrides, float(scale),
             *_dropout_args(rate, seed, bits, row_offset, head_offset),
-            _stream(q), None if tile_counts is None else tile_counts.data_ptr())
+            stream(q), None if tile_counts is None else tile_counts.data_ptr())
 
 
 # K1 / K2's sub-tile counters, one int64 [TILE_COUNT_SLOTS, 2] (swept, total)
@@ -447,10 +350,7 @@ def _launch_fwd(q, k, v, bias, scale, rate=0.0, seed=0, bits="philox",
     counts = _tile_counter(q.device) if spans.enabled() else None
     args = fwd_args(q, k, v, bias, out, scale, rate, seed, bits, row_offset,
                     head_offset, counts)
-    err = load_kernels()["attention_fwd.cu"].vln_attention_fwd(*args)
-    if err != 0:
-        raise RuntimeError(f"attention forward kernel launch failed: CUDA "
-                           f"error {err}")
+    FWD(*args)
     return out
 
 
@@ -564,23 +464,19 @@ def _launch_bwd(q, k, v, bias, do, scale, need_dbias, rate=0.0, seed=0,
     stats = torch.empty((3, B, H, Lq), dtype=torch.float32, device=q.device)
     keep = (torch.empty((B, H, Lq, -(-Lk // 16)), dtype=torch.int32,
                         device=q.device) if rate > 0.0 else None)
-    lib = load_kernels()["attention_bwd.cu"]
-    err = lib.vln_attention_bwd(
+    BWD(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if ds is None else ds.data_ptr(),
         stats[0].data_ptr(), stats[2].data_ptr(),
         None if keep is None else keep.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, H, Lq, Lk, D,
+        DTYPE_CODE[q.dtype], B, H, Lq, Lk, D,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         do.stride(0), do.stride(1), do.stride(2),
         *bstrides, float(scale),
-        *_dropout_args(rate, seed, bits, row_offset, head_offset), _stream(q))
-    if err != 0:
-        raise RuntimeError(f"attention backward kernel launch failed: CUDA "
-                           f"error {err}")
+        *_dropout_args(rate, seed, bits, row_offset, head_offset), stream(q))
     dbias = None if ds is None else _sum_to(ds, bias.shape)
     return dq, dk, dv, dbias
 
@@ -650,19 +546,6 @@ KERNELS = {"attention_fwd": attention_fwd,
            "attention_dropout_fwd": attention_dropout_fwd,
            "attention_dropout_bwd": attention_dropout_bwd,
            "attention_bwd": attention_bwd}
-
-
-def reset_launch_counts() -> None:
-    spans.reset_counts("launches.")
-
-
-def launch_counts() -> dict[str, int]:
-    """Each wrapper's kernel launches since the last reset (the counters
-    `launches.<wrapper>` of utils/spans.py): the four attention wrappers'
-    and `ops/layer_norm.py:layer_norm`'s."""
-    n = spans.counts()
-    return {name: n.get("launches." + name, 0)
-            for name in (*KERNELS, "layer_norm")}
 
 
 # ------------------------------------------------------------ autograd

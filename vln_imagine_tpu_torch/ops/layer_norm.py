@@ -10,8 +10,7 @@ with the output in the promotion of x's and the residual's dtypes, which is
 what `x + residual` gives.  The choice rests on what the call can see:
 
 - a CUDA tensor without autograd (grad mode off, or nothing of x, the
-  residual, the weight and the bias requires grad; the test of
-  `ops/attention.py:fused_attention`): the kernel, one pass, counted
+  residual, the weight and the bias requires grad): the kernel, one pass, counted
   `launches.layer_norm` (utils/spans.py).  It takes bf16 or f32 x and
   residual, a residual of x's shape, f32 weight and bias [H] on x's device,
   H a multiple of 8 up to 4096, and raises on anything else, as the
@@ -24,22 +23,28 @@ So the CPU tests and every step under autograd run the plain expression,
 and `launches.layer_norm / (launches.layer_norm + layer_norm.plain)` is the
 share of a run's CUDA LayerNorms that took the kernel.  The kernel's numbers
 are the plain expression's but for the order of its f32 sums (the source
-says how); it is built and loaded by `ops/attention.py:load_kernels`.
+says how).  Its C entry `vln_layer_norm` is declared here (`LAYER_NORM`)
+and built, loaded and launched by `ops/kernels.py`.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
-from vln_imagine_tpu_torch.ops.attention import (
-    _DTYPE_CODE,
-    _stream,
-    load_kernels,
-)
+from vln_imagine_tpu_torch.ops.kernels import DTYPE_CODE, Entry, stream
 from vln_imagine_tpu_torch.utils import spans
 
 MAX_H = 4096
+
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# x r w b out | xdtype rdtype | rows H sx sr | eps | stream
+LAYER_NORM = Entry("vln_layer_norm",
+                   [_PTR] * 5 + [_INT, _INT, _LL, _INT, _LL, _LL,
+                                 ctypes.c_float, _PTR],
+                   launches=("layer_norm",))
 
 
 def layer_norm_reference(x: torch.Tensor, residual: torch.Tensor | None,
@@ -66,8 +71,8 @@ def _rows(t: torch.Tensor, H: int) -> torch.Tensor:
 def _check(x, residual, weight, bias) -> None:
     """Raise unless the kernel takes these inputs (the module docstring)."""
     H = x.shape[-1]
-    if x.dtype not in _DTYPE_CODE or (residual is not None
-                                      and residual.dtype not in _DTYPE_CODE):
+    if x.dtype not in DTYPE_CODE or (residual is not None
+                                     and residual.dtype not in DTYPE_CODE):
         raise ValueError(f"the layer norm kernel takes bf16 or f32 x and "
                          f"residual, got {x.dtype} and "
                          f"{None if residual is None else residual.dtype}")
@@ -99,25 +104,21 @@ def layer_norm(x: torch.Tensor, residual: torch.Tensor | None,
     else:
         dtype = torch.promote_types(x.dtype, residual.dtype)
         r2 = _rows(residual, H)
-        r_ptr, r_code, r_stride = (r2.data_ptr(), _DTYPE_CODE[r2.dtype],
+        r_ptr, r_code, r_stride = (r2.data_ptr(), DTYPE_CODE[r2.dtype],
                                    r2.stride(0))
     out = torch.empty(x.shape, dtype=dtype, device=x.device)
     rows = x2.shape[0]
     if rows:
-        err = load_kernels()["layer_norm.cu"].vln_layer_norm(
-            x2.data_ptr(), r_ptr, weight.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), _DTYPE_CODE[x.dtype], r_code, rows, H,
-            x2.stride(0), r_stride, float(eps), _stream(x))
-        if err != 0:
-            raise RuntimeError(f"layer norm kernel launch failed: CUDA "
-                               f"error {err}")
+        LAYER_NORM(x2.data_ptr(), r_ptr, weight.data_ptr(), bias.data_ptr(),
+                   out.data_ptr(), DTYPE_CODE[x.dtype], r_code, rows, H,
+                   x2.stride(0), r_stride, float(eps), stream(x))
         spans.count("launches.layer_norm")
     return out
 
 
 def _needs_grad(x, residual, weight, bias) -> bool:
-    """Whether the call runs under autograd, by the test of
-    `ops/attention.py:fused_attention`."""
+    """Whether the call runs under autograd: grad mode on and one of the
+    tensors requiring grad."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad
         for t in (x, residual, weight, bias))
