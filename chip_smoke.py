@@ -43,7 +43,13 @@ failed check exits non-zero:
                 per step, K2-K4 none), episodes/s, SR/SPL/nDTW, peak memory;
                 then one call a batch with spans on, on these episodes and
                 on the same with R2R-sized texts (`r2r_sizes`), for K1's
-                live share of key sub-tiles (`attention.key_tile_counts`).
+                live share of key sub-tiles (`attention.key_tile_counts`);
+                then `graph` (`duet_graph_runs`): at batch 64 and 512 the
+                eval step, whose steps replay one captured CUDA graph, against
+                the eager loop (`rollout_duet` without `graphs`): ms a call,
+                the replay share over the spans-off calls (gated at 100 %),
+                the same paths, lengths and stop tables bit for bit, and
+                each one's peak memory (the graph's within 1 %).
 7. duet_parity  the same in f32 at batch 4, card against CPU: identical
                 paths, step-0 fused logits within LOGIT_TOL.
 8. duet_train   the DAgger step (`DuetTrainer.make_train_step`: teacher-
@@ -1034,14 +1040,84 @@ def duet_eval_phase(torch, cfg, world):
         tiles[f"bench_B{B}"] = key_tiles(eps[B])
         tiles[f"r2r_sized_B{B}"] = key_tiles(
             r2r_episodes(eps_np[B], B).to("cuda"))
+    graph = duet_graph_runs(torch, trainer, world, cfg)
     emit({"phase": "duet_eval", "config": "duet_r2r_config",
           "compute_dtype": cfg.model.compute_dtype,
           "params": sum(p.numel() for p in trainer.model.parameters()),
           "setup_s": setup_s, "launches": launches, "runs": results,
-          "key_tiles": tiles})
+          "key_tiles": tiles, "graph": graph})
     del trainer
     torch.cuda.empty_cache()
     return launches
+
+
+GRAPH_BATCHES = (64, 512)
+GRAPH_CALLS = 5
+
+
+def duet_graph_runs(torch, trainer, world, cfg) -> dict:
+    """DUET's eval step, whose steps after a call's capture replay one CUDA
+    graph, against the eager loop on the same episodes, at each of
+    `GRAPH_BATCHES`: the median ms of `GRAPH_CALLS` calls each after a
+    warm-up (the graph's warm-up call captures), the replay share over the
+    timed calls, bit-equal outputs and each side's peak memory."""
+    from vln_imagine_tpu_torch.train.rollout_duet import rollout_duet
+    from vln_imagine_tpu_torch.utils import spans
+
+    def timed(fn):
+        times = []
+        for _ in range(GRAPH_CALLS):
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times), times, out
+
+    def peak(fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    runs = []
+    for B in GRAPH_BATCHES:
+        ep = bench_episodes(world, cfg, B).to("cuda")
+
+        def eager():
+            return rollout_duet(trainer.model, trainer.tables, ep, cfg,
+                                early_exit=True)
+
+        eval_step = trainer.make_eval_step(detailed=True)
+        eager_peak = peak(eager)
+        graph_peak = peak(lambda: eval_step(ep))  # captures
+        eager_ms, eager_all, want = timed(eager)
+        spans.reset_counts("rollout.")
+        graph_ms, graph_all, got = timed(lambda: eval_step(ep))
+        n = spans.counts()
+        steps, replays = n.get("rollout.steps", 0), n.get(
+            "rollout.graph_replays", 0)
+        check(steps == GRAPH_CALLS * want.steps and replays == steps,
+              f"duet graph batch {B}: {replays} replays of {steps} steps")
+        same = (torch.equal(got[0], want.path_nodes)
+                and torch.equal(got[1], want.path_len)
+                and all(torch.equal(a, getattr(want, k)) for a, k in zip(
+                    got[-1], ("stop_nodes", "stop_scores", "stop_valid"))))
+        check(same, f"duet graph batch {B}: outputs differ from the eager "
+              f"loop's")
+        check(graph_peak <= 1.01 * eager_peak,
+              f"duet graph batch {B}: peak {graph_peak} against the eager "
+              f"loop's {eager_peak}")
+        runs.append({"batch": B, "steps": want.steps,
+                     "eager_ms": eager_ms, "graph_ms": graph_ms,
+                     "eager_ms_all": eager_all, "graph_ms_all": graph_all,
+                     "speedup": eager_ms / graph_ms,
+                     "replay_share": replays / steps,
+                     "eager_peak_bytes": eager_peak,
+                     "graph_peak_bytes": graph_peak})
+        del eval_step, want, got
+    return {"runs": runs}
 
 
 def r2r_episodes(ep, seed: int):

@@ -21,6 +21,11 @@ each device operation leads by its correlation id to the runtime call that
 launched it, and so to the innermost span open at that moment.
 
 Counters are always on: `count(name, n)`, `counts()`, `reset_counts()`.
+A step that DUET's greedy eval replays as a captured CUDA graph counts on
+the host what its capture counted (`held_counts`, `add_counts`), and the
+counters `rollout.graph_captures` and `rollout.graph_replays` count the
+captures and the replays: replays over `rollout.steps` is the share of
+steps the graph served.
 `host_read(x)` is the one way the rollouts read a device value on the
 host: it counts `host_reads`, runs in a `rollout.host_read` span, and is the
 one place that lifts `torch.cuda.set_sync_debug_mode`, so that a test can
@@ -167,6 +172,24 @@ def count(name: str, n: int = 1) -> None:
 
 def counts() -> dict[str, int]:
     return dict(_state.counts)
+
+
+@contextlib.contextmanager
+def held_counts():
+    """Counts made inside the block go to the Counter it yields, not to the
+    process's: what a captured CUDA graph's step counted on the host, which
+    each replay of it then adds (`add_counts`)."""
+    held, saved = Counter(), _state.counts
+    _state.counts = held
+    try:
+        yield held
+    finally:
+        _state.counts = saved
+
+
+def add_counts(counts) -> None:
+    """Add a Counter (`held_counts`) to the process's counters."""
+    _state.counts.update(counts)
 
 
 def reset_counts(prefix: str = "") -> None:
